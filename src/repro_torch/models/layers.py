@@ -1,0 +1,222 @@
+"""Shared dense model layers: RMSNorm, RoPE, GQA attention, SwiGLU/GeLU MLP,
+embeddings.
+
+The port of ``repro.models.layers`` (dense parts).  Parameters live in
+``nn.Module``s under the JAX package's names and layouts: weights are
+``(d_in, d_out)`` and used as ``x @ W``; attention tensors are
+``(B, H, S, D)``.  The layer functions are plain functions on tensors.
+Attention always goes through ``repro_torch.kernels.ops``, which picks the
+CUDA kernel or the plain version by the device of the tensors.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _normal(shape, std, dtype, device, generator) -> torch.Tensor:
+    """N(0, std^2) drawn in f32 from ``generator``, cast to ``dtype``."""
+    return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norm / rope
+# --------------------------------------------------------------------------
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(d, dtype=dtype, device=device),
+                                  requires_grad=False)
+
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.scale)
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p.scale.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, H, S, D) with D even; positions: (B, S) or (S,)."""
+    half = x.shape[-1] // 2
+    if positions.dim() == 1:
+        positions = positions[None]
+    positions = positions[:, None, :]                  # broadcast over heads
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions[..., None].float() * freqs         # (B, 1, S, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# GQA attention block
+# --------------------------------------------------------------------------
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+        pdt = dtype_of(cfg.param_dtype)
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=pdt, device=device),
+                                requires_grad=False)
+        self.wq, self.wk = param(d, h * hd), param(d, kv * hd)
+        self.wv, self.wo = param(d, kv * hd), param(h * hd, d)
+        if cfg.qkv_bias:
+            self.bq, self.bk, self.bv = param(h * hd), param(kv * hd), param(kv * hd)
+
+    def reset_parameters(self, generator=None):
+        std = self.cfg.d_model ** -0.5
+        for name in ("wq", "wk", "wv", "wo"):
+            w = getattr(self, name)
+            w.copy_(_normal(w.shape, std, w.dtype, w.device, generator))
+        if self.cfg.qkv_bias:
+            for name in ("bq", "bk", "bv"):
+                nn.init.zeros_(getattr(self, name))
+
+
+def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(b, s, cfg.num_heads, hd).transpose(1, 2)
+    k = k.reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
+    v = v.reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Full (train/prefill) causal attention through the flash kernel."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    return o @ p.wo
+
+
+DecodeAttentionFn = Callable[..., torch.Tensor]
+
+
+def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
+                     decode_attention: Optional[DecodeAttentionFn] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode. x: (B, 1, d); cache: (B, KV, S, hd); pos: (B,) int.
+
+    The new k/v are written at ``pos`` in place, into ``cache_k`` and
+    ``cache_v`` themselves (the JAX package rewrites the whole cache through
+    a one-hot select, since its arrays are immutable).  ``decode_attention``
+    defaults to ``ops.decode_attention``; another function with its
+    signature (the plain version, say) may be passed."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    cache_k[rows, :, pos] = k[:, :, 0, :].to(cache_k.dtype)
+    cache_v[rows, :, pos] = v[:, :, 0, :].to(cache_v.dtype)
+    length = (pos + 1).to(torch.int32)
+    attend = decode_attention or ops.decode_attention
+    o = attend(q[:, :, 0, :].contiguous(), cache_k, cache_v, length=length)
+    return o.reshape(b, 1, cfg.num_heads * hd) @ p.wo, cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# SwiGLU / GeLU MLP
+# --------------------------------------------------------------------------
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, d_ff: Optional[int] = None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        pdt = dtype_of(cfg.param_dtype)
+        self.wi = nn.Parameter(torch.empty(d, f, dtype=pdt, device=device), requires_grad=False)
+        self.wo = nn.Parameter(torch.empty(f, d, dtype=pdt, device=device), requires_grad=False)
+        if cfg.mlp_gated:
+            self.wg = nn.Parameter(torch.empty(d, f, dtype=pdt, device=device),
+                                   requires_grad=False)
+        else:
+            self.wg = None
+
+    def reset_parameters(self, generator=None):
+        d, f = self.wi.shape
+        self.wi.copy_(_normal(self.wi.shape, d ** -0.5, self.wi.dtype, self.wi.device, generator))
+        if self.wg is not None:
+            self.wg.copy_(_normal(self.wg.shape, d ** -0.5, self.wg.dtype, self.wg.device,
+                                  generator))
+        self.wo.copy_(_normal(self.wo.shape, f ** -0.5, self.wo.dtype, self.wo.device, generator))
+
+
+def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    if p.wg is not None:
+        h = F.silu(x @ p.wg) * (x @ p.wi)
+    else:
+        h = F.gelu(x @ p.wi, approximate="tanh")    # jax.nn.gelu's default
+    return h @ p.wo
+
+
+# --------------------------------------------------------------------------
+# embeddings / unembedding
+# --------------------------------------------------------------------------
+class Embed(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        pdt = dtype_of(cfg.param_dtype)
+        shape = (cfg.padded_vocab_size, cfg.d_model)
+        self.tok = nn.Parameter(torch.empty(shape, dtype=pdt, device=device), requires_grad=False)
+        if cfg.tie_embeddings:
+            self.out = None
+        else:
+            self.out = nn.Parameter(torch.empty(shape, dtype=pdt, device=device),
+                                    requires_grad=False)
+
+    def reset_parameters(self, generator=None):
+        for w in (self.tok, self.out):
+            if w is not None:
+                w.copy_(_normal(w.shape, 0.02, w.dtype, w.device, generator))
+
+
+def embed_apply(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    return p.tok[tokens]
+
+
+def unembed_apply(p: Embed, x: torch.Tensor, vocab_size: int,
+                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Logits (B, S, Vpad) in f32; padded vocab columns are -1e30."""
+    w = p.out if p.out is not None else p.tok
+    logits = (x.to(compute_dtype) @ w.to(compute_dtype).T).float()
+    vpad = w.shape[0]
+    if vpad != vocab_size:
+        logits[..., vocab_size:] = NEG_INF
+    return logits
+
+
+def frontend_apply(cfg: ModelConfig, embeddings: torch.Tensor) -> torch.Tensor:
+    """Identity pass-through of precomputed embeddings: (B, S, d)."""
+    if embeddings.shape[-1] != cfg.d_model:
+        raise ValueError(f"embeddings width {embeddings.shape[-1]} != d_model {cfg.d_model}")
+    return embeddings
