@@ -201,7 +201,8 @@ def test_default_device_raises_without_a_card():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Importing every module of the port leaves jax and repro.* unloaded."""
+    """Importing every module of the port leaves jax, repro.* and benchmarks.*
+    unloaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -209,8 +210,9 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "from repro_torch.configs import all_configs; all_configs()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
-        "assert len(mods) >= 20, mods\n"
+        " or m == 'repro' or m.startswith('repro.')"
+        " or m == 'benchmarks' or m.startswith('benchmarks.')]\n"
+        "assert len(mods) >= 49, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
