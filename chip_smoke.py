@@ -2,54 +2,79 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero without the final ok line):
+Phases, in the order they run (any failure raises and exits non-zero
+without the final ok line):
   1. device  -- a CUDA device must be present; prints nvidia-smi's name and
                 power limit;
-  2. build   -- builds every CUDA kernel of the path from ``src/repro_torch/csrc``
-                (one nvcc per source, in parallel) and prints ptxas's summary;
-  3. kernels -- each kernel against its plain PyTorch version on the card;
-  4. serve   -- smollm_360m at full width (32 layers, d_model 960), bf16,
-                seeded random weights, batch 8, prompt 64, gen 64, through
-                ``repro_torch.launch.serve.serve``; the decode kernel must run
-                32 times per decode step; logits are held against the same
-                tokens teacher-forced through the plain attention;
-  5. forward -- a 512-token prompt (batch 4) through ``forward`` (the flash
-                kernel), held against teacher-forced decode logits;
-  6. contraction vs plain -- the contraction kernel against its plain
+  2. build   -- builds every CUDA kernel of the paths from
+                ``src/repro_torch/csrc`` (one nvcc per source, all six in
+                parallel) and prints ptxas's summary;
+  3. kernels -- each LM kernel against its plain PyTorch version on the card:
+                the attention kernels at smollm's shapes and ragged ones,
+                grouped_matmul at granite_moe_1b's decode (cap 8) and forward
+                (cap 640) shapes and a ragged one, bf16 and f32, ssm_scan at
+                zamba2's and xlstm's shapes, P = 1 and a ragged S (y and h);
+  4. contraction vs plain -- the contraction kernel against its plain
                 version in f32 and bf16 on the compile path's schedules
                 (tiled gemm at n 256 and at the path's n 4096, unscheduled
                 gemm, tiled matvec, conv nests, batched gemm), and the probe
                 kernel against x + 1;
-  7. probe   -- the compile path's once-per-process CUDA probe
+  5. serve   -- smollm_360m at full width (32 layers, d_model 960), bf16,
+                seeded random weights, batch 8, prompt 64, gen 64, through
+                ``repro_torch.launch.serve.serve``; the decode kernel must run
+                32 times per decode step; logits are held against the same
+                tokens teacher-forced through the plain attention;
+  6. forward -- a 512-token prompt (batch 4) through ``forward`` (the flash
+                kernel), held against teacher-forced decode logits;
+  7. families -- granite_moe_1b, zamba2_1_2b and xlstm_1_3b at full width
+                and depth (bf16, seeded random weights), one at a time.  The
+                main path: a serve (batch 8; prompt 32 and gen 32, xlstm 16
+                and 16) and a forward (4 x 512; zamba2 2 x 1024, xlstm
+                2 x 512); every kernel must run exactly as often as the
+                family's layers say (grouped_matmul 72 times a granite decode
+                step and forward, ssm_scan 38 times a zamba2 forward and 96
+                an xlstm one).  Then the checks, each against the same
+                tokens through the plain versions on the card
+                (``ops.plain_versions()``): granite in bf16 with the kernel
+                run's expert choices replayed (``moe_routes``); zamba2 and
+                xlstm on an f32 copy of the weights (serve, forward, and
+                teacher-forced decode of 2 x 170 tokens against the
+                forward), the bf16 forward's difference printed
+                (``family_phase`` says why); tokens/s, peak memory and device busy share per
+                family;
+  8. probe   -- the compile path's once-per-process CUDA probe
                 (``cuda_supported()``, first called here) must pass after
                 exactly one launch;
-  8. compile path at size -- gemm, 2mm and 3mm at n = 4096 (f32), tiled
+  9. compile path at size -- gemm, 2mm and 3mm at n = 4096 (f32), tiled
                 32 x 32 x 32 with the DSL's tile/split/unroll primitives,
                 through ``compile(fn, target="cuda")``: calling the program
                 and ``jitted()`` each launch the contraction kernel once per
                 statement and agree with ``torch.matmul`` compositions;
-  9. workloads -- the thirteen serving workloads (``serving_cases(False)``)
+ 10. workloads -- the thirteen serving workloads (``serving_cases(False)``)
                 through ``jitted()`` and ``batched(8)`` on the card against
                 the numpy oracle and eight sequential calls (times after a
                 warm-up, the median of five), and through
                 ``CompileService.cuda_runner`` (greedy DSE, serial);
- 10. workloads at default size -- the same thirteen programs at the
+ 11. workloads at default size -- the same thirteen programs at the
                 builders' default sizes (``default_cases()``: n 4096, the
                 stencils' 100 or 10 steps) through ``jitted()``, against the
                 same computations written directly in PyTorch on the card;
- 11. numbers -- per-kernel times with CUDA events (L2 flushed before every
+ 12. numbers -- per-kernel times with CUDA events (L2 flushed before every
                 launch), each kernel's bound, the plain version's time and a
                 PyTorch yardstick on the same inputs (SDPA, ``torch.addmm``,
-                ``torch.add``; the port never calls them), tokens/s, GFLOP/s,
-                peak memory.  One ``{"kernels": [...]}`` JSON line.
-Phases 7-10 are the compile path: every launch count is set to 0 just
-before phase 7 and read just after phase 10.
+                ``torch.add``, ``torch.bmm``; none for the scan; the port
+                never calls them).  One ``{"kernels": [...]}`` JSON line.
+Every launch count is set to 0 just before each path run (the smollm serve,
+the smollm forward, each family's serve and forward, the compile path as
+phases 8-11) and read just after; the counts in the kernels line are their
+sums, and every one of the six kernels must have run.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -77,6 +102,29 @@ POM_N, POM_T = 4096, 32     # benchmarks/workloads.py's default size; tile 32
 # |value|: both sum 4096 f32 products per output (in different orders), and
 # 3mm feeds one product into the next.
 POM_RTOL = 1e-4
+# granite_moe_1b's grouped matmuls (E 32; wi/wg d 1024 -> f 512, wo 512 ->
+# 1024) at decode (batch 8: cap 8) and forward (4 x 512 tokens: cap 640),
+# and a ragged shape no tile divides
+GMM_SHAPES = [(32, 8, 1024, 512), (32, 8, 512, 1024), (32, 640, 1024, 512),
+              (32, 320, 500, 1000)]
+# (B, S, H, P, N, x dtype, B/C broadcast over heads)
+SCAN_SHAPES = {"zamba2": (2, 1024, 32, 128, 64, torch.bfloat16, True),
+               "xlstm": (2, 512, 4, 512, 512, torch.bfloat16, False),
+               "normaliser": (2, 512, 4, 1, 512, torch.float32, False),
+               "ragged": (2, 200, 4, 64, 64, torch.float32, False)}
+# the three families, at full width and depth: serve (batch, prompt, gen),
+# forward (batch, seq), for hybrid and ssm the teacher-forced decode held
+# against the forward on the same tokens (batch, seq; 170 = 5 x 32 + 10
+# crosses the scan's chunk boundaries and leaves a ragged tail), and the
+# precision the logit checks run in (family_phase says why)
+FAMILIES = {"granite_moe_1b": dict(serve=(8, 32, 32), forward=(4, 512), consistency=None,
+                                   check_dtype="bfloat16"),
+            "zamba2_1_2b": dict(serve=(8, 32, 32), forward=(2, 1024), consistency=(2, 170),
+                                check_dtype="float32"),
+            "xlstm_1_3b": dict(serve=(8, 16, 16), forward=(2, 512), consistency=(2, 170),
+                               check_dtype="float32")}
+KERNEL_MODULES = ("decode_attention", "flash_attention", "contraction", "probe",
+                  "grouped_matmul", "ssm_scan")
 
 
 def fail(msg: str) -> None:
@@ -85,6 +133,21 @@ def fail(msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def _kernel_modules() -> dict:
+    import importlib
+    return {n: importlib.import_module(f"repro_torch.kernels.{n}") for n in KERNEL_MODULES}
+
+
+def zero_counts() -> None:
+    """Sets every kernel wrapper's launch count to 0."""
+    for m in _kernel_modules().values():
+        m.launches = 0
+
+
+def read_counts() -> dict:
+    return {n: m.launches for n, m in _kernel_modules().items()}
 
 
 # --------------------------------------------------------------------------
@@ -182,17 +245,88 @@ def kernel_phase() -> dict:
             if not err <= _tol(dt):
                 fail(f"flash_attention disagrees with its plain version: {err}")
             errs["flash_attention"] = max(errs["flash_attention"], err)
+    errs["grouped_matmul"] = gmm_vs_plain(g)
+    errs["ssm_scan"] = scan_vs_plain(g)
     return errs
 
 
+def _rel_tol(dtype, f32: float) -> float:
+    """Tolerance relative to the largest |value| of the plain result: bf16
+    outputs may round one ulp (2^-8) apart; f32 sums differ in order."""
+    return 1e-2 if dtype == torch.bfloat16 else f32
+
+
+def gmm_vs_plain(g) -> float:
+    """grouped_matmul against ref.grouped_matmul: granite_moe_1b's decode
+    (cap 8) and forward (cap 640) shapes and a ragged one (cap 320, f 1000,
+    d 500: no multiple of any tile), bf16 and f32, both schedules."""
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for e, cap, d, f in GMM_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = _randn(g, e, cap, d, dtype=dt)
+            w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(dt)
+            want = ref.grouped_matmul(x, w).float()
+            scale = want.abs().max().item()
+            for schedule in ("pom", "naive"):
+                got = ops.grouped_matmul(x, w, schedule=schedule)
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                tol = _rel_tol(dt, 1e-4) * scale
+                print(f"grouped_matmul E{e} cap{cap} d{d} f{f} {str(dt)[6:]} {schedule}: "
+                      f"max abs err {err:.3g} (tolerance {tol:.3g})")
+                if not err <= tol:
+                    fail(f"grouped_matmul disagrees with its plain version: {err}")
+                worst = max(worst, err)
+            del x, w, want
+    return worst
+
+
+def _scan_inputs(g, b, s, h, p, n, dt, broadcast):
+    """Inputs in the models' ranges: a in (0.5, 1), b and c ~ N(0, 1/N); a
+    broadcast B/C group is a stride-0 view over the heads (zamba2)."""
+    x = _randn(g, b, s, h, p, dtype=dt)
+    a = torch.rand(b, s, h, generator=g, device="cuda") * 0.5 + 0.5
+    hb = 1 if broadcast else h
+    bm = torch.randn(b, s, hb, n, generator=g, device="cuda") * n ** -0.5
+    cm = torch.randn(b, s, hb, n, generator=g, device="cuda") * n ** -0.5
+    if broadcast:
+        bm, cm = bm.expand(b, s, h, n), cm.expand(b, s, h, n)
+    return x, a, bm, cm
+
+
+def scan_vs_plain(g) -> float:
+    """ssm_scan against ref.ssm_scan (y and the final h): zamba2's shape
+    (broadcast B/C), xlstm's, the mLSTM normaliser's P = 1 and a ragged
+    S = 200, both schedules."""
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for label, (b, s, h, p, n, dt, bc) in SCAN_SHAPES.items():
+        x, a, bm, cm = _scan_inputs(g, b, s, h, p, n, dt, bc)
+        want_y, want_h = ref.ssm_scan(x, a, bm, cm)
+        for schedule in ("pom", "naive"):
+            y, hl = ops.ssm_scan(x, a, bm, cm, schedule=schedule)
+            torch.cuda.synchronize()
+            ey = (y.float() - want_y.float()).abs().max().item()
+            eh = (hl - want_h).abs().max().item()
+            ty = _rel_tol(dt, 1e-3) * want_y.float().abs().max().item()
+            th = 1e-3 * want_h.abs().max().item()
+            print(f"ssm_scan {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]} {schedule}: "
+                  f"max abs err y {ey:.3g} (tolerance {ty:.3g}), h {eh:.3g} "
+                  f"(tolerance {th:.3g})")
+            if not (ey <= ty and eh <= th):
+                fail(f"ssm_scan {label} disagrees with its plain version: {ey}, {eh}")
+            worst = max(worst, ey)
+        del x, a, bm, cm, want_y, want_h
+    return worst
+
+
 # --------------------------------------------------------------------------
-# 4. serve at full width
+# 5. serve at full width
 # --------------------------------------------------------------------------
 def serve_phase(model) -> dict:
     phase("serve smollm_360m full width")
-    from repro_torch.kernels import decode_attention as dmod
-    from repro_torch.kernels import flash_attention as fmod
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import decode_step, init_cache
     cfg = model.cfg
@@ -202,9 +336,9 @@ def serve_phase(model) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    dmod.launches = fmod.launches = 0
+    zero_counts()
     res = serve(model, prompts, gen, keep_logits=True)
-    launches = {"decode_attention": dmod.launches, "flash_attention": fmod.launches}
+    launches = read_counts()
     steps = p + gen - 1
     print(f"launches in the serve run: {launches} ({steps} decode steps)")
     if launches["decode_attention"] != cfg.num_layers * steps:
@@ -220,14 +354,8 @@ def serve_phase(model) -> dict:
 
     # the same tokens, teacher-forced, with the plain attention on the card
     forced = torch.cat([prompts.cuda(), toks[:, :-1]], dim=1)
-    cache = init_cache(cfg, b, p + gen, device="cuda")
-    plain = []
-    for t in range(steps):
-        lg, cache = decode_step(model, cache, forced[:, t],
-                                torch.full((b,), t, dtype=torch.long, device="cuda"),
-                                ref.decode_attention)
-        plain.append(lg)
-    plain = torch.stack(plain, dim=1)
+    with ops.plain_versions():
+        plain = teacher_forced(model, forced, p + gen)
     v = cfg.vocab_size
     err = (res.logits[..., :v] - plain[..., :v]).abs().max().item()
     scale = plain[..., :v].abs().max().item()
@@ -295,13 +423,11 @@ def busy_share(fn, per: int, label: str, kernel: str) -> dict:
 
 
 # --------------------------------------------------------------------------
-# 5. forward at full width
+# 6. forward at full width
 # --------------------------------------------------------------------------
 def forward_phase(model) -> dict:
     phase("forward smollm_360m full width")
-    from repro_torch.kernels import decode_attention as dmod
-    from repro_torch.kernels import flash_attention as fmod
-    from repro_torch.models import decode_step, forward, init_cache
+    from repro_torch.models import forward
     cfg = model.cfg
     tokens = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (FWD_B, FWD_S))).cuda()
@@ -309,12 +435,12 @@ def forward_phase(model) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    dmod.launches = fmod.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     logits, _ = forward(model, tokens=tokens)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
-    launches = {"decode_attention": dmod.launches, "flash_attention": fmod.launches}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"launches in the forward run: {launches}")
     if launches["flash_attention"] != cfg.num_layers:
@@ -325,13 +451,7 @@ def forward_phase(model) -> dict:
             or not bool(torch.isfinite(logits[..., :v]).all()):
         fail("forward logits malformed or not finite")
 
-    cache = init_cache(cfg, FWD_B, FWD_S, device="cuda")
-    dec = []
-    for t in range(FWD_S):
-        lg, cache = decode_step(model, cache, tokens[:, t],
-                                torch.full((FWD_B,), t, dtype=torch.long, device="cuda"))
-        dec.append(lg[:, :v])
-    dec = torch.stack(dec, dim=1)
+    dec = teacher_forced(model, tokens)[..., :v]
     err = (dec - logits[..., :v]).abs().max().item()
     tol = LOGITS_RTOL_OF_SCALE * dec.abs().max().item()
     agree = (dec.argmax(-1) == logits[..., :v].argmax(-1)).float().mean().item()
@@ -348,8 +468,304 @@ def forward_phase(model) -> dict:
     return {"forward": out, "launches": launches}
 
 
+
 # --------------------------------------------------------------------------
-# 7. the compile path's probe
+# 7. the moe, hybrid and ssm families at full width
+# --------------------------------------------------------------------------
+def expected_launches(cfg) -> tuple:
+    """Launches of the LM kernels in one forward and in one decode step."""
+    attn = {"moe": cfg.num_layers, "hybrid": cfg.num_layers // max(cfg.attn_every, 1),
+            "ssm": 0}[cfg.family]
+    gmm = 3 * (cfg.num_layers // cfg.moe_every) if cfg.family == "moe" else 0
+    scan = {"hybrid": cfg.num_layers, "ssm": 2 * cfg.num_layers}.get(cfg.family, 0)
+    return ({"flash_attention": attn, "grouped_matmul": gmm, "ssm_scan": scan},
+            {"decode_attention": attn, "grouped_matmul": gmm})
+
+
+def check_counts(label: str, got: dict, want: dict) -> None:
+    """Every kernel ran exactly as often as ``want`` says (absent: never)."""
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} ran {n} times, expected {want.get(name, 0)}")
+
+
+def logits_info(label: str, got: torch.Tensor, want: torch.Tensor, v: int) -> dict:
+    """Max abs error over the real vocabulary, the largest |logit| of
+    ``want`` and the argmax agreement, printed."""
+    got, want = got[..., :v].float(), want[..., :v].float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"{label}: max abs err {err:.4g} (logit scale {scale:.3g}, "
+          f"{err / scale:.4f} of it); argmax agreement {agree:.4f}")
+    return {"max_abs_err": err, "logit_scale": scale, "argmax_agreement": agree}
+
+
+def logits_check(label: str, got: torch.Tensor, want: torch.Tensor, v: int) -> dict:
+    """``logits_info``, failing unless every logit is finite and the max abs
+    error is within LOGITS_RTOL_OF_SCALE of the largest |logit| of ``want``."""
+    if not bool(torch.isfinite(got[..., :v]).all()):
+        fail(f"{label}: logits are not finite")
+    info = logits_info(label, got, want, v)
+    tol = LOGITS_RTOL_OF_SCALE * info["logit_scale"]
+    print(f"  tolerance {tol:.3g}")
+    if not info["max_abs_err"] <= tol:
+        fail(f"{label}: logits disagree: {info['max_abs_err']} > {tol}")
+    return info
+
+
+def route_report(label: str, stats: dict) -> dict:
+    """The replayed run's own routing against the recorded one."""
+    rep = {"slots": stats.get("slots", 0), "flips": stats.get("flips", 0),
+           "max_margin": stats.get("max_margin", 0.0)}
+    print(f"{label}: the plain run's own top k differs from the kernel run's in "
+          f"{rep['flips']} of {rep['slots']} (token, layer) slots; largest probability "
+          f"margin of a differing slot {rep['max_margin']:.3g}")
+    return rep
+
+
+def _add(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def moe_routes(log: list, replay: bool, stats: dict):
+    """Records every MoE layer's expert choices, in call order, into ``log``;
+    or (``replay``) routes each layer's tokens to the recorded experts, with
+    gate values from this run's own router probabilities, and counts in
+    ``stats`` the (token, layer) slots whose own top k differs from the
+    recorded one, with the largest probability margin of such a slot.
+
+    Why: with seeded random weights granite's router is near-uniform (the
+    8th and 9th largest of 32 probabilities are often closer than bf16's
+    resolution of the activations), so one-ulp differences upstream flip
+    expert choices, and each flip moves a token's logits by several percent
+    of their scale: two plain versions that differ only in f32 vs f64 sums
+    in the grouped matmul disagree by more than the logit tolerance
+    (measured in PERF.md).  Replaying the kernel run's choices into the
+    plain run holds every kernel, and the dispatch and combine around it,
+    to the plain versions on the same discrete routing; the routing itself
+    (plain PyTorch in both runs) is held to the JAX package's by the CPU
+    tests."""
+    from repro_torch.models import moe as MOE
+    orig = MOE.route
+    calls = iter(list(log))
+
+    def patched(p, xf, cfg):
+        probs, vals, ids = orig(p, xf, cfg)
+        if not replay:
+            log.append(ids)
+            return probs, vals, ids
+        want = next(calls)
+        differ = (ids.sort(dim=-1).values != want.sort(dim=-1).values).any(dim=-1)
+        stats["slots"] = stats.get("slots", 0) + differ.numel()
+        stats["flips"] = stats.get("flips", 0) + int(differ.sum())
+        if bool(differ.any()):
+            margin = probs.gather(1, ids).amin(-1) - probs.gather(1, want).amin(-1)
+            stats["max_margin"] = max(stats.get("max_margin", 0.0),
+                                      margin[differ].max().item())
+        vals = probs.gather(1, want)
+        if cfg.experts_per_token > 1:
+            vals = vals / vals.sum(dim=-1, keepdim=True)
+        return probs, vals, want
+
+    MOE.route = patched
+    try:
+        yield
+    finally:
+        MOE.route = orig
+
+
+def teacher_forced(model, tokens: torch.Tensor, max_seq: int = 0) -> torch.Tensor:
+    """Logits (B, S, Vpad) of ``tokens`` (B, S) fed one step at a time
+    through ``decode_step`` from an empty cache of ``max_seq`` (default S)."""
+    from repro_torch.models import decode_step, init_cache
+    b, s = tokens.shape
+    cache = init_cache(model.cfg, b, max_seq or s, device="cuda")
+    return torch.stack([decode_step(model, cache, tokens[:, t],
+                                    torch.full((b,), t, dtype=torch.long, device="cuda"))[0]
+                        for t in range(s)], dim=1)
+
+
+def hold(label: str, run, v: int, moe: bool, check: bool = True) -> dict:
+    """``run()`` -> (logits, aux) once through the kernels and once through
+    the plain versions (for the moe family with the kernel run's expert
+    choices replayed); the logits held to LOGITS_RTOL_OF_SCALE when
+    ``check``, else only reported."""
+    from repro_torch.kernels import ops
+    routes, stats = [], {}
+    with moe_routes(routes, False, stats) if moe else contextlib.nullcontext():
+        got, aux = run()
+    with ops.plain_versions(), (moe_routes(routes, True, stats) if moe
+                                else contextlib.nullcontext()):
+        want, want_aux = run()
+    label += " (kernel run's expert choices replayed)" if moe else ""
+    info = (logits_check if check else logits_info)(label, got, want, v)
+    if moe:
+        info["routing"] = route_report(label, stats)
+    if aux is not None:
+        info["aux"], info["plain_aux"] = aux.item(), want_aux.item()
+        print(f"{label}: aux loss {aux.item():.6g}, plain {want_aux.item():.6g}")
+        if check and not abs(aux.item() - want_aux.item()) <= \
+                LOGITS_RTOL_OF_SCALE * abs(want_aux.item()):
+            fail(f"{label}: aux loss {aux.item()} disagrees with the plain {want_aux.item()}")
+    return info
+
+
+def family_phase(arch: str) -> dict:
+    """One model of the moe, hybrid or ssm family at full width and depth:
+    the main path (a serve and a forward in bf16, seeded random weights,
+    every count set to 0 just before each and read just after), then the
+    checks.  granite_moe_1b is held in bf16 against the plain versions with
+    the kernel run's expert choices replayed (``moe_routes``).  zamba2 and
+    xlstm are held in f32, on an f32 copy of the same weights, at the same
+    shapes (serve, forward, and teacher-forced decode against the forward):
+    with random weights both are chaotic (a small move of one embedding row
+    moves the f32 logits by a large part of their scale), so two bf16
+    computations that round at different places decorrelate: the bf16
+    forward's difference is printed, not checked (PERF.md has the
+    measurements, on the H100)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, decode_step, forward, init_cache, init_params
+    spec = FAMILIES[arch]
+    cfg = get_config(arch)
+    phase(f"{arch} full width")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"params {n_params}, {cfg.param_dtype}; init {time.perf_counter() - t0:.1f}s")
+    fwd_per, dec_per = expected_launches(cfg)
+    kernel = "gmm_kernel" if cfg.family == "moe" else "ssm_scan_kernel"
+    moe = cfg.family == "moe"
+    v = cfg.vocab_size
+    launches = {}
+    out = {"params": n_params}
+
+    # main path 1: serve (teacher-forced prefill + greedy decode)
+    b, p, gen = spec["serve"]
+    steps = p + gen - 1
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, v, (b, p)))
+    serve(model, prompts[:, :4], 4)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = serve(model, prompts, gen, keep_logits=True)
+    got = read_counts()
+    _add(launches, got)
+    print(f"launches in the serve run: {got} ({steps} decode steps)")
+    check_counts(f"{arch} serve", got, {k: n * steps for k, n in dec_per.items()})
+    serve_peak = torch.cuda.max_memory_allocated()
+    toks = res.tokens
+    if toks.shape != (b, gen) or not bool(((toks >= 0) & (toks < v)).all()):
+        fail(f"{arch}: served tokens malformed: {tuple(toks.shape)}")
+    if not bool(torch.isfinite(res.logits[..., :v]).all()):
+        fail(f"{arch}: served logits are not finite")
+    pre_tps, dec_tps = res.tokens_per_s(b, p, gen)
+    out["serve"] = {"batch": b, "prompt": p, "gen": gen, "prefill_tok_s": pre_tps,
+                    "decode_tok_s": dec_tps, "decode_ms_per_step": 1e3 * res.decode_s / (gen - 1),
+                    "peak_mem_bytes": serve_peak}
+    print(f"{arch} serve: prefill {pre_tps:.1f} tok/s, decode {dec_tps:.1f} tok/s "
+          f"({out['serve']['decode_ms_per_step']:.2f} ms/step), peak memory "
+          f"{serve_peak / 2**30:.3f} GiB")
+    forced = torch.cat([prompts.cuda(), toks[:, :-1]], dim=1)
+    served_logits = res.logits
+    del res
+
+    # main path 2: forward (prefill)
+    fb, fs = spec["forward"]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, v, (fb, fs))).cuda()
+    forward(model, tokens=tokens[:, :64])      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, _ = forward(model, tokens=tokens)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    got = read_counts()
+    _add(launches, got)
+    fwd_peak = torch.cuda.max_memory_allocated()
+    print(f"launches in the forward run: {got}")
+    check_counts(f"{arch} forward", got, fwd_per)
+    if logits.shape != (fb, fs, cfg.padded_vocab_size) \
+            or not bool(torch.isfinite(logits[..., :v]).all()):
+        fail(f"{arch}: forward logits malformed or not finite")
+    out["forward"] = {"batch": fb, "seq": fs, "forward_s": fwd_s, "prefill_tok_s": fb * fs / fwd_s,
+                      "peak_mem_bytes": fwd_peak}
+    print(f"{arch} forward: {fwd_s * 1e3:.2f} ms for {fb}x{fs} tokens "
+          f"({fb * fs / fwd_s:.0f} tok/s), peak memory {fwd_peak / 2**30:.3f} GiB")
+
+    # the kernel path repeats bit for bit (no atomics on it)
+    again = teacher_forced(model, forced, p + gen)
+    out["serve"]["rerun_max_abs_err"] = (again - served_logits).abs().max().item()
+    fwd_again, _ = forward(model, tokens=tokens)
+    out["forward"]["rerun_max_abs_err"] = (fwd_again - logits).abs().max().item()
+    print(f"{arch} the kernels again on the same tokens: serve max abs err "
+          f"{out['serve']['rerun_max_abs_err']:.4g}, forward "
+          f"{out['forward']['rerun_max_abs_err']:.4g}")
+    del fwd_again, served_logits, logits
+
+    def serve_run(m):
+        return lambda: (teacher_forced(m, forced, p + gen), None)
+
+    def forward_run(m, t):
+        return lambda: forward(m, tokens=t)
+
+    bf16 = spec["check_dtype"] == "bfloat16"
+    if bf16:
+        out["serve"]["bf16_vs_plain"] = hold(
+            f"{arch} serve logits (bf16) vs plain teacher forcing", serve_run(model), v, moe)
+    out["forward"]["bf16_vs_plain"] = hold(
+        f"{arch} forward {fb}x{fs} (bf16) vs plain forward", forward_run(model, tokens), v,
+        moe, check=bf16)
+    if moe:
+        from repro_torch.kernels import ops
+        with ops.plain_versions():
+            free = teacher_forced(model, forced, p + gen)
+        out["serve"]["unreplayed"] = logits_info(
+            f"{arch} serve logits vs plain teacher forcing, routing free (not checked)",
+            again, free, v)
+        del free
+    del again
+    if not bf16:                               # the checks, in f32
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        m32 = Model(cfg32, "cuda")
+        m32.load_state_dict({k: t.float() for k, t in model.state_dict().items()})
+        out["serve"]["f32_vs_plain"] = hold(
+            f"{arch} serve logits (f32 copy) vs plain teacher forcing", serve_run(m32), v,
+            moe)
+        out["forward"]["f32_vs_plain"] = hold(
+            f"{arch} forward {fb}x{fs} (f32 copy) vs plain forward",
+            forward_run(m32, tokens), v, moe)
+        cb, cs = spec["consistency"]           # teacher-forced decode == forward
+        ctoks = tokens[:cb, :cs].contiguous()
+        full, _ = forward(m32, tokens=ctoks)
+        out["decode_vs_forward_f32"] = logits_check(
+            f"{arch} teacher-forced decode vs forward over {cb}x{cs} (f32 copy)",
+            teacher_forced(m32, ctoks), full, v)
+        del m32, full
+
+    n = 8
+
+    def eight_steps():
+        c = init_cache(cfg, b, n, device="cuda")
+        for t in range(n):
+            decode_step(model, c, forced[:, t], torch.full((b,), t, dtype=torch.long,
+                                                          device="cuda"))
+    out["decode_busy"] = busy_share(eight_steps, n, f"{arch} decode step", kernel)
+    out["forward_busy"] = busy_share(lambda: forward(model, tokens=tokens), 1,
+                                     f"{arch} forward", kernel)
+    del model, tokens, forced
+    torch.cuda.empty_cache()
+    return {"summary": out, "launches": launches}
+
+# --------------------------------------------------------------------------
+# 8. the compile path's probe
 # --------------------------------------------------------------------------
 def probe_phase() -> None:
     phase("probe")
@@ -363,7 +779,7 @@ def probe_phase() -> None:
 
 
 # --------------------------------------------------------------------------
-# 6. contraction kernel vs plain version (and the probe kernel vs x + 1)
+# 4. contraction kernel vs plain version (and the probe kernel vs x + 1)
 # --------------------------------------------------------------------------
 def sched_contraction(handle, t: int) -> None:
     """The schedule of tests/test_backend_pallas.py for a 3-dim contraction
@@ -452,7 +868,7 @@ def contraction_phase() -> tuple:
 
 
 # --------------------------------------------------------------------------
-# 8. the POM compile path at size: gemm, 2mm, 3mm at n = 4096
+# 9. the POM compile path at size: gemm, 2mm, 3mm at n = 4096
 # --------------------------------------------------------------------------
 def _matmul_reference(name: str, a: dict) -> dict:
     """The same programs as torch.matmul compositions (a check, not the port)."""
@@ -521,7 +937,7 @@ def compile_path_phase() -> dict:
 
 
 # --------------------------------------------------------------------------
-# 9. the thirteen serving workloads on the card
+# 10. the thirteen serving workloads on the card
 # --------------------------------------------------------------------------
 def _workload_inputs(fn, b=None, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
@@ -616,7 +1032,7 @@ def workloads_phase() -> dict:
 
 
 # --------------------------------------------------------------------------
-# 10. the thirteen workloads at their default sizes
+# 11. the thirteen workloads at their default sizes
 # --------------------------------------------------------------------------
 def _seidel(a: torch.Tensor, steps: int) -> torch.Tensor:
     """Gauss-Seidel in place, one anti-diagonal at a time: the points of a
@@ -719,7 +1135,7 @@ def default_size_phase() -> dict:
 
 
 # --------------------------------------------------------------------------
-# 11. numbers
+# 12. numbers
 # --------------------------------------------------------------------------
 def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     """Mean device time of ``fn`` with the 50 MB L2 flushed before each call.
@@ -865,18 +1281,68 @@ def compile_numbers_phase(errs: dict, launches: dict) -> list:
     return rows
 
 
+def lm_numbers_phase(errs: dict, launches: dict) -> list:
+    """grouped_matmul at granite_moe_1b's decode shape (the row; its forward
+    shape beside it) and ssm_scan at zamba2's shape (the row; xlstm's beside
+    it)."""
+    phase("numbers: MoE and SSM kernels")
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dt = torch.bfloat16
+    gmm = {}
+    for e, cap, d, f in (GMM_SHAPES[0], GMM_SHAPES[2]):
+        x = _randn(g, e, cap, d, dtype=dt)
+        w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(dt)
+        bms, by = bound((e * cap * d + e * d * f + e * cap * f) * 2, 2.0 * e * cap * d * f, dt)
+        ms = time_ms(lambda: ops.grouped_matmul(x, w))
+        plain_ms = time_ms(lambda: ref.grouped_matmul(x, w), iters=20)
+        lib_ms = time_ms(lambda: torch.bmm(x, w))
+        print(f"grouped_matmul E{e} cap{cap} d{d} f{f} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.bmm {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        gmm[cap] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib_ms, "shape": f"E {e}, cap {cap}, d {d}, f {f}, bf16"}
+        del x, w
+    rows = [{"name": "grouped_matmul", "route": "cuda",
+             "source": "src/repro_torch/csrc/grouped_matmul.cu",
+             "replaces": "src/repro/kernels/grouped_matmul.py:18",
+             "launches": launches["grouped_matmul"], "max_abs_err": errs["grouped_matmul"],
+             **gmm[8], "library": "torch.bmm", "at_forward_shape": gmm[640]}]
+    scan = {}
+    for label in ("zamba2", "xlstm"):
+        b, s, h, p, n, sdt, bc = SCAN_SHAPES[label]
+        x, a, bm, cm = _scan_inputs(g, b, s, h, p, n, sdt, bc)
+        hb = 1 if bc else h
+        # each input read once (a broadcast B/C group once), y and h written
+        byts = 2 * b * s * h * p * x.element_size() + 4 * b * s * h + 8 * b * s * hb * n \
+            + 4 * b * h * n * p
+        bms, by = bound(byts, 4.0 * b * s * h * n * p, torch.float32)
+        ms = time_ms(lambda: ops.ssm_scan(x, a, bm, cm), iters=20)
+        plain_ms = time_ms(lambda: ref.ssm_scan(x, a, bm, cm), iters=3, warmup=1)
+        print(f"ssm_scan {label} B{b} S{s} H{h} P{p} N{n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bms:.5f} ms ({by})")
+        scan[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "shape": f"B {b}, S {s}, H {h}, P {p}, N {n}, x {str(sdt)[6:]}"}
+        del x, a, bm, cm
+    rows.append({"name": "ssm_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssm_scan.cu",
+                 "replaces": "src/repro/kernels/ssm_scan.py:28",
+                 "launches": launches["ssm_scan"], "max_abs_err": errs["ssm_scan"],
+                 **scan["zamba2"], "library_ms": None,
+                 "library": "none: no single PyTorch call computes the scan",
+                 "at_xlstm_shape": scan["xlstm"]})
+    return rows
+
+
 def main() -> None:
     card = device_phase()
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails where the repo is absent)
     from repro_torch.configs import get_config
-    from repro_torch.kernels import contraction as cmod
-    from repro_torch.kernels import probe as pmod
     from repro_torch.models import init_params
 
     build_phase()
     errs = kernel_phase()
     errs["contraction"], errs["probe"] = contraction_phase()
+    launches: dict = {}                    # summed over every path run below
     cfg = get_config("smollm_360m")
     model = init_params(cfg, seed=0, device="cuda")
     print(f"model {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
@@ -884,25 +1350,36 @@ def main() -> None:
           f"{sum(p.numel() for p in model.parameters())}, {cfg.param_dtype}")
     served = serve_phase(model)
     fwd = forward_phase(model)
+    _add(launches, served["launches"])
+    _add(launches, fwd["launches"])
     del model
     torch.cuda.empty_cache()
-    # the compile path (slice 2): its counts set to 0 just before it, read
+    # slice 3: each family's serve and forward count their own launches
+    families = {}
+    for arch in FAMILIES:
+        res = family_phase(arch)
+        families[arch] = res["summary"]
+        _add(launches, res["launches"])
+    # the compile path (slice 2): every count set to 0 just before it, read
     # just after; its probe runs here for the first time in the process
-    cmod.launches = pmod.launches = 0
+    zero_counts()
     probe_phase()
     pom = compile_path_phase()
     wl = workloads_phase()
     wl_default = default_size_phase()
-    launches = {"decode_attention": served["launches"]["decode_attention"],
-                "flash_attention": fwd["launches"]["flash_attention"],
-                "contraction": cmod.launches, "probe": pmod.launches}
-    print(f"launches on the compile path: contraction {cmod.launches}, probe {pmod.launches}")
-    for name, n in launches.items():
-        if n == 0:
+    compile_counts = read_counts()
+    print(f"launches on the compile path: {compile_counts}")
+    check_counts("compile path", {k: n for k, n in compile_counts.items()
+                                  if k not in ("contraction", "probe")}, {})
+    _add(launches, compile_counts)
+    print(f"launches on all paths: {launches}")
+    for name in KERNEL_MODULES:
+        if launches.get(name, 0) == 0:
             fail(f"{name} was never launched on the main path")
-    rows = numbers_phase(errs, launches) + compile_numbers_phase(errs, launches)
+    rows = (numbers_phase(errs, launches) + compile_numbers_phase(errs, launches)
+            + lm_numbers_phase(errs, launches))
     print(json.dumps({"serve": served["serve"], "forward": fwd["forward"],
-                      "compile_path": pom, "workloads": wl,
+                      "families": families, "compile_path": pom, "workloads": wl,
                       "workloads_default_size": wl_default, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,146 @@
+// Grouped (per-expert) matmul for Hopper (sm_90a): out[e] = x[e] @ w[e].
+//
+// Replaces the Pallas TPU kernel `_gmm_kernel` / `grouped_matmul` in
+// src/repro/kernels/grouped_matmul.py (:18, :32).  There the grid is
+// (expert, m block, n block, k block) with the k axis "arbitrary": an f32
+// accumulator in VMEM scratch is zeroed at the first k step and flushed at
+// the last, and cap, f and d must be multiples of their blocks (asserted).
+// Here the k axis is a loop inside the block with the f32 sums in
+// registers, and every edge (cap, d, f) is masked, so any shape runs.
+//
+// Bound: at the MoE decode shape (granite_moe_1b, batch 8: cap 8, E 32,
+// d 1024, f 512) the bytes of the expert weights (32 MiB a call, read once)
+// dominate; at the forward shape (4 x 512 tokens: cap 640) the 21.5 GFLOP
+// of a call dominate (f32 CUDA cores: this first version does not use the
+// tensor cores).  The design therefore lets the tile height follow cap
+// (BM 8, 32, 64 or 128 rows, chosen by autotune.pom_gmm_schedule): at
+// decode an 8-row tile reads each weight element once and computes no
+// padding rows, while at the forward shape a 128-row tile re-reads the
+// weights only cap / 128 times.  Each block stages a BM x BK tile of x
+// (transposed) and a BK x BN tile of w in shared memory per k step, and
+// every thread keeps a TM x TN block of f32 sums in registers.  Its rows
+// and columns are interleaved (row ty + i * BM/TM, column tx + j * BN/TN),
+// so the reads of a warp from shared memory and its stores to out are on
+// consecutive addresses.  wgmma, TMA and a multi-stage pipeline are later
+// work.
+//
+// Layouts (all contiguous): x (E, cap, d), w (E, d, f), out (E, cap, f) in
+// x's dtype (float32 or bfloat16; w of the same dtype).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+constexpr int kBN = 64;  // every tile is 64 columns wide (autotune.GMM_BN)
+
+template <typename T, int BM, int BK, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (kBN / TN))
+gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+           int cap, int d, int f) {
+  constexpr int CX = kBN / TN;           // threads along n
+  constexpr int NT = (BM / TM) * CX;     // threads in the block
+  __shared__ float xs[BK][BM + 1];       // x tile, transposed: xs[k][m]
+  __shared__ float ws[BK][kBN];          // w tile: ws[k][n]
+  const int tid = threadIdx.x;
+  const int tx = tid % CX, ty = tid / CX;
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
+  const T* xe = x + (size_t)e * cap * d;
+  const T* we = w + (size_t)e * d * f;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < d; k0 += BK) {
+    // x tile: consecutive threads walk k along a row of x (contiguous in d)
+    for (int i = tid; i < BM * BK; i += NT) {
+      const int m = i / BK, k = i - (i / BK) * BK;
+      const int gm = m0 + m, gk = k0 + k;
+      xs[k][m] = (gm < cap && gk < d) ? to_f(xe[(size_t)gm * d + gk]) : 0.f;
+    }
+    // w tile: consecutive threads walk n along a row of w (contiguous in f)
+    for (int i = tid; i < BK * kBN; i += NT) {
+      const int k = i / kBN, n = i - (i / kBN) * kBN;
+      const int gk = k0 + k, gn = n0 + n;
+      ws[k][n] = (gk < d && gn < f) ? to_f(we[(size_t)gk * f + gn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[k][ty + i * (BM / TM)];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ws[k][tx + j * CX];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * b[j];
+    }
+    __syncthreads();  // the next step overwrites both tiles
+  }
+
+  T* oe = out + (size_t)e * cap * f;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty + i * (BM / TM);
+    if (gm >= cap) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx + j * CX;
+      if (gn < f) oe[(size_t)gm * f + gn] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int BM, int BK, int TM, int TN>
+cudaError_t launch(const void* x, const void* w, void* out, int e, int cap, int d, int f,
+                   cudaStream_t stream) {
+  constexpr int threads = (BM / TM) * (kBN / TN);
+  const dim3 grid((f + kBN - 1) / kBN, (cap + BM - 1) / BM, e);
+  gmm_kernel<T, BM, BK, TM, TN><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), cap, d, f);
+  return cudaGetLastError();
+}
+
+// The tile heights of autotune.GMM_BM, each with its k step and per-thread
+// block: 8 rows (decode) 128 threads of 1 x 4; 32 rows 256 threads of 2 x 4;
+// 64 rows 256 threads of 4 x 4; 128 rows 256 threads of 8 x 4.
+template <typename T>
+cudaError_t dispatch(const void* x, const void* w, void* out, int e, int cap, int d, int f,
+                     int bm, cudaStream_t stream) {
+  switch (bm) {
+    case 8: return launch<T, 8, 32, 1, 4>(x, w, out, e, cap, d, f, stream);
+    case 32: return launch<T, 32, 32, 2, 4>(x, w, out, e, cap, d, f, stream);
+    case 64: return launch<T, 64, 16, 4, 4>(x, w, out, e, cap, d, f, stream);
+    case 128: return launch<T, 128, 16, 8, 4>(x, w, out, e, cap, d, f, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// launch (0 on success); cudaErrorInvalidValue for an unsupported shape.
+extern "C" int grouped_matmul_launch(const void* x, const void* w, void* out, int e, int cap,
+                                     int d, int f, int bm, int dtype, void* stream) {
+  if (e <= 0 || e > 65535 || cap <= 0 || d <= 0 || f <= 0 || bm <= 0 ||
+      (cap + bm - 1) / bm > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch<float>(x, w, out, e, cap, d, f, bm, st);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(x, w, out, e, cap, d, f, bm, st);
+  return (int)cudaErrorInvalidValue;
+}

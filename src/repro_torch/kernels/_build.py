@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("decode_attention", "flash_attention", "contraction", "probe")
+KERNELS = ("decode_attention", "flash_attention", "contraction", "probe", "grouped_matmul",
+           "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

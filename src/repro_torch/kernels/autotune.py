@@ -21,6 +21,14 @@ FLASH_BQ = (32, 64)
 FLASH_BKV = (32, 64, 128)
 DECODE_BKV = (32, 64, 128, 256)
 HEAD_DIMS = (32, 64, 128)
+# tile heights compiled into csrc/grouped_matmul.cu; every tile is GMM_BN wide
+GMM_BM = (8, 32, 64, 128)
+GMM_BN = 64
+# chunk lengths and P tiles compiled into csrc/ssm_scan.cu; N is streamed in
+# tiles of SCAN_NT
+SCAN_CHUNKS = (32, 64)
+SCAN_PTILES = (16, 32, 64)
+SCAN_NT = 32
 
 
 def flash_smem_bytes(bq: int, bkv: int, d: int) -> int:
@@ -154,33 +162,95 @@ def pom_decode_schedule(skv: int, d: int, group: int, dtype_bytes: int = 2,
 @dataclass(frozen=True)
 class ScanSchedule:
     chunk: int
+    p_tile: int
     terms: RooflineTerms
     smem_bytes: int
 
 
-@functools.lru_cache(maxsize=4096)
-def pom_scan_schedule(s: int, p: int, n: int, dtype_bytes: int = 2,
-                      spec: HopperSpec = H100) -> ScanSchedule:
-    """Chunk length for the chunked SSM scan: the POM split factor.
+def scan_smem_bytes(chunk: int, p_tile: int, n: int) -> int:
+    """Dynamic shared memory of one ``csrc/ssm_scan.cu`` block (f32): the
+    carried h (N rounded up to ``SCAN_NT`` rows x the P tile), the chunk of
+    X, the masked decay matrix (padded rows), the streamed B and C tiles
+    (padded rows) and the per-step cumsum, exp(cum) and carry weights."""
+    n_pad = -(-n // SCAN_NT) * SCAN_NT
+    return 4 * (n_pad * p_tile + chunk * p_tile + chunk * (chunk + 1)
+                + 2 * chunk * (SCAN_NT + 1) + 3 * chunk)
 
-    Larger chunks raise arithmetic intensity (L^2 work on L inputs) but the
-    L x L decay matrix and the (N, P) f32 carry must fit in one block's shared
-    memory.  No port kernel takes this yet: the scan kernel is still to be
-    ported."""
+
+def _scan_cost(s: int, p: int, n: int, dtype_bytes: int, groups: int, chunk: int,
+               p_tile: int, model: HopperModel) -> RooflineTerms:
+    """The kernel's padded work and traffic: every (b, h, P tile) block
+    recomputes C B^T per chunk and streams B and C once; x, a and y move
+    once; the f32 CUDA-core rate is scaled down when the grid does not fill
+    the card's SMs."""
+    n_pad = -(-n // SCAN_NT) * SCAN_NT
+    p_tiles, chunks = -(-p // p_tile), -(-s // chunk)
+    blocks = groups * p_tiles
+    per_chunk = chunk * chunk * n_pad + chunk * chunk * p_tile + 2 * chunk * n_pad * p_tile
+    flops = 2.0 * blocks * chunks * per_chunk
+    byts = groups * (2 * s * p * dtype_bytes + 4 * s + 8 * s * n * p_tiles + 4 * n * p)
+    fill = min(1.0, blocks / model.spec.num_sms)
+    return model.kernel_terms(flops / fill, byts, tensor_cores=False)
+
+
+@functools.lru_cache(maxsize=4096)
+def pom_scan_schedule(s: int, p: int, n: int, dtype_bytes: int = 2, groups: int = 1,
+                      spec: HopperSpec = H100) -> ScanSchedule:
+    """Chunk length L (the POM split factor) and P tile for ``csrc/ssm_scan.cu``.
+
+    One block per (b * h, P tile) carries h (N x P tile, f32) in shared
+    memory across the chunks, so the P tile is bounded by the 232,448 bytes
+    a block may use (xlstm's N x P = 512 x 512 f32 carry is 1 MiB: it must
+    be split over P).  A narrower P tile fills more SMs but recomputes the
+    L x L matrix C B^T once more per tile; a longer chunk means fewer
+    sequential steps but L^2 work per step.  Any S is accepted: the kernel
+    pads the tail chunk with a = 1, b = 0, x = 0.  ``groups`` is B * H.
+    Ties go to the longer chunk, then to the smaller footprint."""
     model = HopperModel(spec)
-    best: Optional[ScanSchedule] = None
-    L = 64
-    while L <= min(s, 1024):
-        if s % L == 0:
-            smem = (L * p + 2 * L * n) * dtype_bytes * 2 + L * L * 4 + n * p * 4
-            if smem <= spec.smem_bytes:
-                flops = 2.0 * s * (L * n + L * p + n * p)
-                byts = s * (p + 2 * n + 1) * dtype_bytes + n * p * 4 * (s // L)
-                terms = model.kernel_terms(flops, byts)
-                cand = ScanSchedule(L, terms, smem)
-                if best is None or cand.terms.bound_s < best.terms.bound_s:
-                    best = cand
-        L *= 2
+    best, best_key = None, None
+    for chunk in SCAN_CHUNKS:
+        for p_tile in SCAN_PTILES:
+            smem = scan_smem_bytes(chunk, p_tile, n)
+            if smem > spec.smem_bytes:
+                continue
+            terms = _scan_cost(s, p, n, dtype_bytes, groups, chunk, p_tile, model)
+            key = (terms.bound_s, -chunk, smem)
+            if best is None or key < best_key:
+                best, best_key = ScanSchedule(chunk, p_tile, terms, smem), key
     if best is None:
-        raise ValueError(f"no scan chunk of s={s} fits in shared memory")
+        raise ValueError(f"ssm_scan: no (chunk, P tile) of state size N {n} fits in "
+                         f"{spec.smem_bytes} bytes of shared memory")
+    return best
+
+
+@dataclass(frozen=True)
+class GmmSchedule:
+    bm: int
+    terms: RooflineTerms
+
+
+@functools.lru_cache(maxsize=4096)
+def pom_gmm_schedule(e: int, cap: int, d: int, f: int, dtype_bytes: int = 2,
+                     spec: HopperSpec = H100) -> GmmSchedule:
+    """Tile height bm for ``csrc/grouped_matmul.cu`` ((bm, ``GMM_BN``) output
+    tiles, one block per (expert, m tile, n tile)).
+
+    The height follows the capacity: each tile computes bm rows whether or
+    not cap fills them, so at decode (cap 8) a 128-row tile would do 16x the
+    work, while there the bound is the bytes of the expert weights, read
+    once per m tile.  Work is charged at the f32 CUDA-core rate (the kernel
+    computes there), scaled down when the grid does not fill the SMs; ties
+    go to fewer bytes (taller tiles re-read the weights less)."""
+    model = HopperModel(spec)
+    best, best_key = None, None
+    n_tiles = -(-f // GMM_BN)
+    for bm in GMM_BM:
+        m_tiles = -(-cap // bm)
+        flops = 2.0 * e * m_tiles * bm * n_tiles * GMM_BN * d
+        byts = e * (cap * d * n_tiles + d * f * m_tiles + cap * f) * dtype_bytes
+        fill = min(1.0, e * m_tiles * n_tiles / spec.num_sms)
+        terms = model.kernel_terms(flops / fill, byts, tensor_cores=False)
+        key = (terms.bound_s, byts)
+        if best is None or key < best_key:
+            best, best_key = GmmSchedule(bm, terms), key
     return best

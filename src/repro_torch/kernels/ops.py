@@ -3,35 +3,92 @@
 Every op takes ``schedule='pom' | 'naive'`` (POM-DSE block sizes from
 ``autotune`` vs fixed defaults).  There is no ``impl`` and no ``interpret``:
 the device of the tensors decides.  A CUDA tensor goes to the hand-written
-kernel, a CPU tensor to its plain PyTorch version.
+kernel, a CPU tensor to its plain PyTorch version.  Inside
+``plain_versions()`` every op takes the plain version on any device: that is
+how a model is run on the card as the reference its kernels are held to.
 """
 from __future__ import annotations
 
-from .autotune import pom_attention_schedule, pom_decode_schedule
+import contextlib
+
+from . import ref
+from .autotune import (pom_attention_schedule, pom_decode_schedule, pom_gmm_schedule,
+                       pom_scan_schedule)
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
+from .grouped_matmul import grouped_matmul as _gmm_cuda
+from .ssm_scan import ssm_scan as _scan_cuda
+
+_plain = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block (process-wide), every op computes with its kernel's
+    plain PyTorch version, whatever the device; kernels do not launch."""
+    global _plain
+    before, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = before
+
+
+def _check(schedule: str) -> None:
+    if schedule not in ("pom", "naive"):
+        raise ValueError(f"schedule must be 'pom' or 'naive', got {schedule!r}")
 
 
 def attention(q, k, v, *, causal: bool = True, schedule: str = "pom"):
     """q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
+    _check(schedule)
+    if _plain:
+        return ref.attention(q, k, v, causal=causal)
     if schedule == "pom":
         s = pom_attention_schedule(q.shape[2], k.shape[2], q.shape[3],
                                    q.element_size(), causal)
         bq, bkv = s.bq, s.bkv
-    elif schedule == "naive":
-        bq = bkv = 64
     else:
-        raise ValueError(f"schedule must be 'pom' or 'naive', got {schedule!r}")
+        bq = bkv = 64
     return _flash_cuda(q, k, v, causal=causal, bq=bq, bkv=bkv)
 
 
 def decode_attention(q, k, v, *, length=None, schedule: str = "pom"):
     """q: (B, Hq, D), k/v: (B, Hkv, S, D), length: (B,) int32 -> (B, Hq, D)."""
+    _check(schedule)
+    if _plain:
+        return ref.decode_attention(q, k, v, length=length)
     if schedule == "pom":
         bkv = pom_decode_schedule(k.shape[2], q.shape[2], q.shape[1] // k.shape[1],
                                   q.element_size()).bkv
-    elif schedule == "naive":
-        bkv = 64
     else:
-        raise ValueError(f"schedule must be 'pom' or 'naive', got {schedule!r}")
+        bkv = 64
     return _decode_cuda(q, k, v, length=length, bkv=bkv)
+
+
+def grouped_matmul(x, w, *, schedule: str = "pom"):
+    """x: (E, cap, d) @ w: (E, d, f) -> (E, cap, f) in x's dtype."""
+    _check(schedule)
+    if _plain:
+        return ref.grouped_matmul(x, w)
+    if schedule == "pom":
+        bm = pom_gmm_schedule(x.shape[0], x.shape[1], x.shape[2], w.shape[2],
+                              x.element_size()).bm
+    else:
+        bm = 64
+    return _gmm_cuda(x, w, bm=bm)
+
+
+def ssm_scan(x, a, b, c, *, schedule: str = "pom"):
+    """x: (B, S, H, P), a: (B, S, H), b/c: (B, S, H, N) -> (y (B, S, H, P) in
+    x's dtype, final h (B, H, N, P) f32), from h = 0."""
+    _check(schedule)
+    if _plain:
+        return ref.ssm_scan(x, a, b, c)
+    if schedule == "pom":
+        bsz, s, nh, p = x.shape
+        sc = pom_scan_schedule(s, p, b.shape[3], x.element_size(), bsz * nh)
+        chunk, p_tile = sc.chunk, sc.p_tile
+    else:
+        chunk, p_tile = 64, 32
+    return _scan_cuda(x, a, b, c, chunk=chunk, p_tile=p_tile)

@@ -151,3 +151,31 @@ def contraction(desc, x: torch.Tensor, y: torch.Tensor, init: torch.Tensor) -> t
 def probe(x: torch.Tensor) -> torch.Tensor:
     """Plain version of ``kernels.probe``: ``x + 1``."""
     return x + 1
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert matmul in f32, cast to x's dtype.
+    x: (E, cap, d), w: (E, d, f) -> (E, cap, f)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             h0: Optional[torch.Tensor] = None):
+    """Mamba2-style selective scan (scalar decay per head), one time step at
+    a time in f32.
+
+    x: (B, S, H, P) inputs; a: (B, S, H) decay in (0, 1]; b, c: (B, S, H, N)
+    (a head stride of 0 broadcasts one group over the heads); h0: (B, H, N, P)
+    f32 or None (zeros).  Returns y (B, S, H, P) in x's dtype and the final
+    h (B, H, N, P) in f32:  h_t = a_t h_{t-1} + b_t (x) x_t,  y_t = c_t . h_t."""
+    bsz, s, nh, p = x.shape
+    n = b.shape[-1]
+    h = (torch.zeros(bsz, nh, n, p, dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float().clone())
+    xf, af, bf, cf = x.float(), a.float(), b.float(), c.float()
+    ys = []
+    for t in range(s):
+        h = af[:, t, :, None, None] * h + bf[:, t, :, :, None] * xf[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, t], h))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(bsz, 0, nh, p)
+    return y.to(x.dtype), h

@@ -3,8 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \\
       --batch 8 --prompt-len 64 --gen 64
 
-Runs on ``cuda`` unless ``--device cpu`` is given, at the model's full width
-unless ``--reduced`` is given.  Weights and prompts are random, seeded.
+Every family serves (dense, audio, vlm, moe, hybrid, ssm).  Runs on
+``cuda`` unless ``--device cpu`` is given, at the model's full width unless
+``--reduced`` is given; a configuration whose weights alone exceed the
+card's memory (qwen2_72b, llama4_maverick_400b on one H100) is refused
+before anything is allocated.  Weights and prompts are random, seeded.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import get_config, reduced
+from repro_torch.configs.base import ARCH_IDS, get_config, reduced
 from repro_torch.models import decode_step, init_cache, init_params
 from repro_torch.models.model import Model
 
@@ -81,9 +84,20 @@ def serve(model: Model, prompts: torch.Tensor, gen: int, *,
                        torch.stack(kept, dim=1) if keep_logits else None)
 
 
+def check_fits(cfg, device: torch.device) -> None:
+    """Raises ``ValueError`` when the weights alone exceed the card's memory."""
+    if device.type != "cuda":
+        return
+    need = cfg.param_count() * torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+    have = torch.cuda.get_device_properties(device).total_memory
+    if need > have:
+        raise ValueError(f"{cfg.name}: {need / 2**30:.1f} GiB of weights do not fit the "
+                         f"{have / 2**30:.1f} GiB of {torch.cuda.get_device_name(device)}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm_360m")
+    ap.add_argument("--arch", default="smollm_360m", choices=ARCH_IDS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
@@ -98,6 +112,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = reduced(get_config(args.arch)) if args.reduced else get_config(args.arch)
     b, pl, g = args.batch, args.prompt_len, args.gen
+    check_fits(cfg, device)
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, pl)))
     model = init_params(cfg, seed=0, device=device)

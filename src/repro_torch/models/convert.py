@@ -2,9 +2,12 @@
 
 ``from_jax_params`` takes the tree that ``repro.models.init_params`` returns,
 as nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, p)``),
-and copies each leaf into the port's module.  Layouts agree, so the only
-reshaping is the split of the stacked ``blocks`` leaves along their leading
-layer axis.  Nothing here imports JAX.
+and copies each leaf into the port's module.  Layouts and names agree, so
+the only reshaping is the split of the stacked ``blocks`` leaves along their
+leading axis (layers; super-blocks of ``moe_every`` layers for the moe
+family, whose ``blocks.l{j}`` sub-trees map to ``blocks.{i}.l{j}``).
+zamba2's ``shared_attn`` is not stacked and maps as it is.  Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from .model import Model
+from .model import Model, num_blocks
 
 
 def _tensor(a) -> torch.Tensor:
@@ -46,14 +49,14 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cuda") -> Model:
     model = Model(cfg, resolve_device(device))
     params = dict(model.named_parameters())
     seen = set()
+    n = num_blocks(cfg)
     for name, arr in _leaves(tree):
         if name.startswith("blocks."):
             rest = name[len("blocks."):]
             arr = np.asarray(arr)
-            if arr.shape[0] != cfg.num_layers:
-                raise ValueError(f"{name}: {arr.shape[0]} stacked layers, config has "
-                                 f"{cfg.num_layers}")
-            for i in range(cfg.num_layers):
+            if arr.shape[0] != n:
+                raise ValueError(f"{name}: {arr.shape[0]} stacked blocks, config has {n}")
+            for i in range(n):
                 key = f"blocks.{i}.{rest}"
                 if key not in params:
                     raise KeyError(f"JAX leaf {name} has no counterpart {key} in the port")

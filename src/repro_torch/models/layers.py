@@ -10,7 +10,7 @@ CUDA kernel or the plain version by the device of the tensors.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -120,20 +120,14 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     return o @ p.wo
 
 
-DecodeAttentionFn = Callable[..., torch.Tensor]
-
-
 def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
-                     decode_attention: Optional[DecodeAttentionFn] = None
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B, 1, d); cache: (B, KV, S, hd); pos: (B,) int.
 
     The new k/v are written at ``pos`` in place, into ``cache_k`` and
     ``cache_v`` themselves (the JAX package rewrites the whole cache through
-    a one-hot select, since its arrays are immutable).  ``decode_attention``
-    defaults to ``ops.decode_attention``; another function with its
-    signature (the plain version, say) may be passed."""
+    a one-hot select, since its arrays are immutable)."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(p, x, cfg, pos[:, None])
@@ -141,8 +135,7 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     cache_k[rows, :, pos] = k[:, :, 0, :].to(cache_k.dtype)
     cache_v[rows, :, pos] = v[:, :, 0, :].to(cache_v.dtype)
     length = (pos + 1).to(torch.int32)
-    attend = decode_attention or ops.decode_attention
-    o = attend(q[:, :, 0, :].contiguous(), cache_k, cache_v, length=length)
+    o = ops.decode_attention(q[:, :, 0, :].contiguous(), cache_k, cache_v, length=length)
     return o.reshape(b, 1, cfg.num_heads * hd) @ p.wo, cache_k, cache_v
 
 

@@ -1,0 +1,115 @@
+"""Mamba2 block (SSD, scalar decay per head): the zamba2 backbone.
+
+The port of ``repro.models.mamba2``.  The forward runs the chunked scan
+(``ops.ssm_scan``: the CUDA kernel on the card, its plain version on the
+CPU) with the single B/C group broadcast over the heads by a stride-0 view;
+decode keeps (h, conv) states and does O(1) work per token.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from .layers import RMSNorm, _normal, dtype_of, rmsnorm
+
+CONV_W = 4
+State = Dict[str, torch.Tensor]
+
+
+def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(inner width, heads, head width, state size)."""
+    din = cfg.ssm_expand * cfg.d_model
+    nh = cfg.ssm_heads or cfg.num_heads
+    return din, nh, din // nh, cfg.ssm_state
+
+
+class Mamba2(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        din, nh, _, n = dims(cfg)
+        pdt = dtype_of(cfg.param_dtype)
+
+        def param(*shape, dtype=pdt):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                                requires_grad=False)
+        self.w_in = param(d, 2 * din)
+        self.conv = param(CONV_W, din)
+        self.w_b, self.w_c = param(d, n), param(d, n)
+        self.w_dt = param(d, nh)
+        self.a_log = param(nh, dtype=torch.float32)
+        self.dt_bias = param(nh, dtype=torch.float32)
+        self.w_out = param(din, d)
+        self.norm = RMSNorm(din, pdt, device)
+
+    def reset_parameters(self, generator=None):
+        d, din = self.w_in.shape[0], self.w_out.shape[0]
+        for w, std in ((self.w_in, d ** -0.5), (self.conv, 0.1), (self.w_b, d ** -0.5),
+                       (self.w_c, d ** -0.5), (self.w_dt, d ** -0.5), (self.w_out, din ** -0.5)):
+            w.copy_(_normal(w.shape, std, w.dtype, w.device, generator))
+        nn.init.zeros_(self.a_log)
+        nn.init.zeros_(self.dt_bias)
+
+
+def _causal_conv(xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, width CONV_W.  xin: (B, S, din)."""
+    s = xin.shape[1]
+    pads = F.pad(xin, (0, 0, CONV_W - 1, 0))
+    return sum(pads[:, i:i + s, :] * w[i] for i in range(CONV_W))
+
+
+def _gates(p: Mamba2, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    dt = F.softplus(x.float() @ p.w_dt.float() + p.dt_bias)      # (B, S, nh)
+    return dt, torch.exp(-dt * torch.exp(p.a_log))                # decay in (0, 1]
+
+
+def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    b, s, _ = x.shape
+    din, nh, ph, n = dims(cfg)
+    zx = x @ p.w_in
+    z, xin = zx[..., :din], zx[..., din:]
+    xin = F.silu(_causal_conv(xin, p.conv))
+    dt, a = _gates(p, x)
+    bmat = (x @ p.w_b).float()[:, :, None, :].expand(b, s, nh, n)   # one group, stride 0
+    cmat = (x @ p.w_c).float()[:, :, None, :].expand(b, s, nh, n)
+    xh = xin.reshape(b, s, nh, ph) * dt[..., None].to(xin.dtype)
+    y, _ = ops.ssm_scan(xh, a, bmat, cmat)
+    y = rmsnorm(p.norm, y.reshape(b, s, din), cfg.norm_eps) * F.silu(z)
+    return y @ p.w_out
+
+
+def mamba2_init_state(cfg: ModelConfig, batch: int, layers: int, device) -> State:
+    """Decode state of ``layers`` stacked blocks: h (L, B, nh, N, ph) and
+    the conv window (L, B, CONV_W - 1, din), both f32."""
+    din, nh, ph, n = dims(cfg)
+    return {"h": torch.zeros(layers, batch, nh, n, ph, dtype=torch.float32, device=device),
+            "conv": torch.zeros(layers, batch, CONV_W - 1, din, dtype=torch.float32,
+                                device=device)}
+
+
+def mamba2_decode(p: Mamba2, x: torch.Tensor, h_state: torch.Tensor, conv_state: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, 1, d) -> out (B, 1, d).  ``h_state`` (B, nh, N, ph) and
+    ``conv_state`` (B, CONV_W - 1, din) are updated in place."""
+    b = x.shape[0]
+    din, nh, ph, _ = dims(cfg)
+    zx = x @ p.w_in
+    z, xin = zx[..., :din], zx[..., din:]
+    window = torch.cat([conv_state, xin.float()], dim=1)           # (B, CONV_W, din)
+    conv_out = sum(window[:, i, :] * p.conv[i].float() for i in range(CONV_W))
+    xin1 = F.silu(conv_out)[:, None, :]
+    dt, a = _gates(p, x)                                            # (B, 1, nh)
+    bmat = (x @ p.w_b).float()
+    cmat = (x @ p.w_c).float()
+    xh = (xin1.reshape(b, nh, ph) * dt[:, 0, :, None]).float()
+    h = h_state * a[:, 0, :, None, None] + bmat[:, 0, None, :, None] * xh[:, :, None, :]
+    y = torch.einsum("bn,bhnp->bhp", cmat[:, 0], h).reshape(b, 1, din)
+    y = rmsnorm(p.norm, y.to(x.dtype), cfg.norm_eps) * F.silu(z)
+    h_state.copy_(h)
+    conv_state.copy_(window[:, 1:, :])
+    return y @ p.w_out

@@ -1,13 +1,23 @@
-"""Model of the port: init / forward / KV-cache decode, dense family.
+"""Model of the port: init / forward / cached decode for every family.
 
-The port of ``repro.models.model`` for the dense family (and the audio and
-vlm families, which are the dense stack behind a frontend stub).  Layers are
-an ``nn.ModuleList`` walked by a Python loop; the JAX package stacks them
-and scans.  The moe, hybrid and ssm families raise ``NotImplementedError``:
-they are ROADMAP Queue 1 items 4 and 5.
+The port of ``repro.models.model``.  Layers are ``nn.ModuleList``s walked
+by Python loops where the JAX package stacks them and scans:
+  * dense (and audio, vlm: the dense stack behind a frontend stub):
+    ``blocks[i]`` = {ln1, attn, ln2, mlp};
+  * moe: super-blocks of ``moe_every`` layers, ``blocks[i].l{j}``, the last
+    layer of each with an MoE FFN (``moe``), the others a dense MLP;
+  * hybrid (zamba2): ``blocks[i]`` = {ln, mamba}, and one ``shared_attn``
+    block (one weight set) after every ``attn_every``-th block;
+  * ssm (xLSTM): ``blocks[i]`` = {ln, mlstm, ln_s, slstm}, the sLSTM applied
+    after every ``slstm_every``-th block.
+Submodules carry the JAX leaves' names, so ``convert.from_jax_params`` is a
+name map.
 
-The cache keeps the JAX layout ``{"k", "v"}: (L, B, Hkv, S, hd)``;
-``decode_step`` writes each new k/v into it in place and returns it.
+The caches keep the JAX layouts: dense ``{"k", "v"}: (L, B, Hkv, S, hd)``;
+moe ``{"l{j}": {"k", "v"}}`` stacked over super-blocks; hybrid
+``{"ssm": {"h", "conv"}, "shared_kv": {"k", "v"}}`` (one KV cache per
+shared-attention site); ssm ``{"mlstm": {"C", "n"}, "slstm": {"c", "n"}}``.
+``decode_step`` updates the cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -19,33 +29,62 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
+from . import mamba2 as M
+from . import moe as MOE
+from . import xlstm as XL
 
-Cache = Dict[str, torch.Tensor]
+Cache = Dict[str, object]
 
-DENSE_FAMILIES = ("dense", "audio", "vlm")
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 4 (MoE and grouped_matmul)",
-    "hybrid": "ROADMAP Queue 1 item 5 (hybrid and ssm with ssm_scan)",
-    "ssm": "ROADMAP Queue 1 item 5 (hybrid and ssm with ssm_scan)",
-}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: {_NOT_PORTED[cfg.family]}")
-    if cfg.family not in DENSE_FAMILIES:
-        raise ValueError(cfg.family)
+FAMILIES = ("dense", "audio", "vlm", "moe", "hybrid", "ssm")
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    """Attention + FFN: a dense MLP, or an MoE when ``moe`` is set."""
+
+    def __init__(self, cfg: ModelConfig, device, moe: bool = False):
         super().__init__()
         pdt = L.dtype_of(cfg.param_dtype)
         self.ln1 = L.RMSNorm(cfg.d_model, pdt, device)
         self.attn = L.Attention(cfg, device)
         self.ln2 = L.RMSNorm(cfg.d_model, pdt, device)
-        self.mlp = L.MLP(cfg, device)
+        if moe:
+            self.moe = MOE.MoE(cfg, device)
+        else:
+            self.mlp = L.MLP(cfg, device)
+
+
+class MoESuperBlock(nn.Module):
+    """``moe_every`` layers ``l0 .. l{moe_every - 1}``; the last has the MoE."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        for j in range(cfg.moe_every):
+            self.add_module(f"l{j}", Block(cfg, device, moe=j == cfg.moe_every - 1))
+
+    def layers(self):
+        return [getattr(self, f"l{j}") for j in range(len(self._modules))]
+
+
+class HybridBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.ln = L.RMSNorm(cfg.d_model, L.dtype_of(cfg.param_dtype), device)
+        self.mamba = M.Mamba2(cfg, device)
+
+
+class XLSTMBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        pdt = L.dtype_of(cfg.param_dtype)
+        self.ln = L.RMSNorm(cfg.d_model, pdt, device)
+        self.mlstm = XL.MLSTM(cfg, device)
+        self.ln_s = L.RMSNorm(cfg.d_model, pdt, device)
+        self.slstm = XL.SLSTM(cfg, device)
+
+
+def num_blocks(cfg: ModelConfig) -> int:
+    """Entries of ``Model.blocks`` (the JAX tree's stacked leading axis)."""
+    return cfg.num_layers // cfg.moe_every if cfg.family == "moe" else cfg.num_layers
 
 
 class Model(nn.Module):
@@ -53,11 +92,16 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        _check_family(cfg)
+        if cfg.family not in FAMILIES:
+            raise ValueError(cfg.family)
         device = device if str(device) == "meta" else resolve_device(device)
         self.cfg = cfg
         self.embed = L.Embed(cfg, device)
-        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.num_layers))
+        block = {"moe": MoESuperBlock, "hybrid": HybridBlock,
+                 "ssm": XLSTMBlock}.get(cfg.family, Block)
+        self.blocks = nn.ModuleList(block(cfg, device) for _ in range(num_blocks(cfg)))
+        if cfg.family == "hybrid" and cfg.attn_every:
+            self.shared_attn = Block(cfg, device)
         self.final_norm = L.RMSNorm(cfg.d_model, L.dtype_of(cfg.param_dtype), device)
 
     @property
@@ -67,8 +111,9 @@ class Model(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> "Model":
         """The JAX package's distributions (normal * d^-1/2 projections,
-        normal * 0.02 embeddings, unit norms, zero biases) drawn from
-        ``generator``.  The numbers differ from ``jax.random``'s."""
+        normal * 0.02 embeddings, 0.1 conv taps, unit norms, zero biases and
+        SSM decay offsets) drawn from ``generator``.  The numbers differ from
+        ``jax.random``'s."""
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
@@ -82,16 +127,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     return Model(cfg, dev).reset_parameters(g)
 
 
-def _dense_block(bp: Block, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+# --------------------------------------------------------------------------
+# forward (prefill)
+# --------------------------------------------------------------------------
+def _attn_ffn(bp: Block, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """One attention + FFN layer; returns (x, MoE aux loss or None)."""
     x = x + L.attention_apply(bp.attn, L.rmsnorm(bp.ln1, x, cfg.norm_eps), cfg, positions)
-    return x + L.mlp_apply(bp.mlp, L.rmsnorm(bp.ln2, x, cfg.norm_eps))
+    h = L.rmsnorm(bp.ln2, x, cfg.norm_eps)
+    if hasattr(bp, "moe"):
+        y, aux = MOE.moe_apply(bp.moe, h, cfg)
+        return x + y, aux
+    return x + L.mlp_apply(bp.mlp, h), None
+
+
+def _every(i: int, k: int) -> bool:
+    """Whether block i (0-based) is the last of a group of k (k = 0: never)."""
+    return bool(k) and (i + 1) % k == 0
 
 
 @torch.no_grad()
 def forward(model: Model, tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, Vpad) f32, aux_loss scalar)."""
+    """Returns (logits (B, S, Vpad) f32, aux_loss scalar f32: the MoE
+    load-balance loss summed over layers, 0 for other families)."""
     cfg = model.cfg
     if embeds is not None:
         x = L.frontend_apply(cfg, embeds).to(L.dtype_of(cfg.dtype))
@@ -100,40 +158,100 @@ def forward(model: Model, tokens: Optional[torch.Tensor] = None,
         x = L.embed_apply(model.embed, tokens).to(L.dtype_of(cfg.dtype))
         b, s = tokens.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for bp in model.blocks:
-        x = _dense_block(bp, x, cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    for i, bp in enumerate(model.blocks):
+        if cfg.family == "moe":
+            for blk in bp.layers():
+                x, a = _attn_ffn(blk, x, cfg, positions)
+                if a is not None:
+                    aux = aux + a
+        elif cfg.family == "hybrid":
+            x = x + M.mamba2_apply(bp.mamba, L.rmsnorm(bp.ln, x, cfg.norm_eps), cfg)
+            if _every(i, cfg.attn_every):
+                x, _ = _attn_ffn(model.shared_attn, x, cfg, positions)
+        elif cfg.family == "ssm":
+            x = x + XL.mlstm_apply(bp.mlstm, L.rmsnorm(bp.ln, x, cfg.norm_eps), cfg)
+            if _every(i, cfg.slstm_every):
+                x = x + XL.slstm_apply(bp.slstm, L.rmsnorm(bp.ln_s, x, cfg.norm_eps), cfg)
+        else:
+            x, _ = _attn_ffn(bp, x, cfg, positions)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     logits = L.unembed_apply(model.embed, x, cfg.vocab_size, L.dtype_of(cfg.logits_dtype))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
+# --------------------------------------------------------------------------
+# decode: cache init + single-token step
+# --------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda") -> Cache:
-    _check_family(cfg)
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
     dt = dtype or L.dtype_of(cfg.dtype)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq, cfg.resolved_head_dim)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    def kv(n):
+        shape = (n, batch, cfg.num_kv_heads, max_seq, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    if cfg.family == "moe":
+        return {f"l{j}": kv(num_blocks(cfg)) for j in range(cfg.moe_every)}
+    if cfg.family == "hybrid":
+        cache: Cache = {"ssm": M.mamba2_init_state(cfg, batch, cfg.num_layers, dev)}
+        if cfg.attn_every:
+            cache["shared_kv"] = kv(cfg.num_layers // cfg.attn_every)
+        return cache
+    if cfg.family == "ssm":
+        return {"mlstm": XL.mlstm_init_state(cfg, batch, cfg.num_layers, dev),
+                "slstm": XL.slstm_init_state(cfg, batch, cfg.num_layers, dev)}
+    return kv(cfg.num_layers)
+
+
+def _attn_ffn_decode(bp: Block, x: torch.Tensor, cfg: ModelConfig, ck: torch.Tensor,
+                     cv: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    h = L.rmsnorm(bp.ln1, x, cfg.norm_eps)
+    o, _, _ = L.attention_decode(bp.attn, h, cfg, ck, cv, pos)
+    x = x + o
+    h = L.rmsnorm(bp.ln2, x, cfg.norm_eps)
+    if hasattr(bp, "moe"):
+        return x + MOE.moe_apply(bp.moe, h, cfg)[0]
+    return x + L.mlp_apply(bp.mlp, h)
 
 
 @torch.no_grad()
-def decode_step(model: Model, cache: Cache, token: torch.Tensor, pos: torch.Tensor,
-                decode_attention: Optional[L.DecodeAttentionFn] = None
+def decode_step(model: Model, cache: Cache, token: torch.Tensor, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Cache]:
     """token: (B,) int; pos: (B,) current positions, each in [0, max_seq)
     (not checked here: that would wait for the device on every step).
-    Returns (logits (B, Vpad), cache), the cache updated in place.
-    ``decode_attention`` overrides the attention function (default
-    ``ops.decode_attention``)."""
+    Returns (logits (B, Vpad), cache), the cache updated in place."""
     cfg = model.cfg
     x = L.embed_apply(model.embed, token[:, None]).to(L.dtype_of(cfg.dtype))
+    site = 0
     for i, bp in enumerate(model.blocks):
-        h = L.rmsnorm(bp.ln1, x, cfg.norm_eps)
-        o, _, _ = L.attention_decode(bp.attn, h, cfg, cache["k"][i], cache["v"][i], pos,
-                                     decode_attention)
-        x = x + o
-        x = x + L.mlp_apply(bp.mlp, L.rmsnorm(bp.ln2, x, cfg.norm_eps))
+        if cfg.family == "moe":
+            for j, blk in enumerate(bp.layers()):
+                c = cache[f"l{j}"]
+                x = _attn_ffn_decode(blk, x, cfg, c["k"][i], c["v"][i], pos)
+        elif cfg.family == "hybrid":
+            st = cache["ssm"]
+            x = x + M.mamba2_decode(bp.mamba, L.rmsnorm(bp.ln, x, cfg.norm_eps),
+                                    st["h"][i], st["conv"][i], cfg)
+            if _every(i, cfg.attn_every):
+                kv = cache["shared_kv"]
+                x = _attn_ffn_decode(model.shared_attn, x, cfg, kv["k"][site], kv["v"][site],
+                                     pos)
+                site += 1
+        elif cfg.family == "ssm":
+            m, s = cache["mlstm"], cache["slstm"]
+            x = x + XL.mlstm_decode(bp.mlstm, L.rmsnorm(bp.ln, x, cfg.norm_eps),
+                                    m["C"][i], m["n"][i], cfg)
+            if _every(i, cfg.slstm_every):
+                x = x + XL.slstm_decode(bp.slstm, L.rmsnorm(bp.ln_s, x, cfg.norm_eps),
+                                        s["c"][i], s["n"][i], cfg)
+        else:
+            x = _attn_ffn_decode(bp, x, cfg, cache["k"][i], cache["v"][i], pos)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     logits = L.unembed_apply(model.embed, x, cfg.vocab_size, L.dtype_of(cfg.logits_dtype))
     return logits[:, 0, :], cache

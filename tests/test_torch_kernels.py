@@ -1,4 +1,4 @@
-"""The port's attention kernels against the JAX package's Pallas kernels.
+"""The port's LM kernels against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers take their plain PyTorch versions; they are
 compared with the Pallas kernels in interpret mode on the same numpy inputs.
@@ -15,7 +15,9 @@ from repro_torch.core.cost_model import H100
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import grouped_matmul as gmm_mod
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssm_scan as scan_mod
 
 
 def _tol(dtype):
@@ -150,6 +152,145 @@ def test_bad_schedule_raises():
 
 
 # --------------------------------------------------------------------------
+# grouped matmul: port (CPU) vs Pallas interpret and JAX ref
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,cap,d,f", [(4, 64, 32, 48), (8, 128, 64, 64), (32, 8, 128, 64)])
+def test_grouped_matmul_matches_pallas(e, cap, d, f, dtype):
+    from repro.kernels import ref as jref
+    from repro.kernels.grouped_matmul import grouped_matmul
+    rng = np.random.default_rng(e * cap + d)
+    x, tx = _pair(rng.normal(size=(e, cap, d)).astype(np.float32), dtype)
+    w, tw = _pair((rng.normal(size=(e, d, f)) * d ** -0.5).astype(np.float32), dtype)
+    want = grouped_matmul(x, w, bm=min(32, cap), bn=16, bk=16, interpret=True)
+    got = ops.grouped_matmul(tx, tw)
+    assert got.dtype == tx.dtype and got.shape == (e, cap, f)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(jref.grouped_matmul(x, w)), **_tol(dtype))
+
+
+@pytest.mark.parametrize("e,cap,d,f", [(3, 37, 100, 70), (2, 320, 128, 256)])
+def test_grouped_matmul_ragged_matches_jax_ref(e, cap, d, f):
+    """Capacities and widths no block divides (the port's kernel masks)."""
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(cap)
+    x, tx = _pair(rng.normal(size=(e, cap, d)).astype(np.float32), "float32")
+    w, tw = _pair(rng.normal(size=(e, d, f)).astype(np.float32), "float32")
+    np.testing.assert_allclose(_np(ops.grouped_matmul(tx, tw, schedule="naive")),
+                               _np(jref.grouped_matmul(x, w)), rtol=1e-4, atol=1e-4)
+
+
+def test_grouped_matmul_reference_fault_at_cap_320():
+    """ROADMAP Queue 3: the JAX Pallas grouped_matmul asserts cap % bm == 0
+    with bm = min(128, cap), so cap 320 raises; the port's op returns the
+    einsum."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(320)
+    xa = rng.normal(size=(2, 320, 128)).astype(np.float32)
+    wa = rng.normal(size=(2, 128, 256)).astype(np.float32)
+    with pytest.raises(AssertionError):
+        jops.grouped_matmul(jnp.asarray(xa), jnp.asarray(wa), impl="pallas")
+    got = ops.grouped_matmul(torch.from_numpy(xa), torch.from_numpy(wa))
+    np.testing.assert_allclose(got.numpy(), np.einsum("ecd,edf->ecf", xa, wa),
+                               rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# ssm scan: port (CPU) vs Pallas interpret and JAX ref
+# --------------------------------------------------------------------------
+def _scan_np(b, s, h, p, n, seed, broadcast=False):
+    rng = np.random.default_rng(seed)
+    hb = 1 if broadcast else h
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    a = rng.uniform(0.5, 1.0, size=(b, s, h)).astype(np.float32)
+    bm = np.broadcast_to(rng.normal(size=(b, s, hb, n)), (b, s, h, n)).astype(np.float32)
+    cm = np.broadcast_to(rng.normal(size=(b, s, hb, n)), (b, s, h, n)).astype(np.float32)
+    return x, a, bm, cm
+
+
+def _torch_scan_args(x, a, bm, cm, broadcast):
+    """torch tensors of the numpy inputs; a broadcast group stays a stride-0
+    view over the heads, as in the port's Mamba2 block."""
+    tb, tc = torch.from_numpy(np.ascontiguousarray(bm)), torch.from_numpy(np.ascontiguousarray(cm))
+    if broadcast:
+        tb = tb[:, :, :1].expand(tb.shape)
+        tc = tc[:, :, :1].expand(tc.shape)
+    return torch.from_numpy(x), torch.from_numpy(a), tb, tc
+
+
+@pytest.mark.parametrize("s,p,n,chunk,broadcast", [(128, 16, 8, 32, False),
+                                                   (256, 32, 16, 64, True),
+                                                   (128, 1, 32, 64, False)])
+def test_ssm_scan_matches_pallas(s, p, n, chunk, broadcast):
+    """Tolerance rtol/atol 2e-3 against the chunked kernel, as
+    tests/test_kernels.py uses (chunked and sequential sums differ)."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.ssm_scan import ssm_scan
+    x, a, bm, cm = _scan_np(2, s, 3, p, n, s + p, broadcast)
+    want_y, want_h = ssm_scan(*(jnp.asarray(v) for v in (x, a, bm, cm)), chunk=chunk,
+                              interpret=True)
+    y, hl = ops.ssm_scan(*_torch_scan_args(x, a, bm, cm, broadcast))
+    assert y.shape == x.shape and hl.shape == (2, 3, n, p) and hl.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(want_h), rtol=2e-3, atol=2e-3)
+    ry, rh = jref.ssm_scan(*(jnp.asarray(v) for v in (x, a, bm, cm)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(rh), rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_ragged_s_and_h0_match_jax_ref():
+    """S = 200 (no chunk divides it: the Pallas kernel asserts) and, in the
+    plain version, a carried h0, against the JAX package's sequential
+    reference."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    x, a, bm, cm = _scan_np(2, 200, 2, 16, 8, 200)
+    h0 = np.random.default_rng(1).normal(size=(2, 2, 8, 16)).astype(np.float32)
+    want_y, want_h = jref.ssm_scan(*(jnp.asarray(v) for v in (x, a, bm, cm)),
+                                   h0=jnp.asarray(h0))
+    y, hl = tref.ssm_scan(*_torch_scan_args(x, a, bm, cm, False), torch.from_numpy(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(want_h), rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_bf16_returns_x_dtype():
+    x, a, bm, cm = _scan_np(1, 16, 2, 8, 4, 3)
+    tx, ta, tb, tc = _torch_scan_args(x, a, bm, cm, False)
+    y, hl = ops.ssm_scan(tx.bfloat16(), ta, tb, tc)
+    assert y.dtype == torch.bfloat16 and hl.dtype == torch.float32
+
+
+def test_cpu_path_of_new_kernels_does_not_count_launches():
+    before = (gmm_mod.launches, scan_mod.launches)
+    ops.grouped_matmul(torch.zeros(2, 8, 4), torch.zeros(2, 4, 3))
+    ops.ssm_scan(torch.zeros(1, 4, 2, 3), torch.ones(1, 4, 2), torch.zeros(1, 4, 2, 5),
+                 torch.zeros(1, 4, 2, 5))
+    assert (gmm_mod.launches, scan_mod.launches) == before
+
+
+def test_plain_versions_route_every_op_to_ref():
+    x = torch.randn(2, 8, 4)
+    w = torch.randn(2, 4, 3)
+    with ops.plain_versions():
+        assert ops._plain
+        with ops.plain_versions():
+            pass
+        assert ops._plain
+        torch.testing.assert_close(ops.grouped_matmul(x, w), tref.grouped_matmul(x, w))
+    assert not ops._plain
+
+
+def test_new_ops_bad_schedule_raises():
+    with pytest.raises(ValueError):
+        ops.grouped_matmul(torch.zeros(1, 8, 4), torch.zeros(1, 4, 4), schedule="fast")
+    with pytest.raises(ValueError):
+        ops.ssm_scan(torch.zeros(1, 4, 1, 2), torch.ones(1, 4, 1), torch.zeros(1, 4, 1, 2),
+                     torch.zeros(1, 4, 1, 2), schedule="fast")
+
+
+# --------------------------------------------------------------------------
 # autotuner (POM stage-2 on the H100 model): shared memory and alignment
 # --------------------------------------------------------------------------
 def test_pom_matmul_schedule_smem_and_alignment():
@@ -202,6 +343,36 @@ def test_cpu_path_takes_any_head_dim():
 def test_pom_scan_schedule_fits():
     s = autotune.pom_scan_schedule(4096, 64, 64, 2)
     assert s.smem_bytes <= H100.smem_bytes and 4096 % s.chunk == 0
+
+
+# (S, P, N, x bytes, B * H): zamba2 at 2 x 1024, xlstm at 2 x 512, the
+# mLSTM normaliser (P 1), ragged S, a decode-length S
+@pytest.mark.parametrize("s,p,n,xb,groups", [(1024, 128, 64, 2, 64), (512, 512, 512, 2, 8),
+                                             (512, 1, 512, 4, 8), (200, 64, 64, 4, 8),
+                                             (170, 128, 64, 2, 64), (1, 16, 16, 4, 1)])
+def test_pom_scan_schedule_fits_model_shapes(s, p, n, xb, groups):
+    sc = autotune.pom_scan_schedule(s, p, n, xb, groups)
+    assert sc.chunk in autotune.SCAN_CHUNKS and sc.p_tile in autotune.SCAN_PTILES
+    assert sc.smem_bytes == autotune.scan_smem_bytes(sc.chunk, sc.p_tile, n) <= H100.smem_bytes
+
+
+def test_pom_scan_schedule_splits_xlstm_carry_over_p():
+    """xlstm's 512 x 512 f32 carry is 1 MiB: only a P tile fits; and a state
+    too large for any tile raises."""
+    assert autotune.scan_smem_bytes(32, 512, 512) > H100.smem_bytes
+    assert autotune.pom_scan_schedule(512, 512, 512, 2, 8).p_tile < 512
+    with pytest.raises(ValueError):
+        autotune.pom_scan_schedule(512, 64, 8192, 2, 8)
+
+
+def test_pom_gmm_schedule_follows_cap():
+    """Decode (cap 8) takes the 8-row tile; the forward's cap 640 a tall one."""
+    assert autotune.pom_gmm_schedule(32, 8, 1024, 512, 2).bm == 8
+    assert autotune.pom_gmm_schedule(32, 640, 1024, 512, 2).bm == 128
+    for cap in (8, 24, 100, 320, 640, 1288):
+        s = autotune.pom_gmm_schedule(32, cap, 1024, 512, 2)
+        assert s.bm in autotune.GMM_BM
+        assert s.terms.bound_s > 0
 
 
 # --------------------------------------------------------------------------
@@ -284,3 +455,117 @@ def test_gpu_wrappers_raise_on_unsupported_input():
     q = torch.zeros(1, 2, 64, 8, device=dev).transpose(2, 3)
     with pytest.raises(ValueError):
         flash_mod.flash_attention(q, q, q)
+
+
+# (E, cap, d, f, dtype): granite_moe_1b's decode (cap 8) and forward
+# (cap 640) shapes, then ragged caps, d and f
+GMM_CASES = [
+    (32, 8, 1024, 512, "bfloat16"),
+    (32, 8, 512, 1024, "bfloat16"),
+    (32, 640, 1024, 512, "bfloat16"),
+    (32, 320, 512, 1000, "float32"),
+    (4, 37, 100, 70, "float32"),
+    (3, 130, 64, 129, "bfloat16"),
+]
+
+
+def _gmm_tol(dtype, d):
+    """bf16 outputs round once (2^-8 relative of values ~sqrt(d)); f32 sums
+    of d products in another order than the plain einsum."""
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_CASES)
+def test_gpu_grouped_matmul_matches_plain(case):
+    from repro_torch.kernels import grouped_matmul as gmm_mod
+    dev = _cuda()
+    e, cap, d, f, dtype = case
+    g = torch.Generator(device=dev).manual_seed(cap + d + f)
+    dt = getattr(torch, dtype)
+    x = torch.randn(e, cap, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+    want = tref.grouped_matmul(x, w)
+    for bm in autotune.GMM_BM:
+        got = gmm_mod.grouped_matmul(x, w, bm=bm)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **_gmm_tol(dtype, d))
+
+
+def _scan_inputs(b, s, h, p, n, dtype, dev, seed, broadcast=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g, device=dev).to(getattr(torch, dtype))
+    a = torch.rand(b, s, h, generator=g, device=dev) * 0.5 + 0.5
+    hb = 1 if broadcast else h
+    bm = torch.randn(b, s, hb, n, generator=g, device=dev) * n ** -0.5
+    cm = torch.randn(b, s, hb, n, generator=g, device=dev) * n ** -0.5
+    if broadcast:
+        bm, cm = bm.expand(b, s, h, n), cm.expand(b, s, h, n)
+    return x, a, bm, cm
+
+
+# (B, S, H, P, N, dtype, broadcast B/C): zamba2's and xlstm's shapes (at a
+# reduced S), the mLSTM normaliser's P = 1, ragged S and N
+SCAN_CASES = [
+    (2, 256, 32, 128, 64, "bfloat16", True),
+    (2, 128, 4, 512, 512, "bfloat16", False),
+    (2, 128, 4, 1, 512, "float32", False),
+    (2, 200, 4, 48, 40, "float32", False),
+    (1, 7, 2, 16, 16, "float32", True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_gpu_ssm_scan_matches_plain(case):
+    from repro_torch.kernels import ssm_scan as scan_mod
+    dev = _cuda()
+    b, s, h, p, n, dtype, bc = case
+    x, a, bm, cm = _scan_inputs(b, s, h, p, n, dtype, dev, s + p, bc)
+    want_y, want_h = tref.ssm_scan(x, a, bm, cm)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-3, atol=2e-3)
+    for chunk in autotune.SCAN_CHUNKS:
+        for pt in autotune.SCAN_PTILES:
+            if autotune.scan_smem_bytes(chunk, pt, n) > H100.smem_bytes:
+                continue
+            y, hl = scan_mod.ssm_scan(x, a, bm, cm, chunk=chunk, p_tile=pt)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.float(), want_y.float(), **tol)
+            torch.testing.assert_close(hl, want_h, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_gpu_ssm_scan_takes_strided_a():
+    """a as a strided view (the mLSTM's forget gate is a slice of a gate pair)."""
+    dev = _cuda()
+    x, _, bm, cm = _scan_inputs(2, 100, 4, 32, 16, "float32", dev, 9)
+    a = torch.rand(2, 100, 4, 2, device=dev)[..., 1]
+    want_y, want_h = tref.ssm_scan(x, a, bm, cm)
+    y, hl = scan_mod.ssm_scan(x, a, bm, cm, chunk=32, p_tile=16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(hl, want_h, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_gpu_new_wrappers_raise_on_unsupported_input():
+    dev = _cuda()
+    x = torch.zeros(2, 8, 4, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        gmm_mod.grouped_matmul(x, x.new_zeros(2, 4, 4))
+    with pytest.raises(ValueError):
+        gmm_mod.grouped_matmul(torch.zeros(2, 8, 4, device=dev), torch.zeros(2, 5, 4, device=dev))
+    with pytest.raises(ValueError):
+        gmm_mod.grouped_matmul(torch.zeros(2, 8, 4, device=dev), torch.zeros(2, 4, 4, device=dev),
+                               bm=16)
+    x, a = torch.zeros(1, 8, 2, 4, device=dev), torch.ones(1, 8, 2, device=dev)
+    bm = torch.zeros(1, 8, 2, 16, device=dev)
+    with pytest.raises(TypeError):
+        scan_mod.ssm_scan(x, a.double(), bm, bm)
+    with pytest.raises(ValueError):
+        scan_mod.ssm_scan(x, a, bm, bm, chunk=48)
+    with pytest.raises(ValueError):
+        scan_mod.ssm_scan(x, a, torch.zeros(1, 8, 2, 8192, device=dev),
+                          torch.zeros(1, 8, 2, 8192, device=dev), chunk=64, p_tile=64)
+    with pytest.raises(ValueError):
+        scan_mod.ssm_scan(x, a, bm.transpose(2, 3).contiguous().transpose(2, 3), bm)

@@ -1,8 +1,11 @@
 """The port's serving loop against a JAX loop that mirrors ``repro.launch.serve``.
 
 Both serve the same converted weights and prompts on the CPU; the greedy
-tokens must agree.
+tokens must agree, for smollm_360m and for one model of each of the moe,
+hybrid and ssm families.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -98,3 +101,33 @@ def test_full_width_on_cuda_is_the_default():
     args = serve_mod.build_parser().parse_args([])
     assert args.reduced is False and args.device == "cuda"
     assert serve_mod.build_parser().parse_args(["--reduced"]).reduced is True
+
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "zamba2_1_2b", "xlstm_1_3b"])
+def test_family_greedy_tokens_match_jax(arch):
+    """JAX with use_pallas=True: its decode takes the Pallas grouped matmul
+    (cap 8) and decode attention in interpret mode."""
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)), use_pallas=True)
+    tcfg = reduced(get_config(arch))
+    jparams = jinit_params(jax.random.key(3), jcfg)
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
+    prompts = np.random.default_rng(3).integers(0, tcfg.vocab_size, (2, 6))
+    want = _jax_serve(jparams, jcfg, prompts, 6)
+    res = serve_mod.serve(model, torch.from_numpy(prompts), 6)
+    np.testing.assert_array_equal(res.tokens.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "zamba2_1_2b", "xlstm_1_3b",
+                                  "llama4_maverick_400b"])
+def test_main_cpu_reduced_every_family(arch, capsys):
+    res = serve_mod.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                          "--prompt-len", "4", "--gen", "3"])
+    assert res.tokens.shape == (2, 3)
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out and "decode:" in out
+
+
+def test_unknown_arch_is_refused():
+    with pytest.raises(SystemExit):
+        serve_mod.build_parser().parse_args(["--arch", "gpt5"])
