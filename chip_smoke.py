@@ -7,7 +7,7 @@ without the final ok line):
   1. device  -- a CUDA device must be present; prints nvidia-smi's name and
                 power limit;
   2. build   -- builds every CUDA kernel of the paths from
-                ``src/repro_torch/csrc`` (one nvcc per source, all six in
+                ``src/repro_torch/csrc`` (one nvcc per source, all eight in
                 parallel) and prints ptxas's summary;
   3. kernels -- each LM kernel against its plain PyTorch version on the card:
                 the attention kernels at smollm's shapes and ragged ones,
@@ -59,15 +59,26 @@ without the final ok line):
                 builders' default sizes (``default_cases()``: n 4096, the
                 stencils' 100 or 10 steps) through ``jitted()``, against the
                 same computations written directly in PyTorch on the card;
- 12. numbers -- per-kernel times with CUDA events (L2 flushed before every
+ 12. kernel library -- ``ops.matmul`` at 4096^3 (bf16 and f32), smollm's
+                FFN up-projection (2048 x 960 x 2560, bf16), a ragged
+                1000 x 520 x 3000 and once with ``schedule="naive"``;
+                ``ops.jacobi2d`` at 1024^2 and 4096^2 x 10 steps (f32),
+                1024^2 x 10 in bf16 and a ragged 1000 x 777 x 3; exactly one
+                launch a matmul and one a sweep; each result against its
+                plain version, and ``ops.jacobi2d(A, 10)`` against the
+                compile path's jacobi2d program at 1024^2;
+ 13. numbers -- per-kernel times with CUDA events (L2 flushed before every
                 launch), each kernel's bound, the plain version's time and a
                 PyTorch yardstick on the same inputs (SDPA, ``torch.addmm``,
-                ``torch.add``, ``torch.bmm``; none for the scan; the port
-                never calls them).  One ``{"kernels": [...]}`` JSON line.
+                ``torch.add``, ``torch.bmm``, ``torch.matmul``; none for the
+                scan and the stencil; the port never calls them), with the
+                card's clocks, temperature and power draw sampled before and
+                after each group.  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
 the smollm forward, each family's serve and forward, the compile path as
-phases 8-11) and read just after; the counts in the kernels line are their
-sums, and every one of the six kernels must have run.
+phases 8-11, the kernel library) and read just after; the counts in the
+kernels line are their sums, and every one of the eight kernels must have
+run.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -124,7 +135,22 @@ FAMILIES = {"granite_moe_1b": dict(serve=(8, 32, 32), forward=(4, 512), consiste
             "xlstm_1_3b": dict(serve=(8, 16, 16), forward=(2, 512), consistency=(2, 170),
                                check_dtype="float32")}
 KERNEL_MODULES = ("decode_attention", "flash_attention", "contraction", "probe",
-                  "grouped_matmul", "ssm_scan")
+                  "grouped_matmul", "ssm_scan", "matmul_pom", "stencil")
+# the kernel library's matmul (M, K, N, dtype): the JAX autotune test's and
+# bench_kernels.py's 4096^3 in bf16 and f32, smollm_360m's FFN up-projection
+# at the forward (4 x 512 tokens, d_model 960 -> d_ff 2560) and a ragged one
+MATMUL_SHAPES = [(4096, 4096, 4096, torch.bfloat16), (4096, 4096, 4096, torch.float32),
+                 (FWD_B * FWD_S, 960, 2560, torch.bfloat16), (1000, 520, 3000, torch.bfloat16)]
+# the Jacobi-2D stencil (M, N, steps, dtype): the paper's Table VII size
+# (benchmarks/workloads.py, bench_stencils.py: 1024^2, 10 steps), 4096^2, the
+# same in bf16 and a ragged grid
+JACOBI_SHAPES = [(1024, 1024, 10, torch.float32), (4096, 4096, 10, torch.float32),
+                 (1024, 1024, 10, torch.bfloat16), (1000, 777, 3, torch.float32)]
+# matmul against its plain version, relative to the largest |value|: f32
+# sums of K products in another order; bf16 outputs round the f32 sum once
+# each (the JAX kernel tests' bf16 tolerance)
+MATMUL_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+JACOBI_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 def fail(msg: str) -> None:
@@ -1135,8 +1161,86 @@ def default_size_phase() -> dict:
 
 
 # --------------------------------------------------------------------------
-# 12. numbers
+# 12. the kernel library: ops.matmul and ops.jacobi2d
 # --------------------------------------------------------------------------
+def library_phase() -> dict:
+    """The main path: ``ops.matmul`` at MATMUL_SHAPES (and once with
+    ``schedule="naive"``) and ``ops.jacobi2d`` at JACOBI_SHAPES, every count
+    set to 0 just before and read just after (one launch a matmul, one a
+    sweep, no other kernel).  Then each result against its plain version on
+    the same inputs, and ``ops.jacobi2d(A, 10)`` against the compile path's
+    jacobi2d program at 1024^2 (whose s2 copies the interior back each step,
+    so both compute the same sweeps)."""
+    phase("kernel library: ops.matmul and ops.jacobi2d")
+    from repro_torch import workloads as W
+    from repro_torch.core.pipeline import compile as pom_compile
+    from repro_torch.kernels import autotune, ops, ref
+    g = torch.Generator(device="cuda").manual_seed(8)
+    mm_in = [(_randn(g, m, k, dtype=dt), _randn(g, k, n, dtype=dt), "pom")
+             for m, k, n, dt in MATMUL_SHAPES]
+    mm_in.append((mm_in[-1][0], mm_in[-1][1], "naive"))
+    jac_in = [(_randn(g, m, n, dtype=dt), steps) for m, n, steps, dt in JACOBI_SHAPES]
+    pom_a = torch.randn(1024, 1024, generator=g, device="cuda")
+    pom_b = torch.randn(1024, 1024, generator=g, device="cuda")
+    torch.cuda.synchronize()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    mm_out = [ops.matmul(x, y, schedule=sch) for x, y, sch in mm_in]
+    jac_out = [ops.jacobi2d(x, steps) for x, steps in jac_in]
+    cross = ops.jacobi2d(pom_a, 10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"launches in the kernel-library run ({wall * 1e3:.1f} ms): {launches}")
+    check_counts("kernel library", launches,
+                 {"matmul_pom": len(mm_in),
+                  "stencil": sum(steps for _, steps in jac_in) + 10})
+
+    errs = {"matmul_pom": 0.0, "stencil": 0.0}
+    for (x, y, sch), got in zip(mm_in, mm_out):
+        (m, k), n = x.shape, y.shape[1]
+        s = autotune.pom_matmul_schedule(m, n, k, x.element_size())
+        tile = (s.bm, s.bn, s.bk) if sch == "pom" else autotune.MATMUL_NAIVE
+        want = ref.matmul(x, y).float()
+        err = (got.float() - want).abs().max().item()
+        tol = MATMUL_RTOL[x.dtype] * want.abs().max().item()
+        print(f"matmul {m}x{k}x{n} {str(x.dtype)[6:]} {sch} tile {tile}: max abs err "
+              f"{err:.3g} (tolerance {tol:.3g})")
+        if got.shape != (m, n) or got.dtype != x.dtype or not err <= tol:
+            fail(f"matmul {m}x{k}x{n} disagrees with its plain version: {err}")
+        errs["matmul_pom"] = max(errs["matmul_pom"], err)
+    for (x, steps), got in zip(jac_in, jac_out):
+        want = ref.jacobi2d(x, steps)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = JACOBI_ATOL[x.dtype]
+        print(f"jacobi2d {tuple(x.shape)} x {steps} steps {str(x.dtype)[6:]}: max abs err "
+              f"{err:.3g} (tolerance {tol:.3g})")
+        if got.shape != x.shape or got.dtype != x.dtype or not err <= tol:
+            fail(f"jacobi2d {tuple(x.shape)} disagrees with its plain version: {err}")
+        errs["stencil"] = max(errs["stencil"], err)
+    del mm_in, mm_out, jac_in, jac_out
+
+    prog = pom_compile(W.jacobi2d(1024, 10).fn, target="cuda")
+    want = prog.jitted()({"A": pom_a.clone(), "B": pom_b.clone()})["A"]
+    err = (cross - want).abs().max().item()
+    print(f"ops.jacobi2d(A, 10) vs the compile path's jacobi2d(1024, 10) (mode "
+          f"{prog.mode}): max abs err {err:.3g} (tolerance {JACOBI_ATOL[torch.float32]})")
+    if not err <= JACOBI_ATOL[torch.float32]:
+        fail(f"ops.jacobi2d disagrees with the compile path: {err}")
+    return {"errs": errs, "launches": launches, "wall_ms": wall * 1e3,
+            "vs_compile_path_max_abs_err": err}
+
+
+# --------------------------------------------------------------------------
+# 13. numbers
+# --------------------------------------------------------------------------
+def clocks(label: str) -> None:
+    """The card's SM clock (and its maximum), temperature and power draw."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                          "temperature.gpu,power.draw", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"clocks {label}: {smi}")
 def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     """Mean device time of ``fn`` with the 50 MB L2 flushed before each call.
 
@@ -1170,6 +1274,7 @@ def bound(byts: float, flops: float, dtype) -> tuple:
 
 def numbers_phase(errs: dict, launches: dict) -> list:
     phase("numbers")
+    clocks("before")
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -1226,11 +1331,13 @@ def numbers_phase(errs: dict, launches: dict) -> list:
                  "launches": launches["flash_attention"],
                  "max_abs_err": errs["flash_attention"], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    clocks("after")
     return rows
 
 
 def compile_numbers_phase(errs: dict, launches: dict) -> list:
     phase("numbers: compile path kernels")
+    clocks("before")
     from repro_torch import workloads as W
     from repro_torch.core.backend_cuda import lower_stmt_cuda
     from repro_torch.kernels import contraction as cmod
@@ -1278,6 +1385,7 @@ def compile_numbers_phase(errs: dict, launches: dict) -> list:
                  "launches": launches["probe"], "max_abs_err": errs["probe"], "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                  "library_ms": lib_ms})
+    clocks("after")
     return rows
 
 
@@ -1286,6 +1394,7 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
     shape beside it) and ssm_scan at zamba2's shape (the row; xlstm's beside
     it)."""
     phase("numbers: MoE and SSM kernels")
+    clocks("before")
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(7)
     dt = torch.bfloat16
@@ -1329,6 +1438,57 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
                  **scan["zamba2"], "library_ms": None,
                  "library": "none: no single PyTorch call computes the scan",
                  "at_xlstm_shape": scan["xlstm"]})
+    clocks("after")
+    return rows
+
+
+def library_numbers_phase(errs: dict, launches: dict) -> list:
+    """matmul_pom at 4096^3 bf16 (the row; f32 beside it) and one stencil
+    sweep at 1024^2 f32 (the row; 4096^2 and the 10-sweep calls beside it)."""
+    phase("numbers: kernel library")
+    clocks("before")
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(9)
+    mm = {}
+    for dt in (torch.bfloat16, torch.float32):
+        n = 4096
+        x, y = _randn(g, n, n, dtype=dt), _randn(g, n, n, dtype=dt)
+        bms, by = bound(3 * n * n * x.element_size(), 2.0 * n ** 3, dt)
+        ms = time_ms(lambda: ops.matmul(x, y), iters=20, warmup=2)
+        plain_ms = time_ms(lambda: ref.matmul(x, y), iters=20, warmup=2)
+        lib_ms = time_ms(lambda: torch.matmul(x, y), iters=20, warmup=2)
+        print(f"matmul_pom {n}^3 {str(dt)[6:]}: {ms:.4f} ms ({2.0 * n ** 3 / ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})")
+        mm[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                  "library_ms": lib_ms, "shape": f"{n}^3 {str(dt)[6:]}"}
+        del x, y
+    rows = [{"name": "matmul_pom", "route": "cuda",
+             "source": "src/repro_torch/csrc/matmul_pom.cu",
+             "replaces": "src/repro/kernels/matmul_pom.py:26",
+             "launches": launches["matmul_pom"], "max_abs_err": errs["matmul_pom"],
+             **mm[torch.bfloat16], "library": "torch.matmul",
+             "at_f32": mm[torch.float32]}]
+    sweep = {}
+    for n in (1024, 4096):
+        a = torch.randn(n, n, generator=g, device="cuda")
+        bms, by = bound(2 * n * n * 4, 5.0 * (n - 2) ** 2, torch.float32)
+        ms = time_ms(lambda: ops.jacobi2d(a, 1))
+        ten_ms = time_ms(lambda: ops.jacobi2d(a, 10), iters=20)
+        plain_ms = time_ms(lambda: ref.jacobi2d(a, 1), iters=20)
+        print(f"stencil {n}^2 f32: sweep {ms:.4f} ms, 10 sweeps (one call) {ten_ms:.4f} ms, "
+              f"plain sweep {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        sweep[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "ten_sweeps_ms": ten_ms, "shape": f"{n}^2 f32, one sweep"}
+        del a
+    rows.append({"name": "stencil", "route": "cuda", "source": "src/repro_torch/csrc/stencil.cu",
+                 "replaces": "src/repro/kernels/stencil.py:19",
+                 "launches": launches["stencil"], "max_abs_err": errs["stencil"],
+                 **sweep[1024], "library_ms": None,
+                 "library": "none: no single PyTorch call computes a sweep with its "
+                            "pass-through boundary",
+                 "at_4096": sweep[4096]})
+    clocks("after")
     return rows
 
 
@@ -1372,15 +1532,22 @@ def main() -> None:
     check_counts("compile path", {k: n for k, n in compile_counts.items()
                                   if k not in ("contraction", "probe")}, {})
     _add(launches, compile_counts)
+    # slice 4: the kernel library (its counts set to 0 just before it)
+    library = library_phase()
+    errs.update(library["errs"])
+    _add(launches, library["launches"])
     print(f"launches on all paths: {launches}")
     for name in KERNEL_MODULES:
         if launches.get(name, 0) == 0:
             fail(f"{name} was never launched on the main path")
     rows = (numbers_phase(errs, launches) + compile_numbers_phase(errs, launches)
-            + lm_numbers_phase(errs, launches))
+            + lm_numbers_phase(errs, launches) + library_numbers_phase(errs, launches))
     print(json.dumps({"serve": served["serve"], "forward": fwd["forward"],
                       "families": families, "compile_path": pom, "workloads": wl,
-                      "workloads_default_size": wl_default, "card": card}))
+                      "workloads_default_size": wl_default,
+                      "kernel_library": {k: library[k] for k in
+                                         ("wall_ms", "vs_compile_path_max_abs_err")},
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

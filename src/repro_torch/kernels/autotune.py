@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Optional
 
 from repro_torch.core.cost_model import H100, HopperModel, HopperSpec, RooflineTerms
 
@@ -29,6 +28,10 @@ GMM_BN = 64
 SCAN_CHUNKS = (32, 64)
 SCAN_PTILES = (16, 32, 64)
 SCAN_NT = 32
+# (bm, bn, bk) tiles compiled into csrc/matmul_pom.cu (those that compile
+# without spilling registers), and the fixed tile of ``schedule="naive"``
+MATMUL_TILES = ((64, 64, 32), (64, 128, 32), (128, 64, 32), (128, 128, 16))
+MATMUL_NAIVE = (128, 128, 16)
 
 
 def flash_smem_bytes(bq: int, bkv: int, d: int) -> int:
@@ -51,40 +54,37 @@ class MatmulSchedule:
     smem_bytes: int
 
 
-def _pow2(lo: int, hi: int) -> List[int]:
-    out, b = [], lo
-    while b <= hi:
-        out.append(b)
-        b *= 2
-    return out
+def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Dynamic shared memory of one ``csrc/matmul_pom.cu`` block: the f32 x
+    tile (bm rows of bk + 1, padded) and y tile (bk rows of bn)."""
+    return 4 * (bm * (bk + 1) + bk * bn)
 
 
 @functools.lru_cache(maxsize=4096)
 def pom_matmul_schedule(m: int, n: int, k: int, dtype_bytes: int = 2,
                         spec: HopperSpec = H100) -> MatmulSchedule:
-    """Pick (bm, bn, bk) minimising the dominant roofline term.
+    """Tile (bm, bn, bk) of ``MATMUL_TILES`` for ``csrc/matmul_pom.cu``
+    (one block per (bm, bn) tile of the output, a k loop of bk-deep steps).
 
-    Device-memory traffic: reads = m*k*ceil(n/bn) + k*n*ceil(m/bm), write m*n.
-    Shared memory: two stages of (bm*bk + bk*bn) input tiles; the f32
-    accumulator lives in registers and may take at most half the register
-    file (bm*bn <= 32768).  bm, bn are multiples of the 64-row wgmma tile,
-    bk of its 16-element bf16 depth.  No port kernel takes these yet: the
-    matmul kernel is still to be ported."""
+    Device-memory traffic: reads = m*k*ceil(n/bn) + k*n*ceil(m/bm), write
+    m*n.  The 2*m*n*k operations are charged at the f32 CUDA-core rate (the
+    kernel computes there), scaled down when the grid of tiles does not
+    fill the SMs.  Ties go to fewer bytes (larger tiles re-read less), then
+    to the smaller shared-memory footprint."""
     model = HopperModel(spec)
-    best: Optional[MatmulSchedule] = None
-    for bm in _pow2(64, 256):
-        for bn in _pow2(64, 256):
-            if bm * bn > 32768:
-                continue
-            for bk in _pow2(32, 128):
-                smem = 2 * (bm * bk + bk * bn) * dtype_bytes
-                if smem > spec.smem_bytes:
-                    continue
-                reads = m * k * (-(-n // bn)) + k * n * (-(-m // bm))
-                terms = model.kernel_terms(2.0 * m * n * k, (reads + m * n) * dtype_bytes)
-                cand = MatmulSchedule(bm, bn, bk, terms, smem)
-                if best is None or cand.terms.bound_s < best.terms.bound_s:
-                    best = cand
+    best, best_key = None, None
+    for bm, bn, bk in MATMUL_TILES:
+        smem = matmul_smem_bytes(bm, bn, bk)
+        if smem > spec.smem_bytes:
+            continue
+        tiles = -(-m // bm) * -(-n // bn)
+        reads = m * k * (-(-n // bn)) + k * n * (-(-m // bm))
+        byts = (reads + m * n) * dtype_bytes
+        fill = min(1.0, max(tiles, 1) / spec.num_sms)
+        terms = model.kernel_terms(2.0 * m * n * k / fill, byts, tensor_cores=False)
+        key = (terms.bound_s, byts, smem)
+        if best is None or key < best_key:
+            best, best_key = MatmulSchedule(bm, bn, bk, terms, smem), key
     assert best is not None
     return best
 

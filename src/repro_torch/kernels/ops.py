@@ -1,7 +1,8 @@
 """Public wrappers over the port's kernels (the ``ops.py`` contract).
 
-Every op takes ``schedule='pom' | 'naive'`` (POM-DSE block sizes from
-``autotune`` vs fixed defaults).  There is no ``impl`` and no ``interpret``:
+Every op but ``jacobi2d`` (which has no schedule, as in the JAX package)
+takes ``schedule='pom' | 'naive'`` (POM-DSE block sizes from ``autotune``
+vs fixed defaults).  There is no ``impl`` and no ``interpret``:
 the device of the tensors decides.  A CUDA tensor goes to the hand-written
 kernel, a CPU tensor to its plain PyTorch version.  Inside
 ``plain_versions()`` every op takes the plain version on any device: that is
@@ -12,12 +13,14 @@ from __future__ import annotations
 import contextlib
 
 from . import ref
-from .autotune import (pom_attention_schedule, pom_decode_schedule, pom_gmm_schedule,
-                       pom_scan_schedule)
+from .autotune import (MATMUL_NAIVE, pom_attention_schedule, pom_decode_schedule,
+                       pom_gmm_schedule, pom_matmul_schedule, pom_scan_schedule)
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
 from .grouped_matmul import grouped_matmul as _gmm_cuda
+from .matmul_pom import matmul as _matmul_cuda
 from .ssm_scan import ssm_scan as _scan_cuda
+from .stencil import jacobi2d as _jacobi_cuda
 
 _plain = False
 
@@ -37,6 +40,26 @@ def plain_versions():
 def _check(schedule: str) -> None:
     if schedule not in ("pom", "naive"):
         raise ValueError(f"schedule must be 'pom' or 'naive', got {schedule!r}")
+
+
+def matmul(x, y, *, schedule: str = "pom"):
+    """x: (M, K) @ y: (K, N) -> (M, N) in x's dtype, f32 sums."""
+    _check(schedule)
+    if _plain:
+        return ref.matmul(x, y)
+    if schedule == "pom":
+        s = pom_matmul_schedule(x.shape[0], y.shape[1], x.shape[1], x.element_size())
+        bm, bn, bk = s.bm, s.bn, s.bk
+    else:
+        bm, bn, bk = MATMUL_NAIVE
+    return _matmul_cuda(x, y, bm=bm, bn=bn, bk=bk)
+
+
+def jacobi2d(x, steps: int = 1):
+    """``steps`` Jacobi-2D sweeps of x (M, N), the boundary passing through."""
+    if _plain:
+        return ref.jacobi2d(x, steps)
+    return _jacobi_cuda(x, steps)
 
 
 def attention(q, k, v, *, causal: bool = True, schedule: str = "pom"):

@@ -16,8 +16,10 @@ from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import grouped_matmul as gmm_mod
+from repro_torch.kernels import matmul_pom as matmul_mod
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssm_scan as scan_mod
+from repro_torch.kernels import stencil as stencil_mod
 
 
 def _tol(dtype):
@@ -288,6 +290,122 @@ def test_new_ops_bad_schedule_raises():
     with pytest.raises(ValueError):
         ops.ssm_scan(torch.zeros(1, 4, 1, 2), torch.ones(1, 4, 1), torch.zeros(1, 4, 1, 2),
                      torch.zeros(1, 4, 1, 2), schedule="fast")
+
+
+# --------------------------------------------------------------------------
+# matmul and the Jacobi-2D stencil: port (CPU) vs Pallas interpret and JAX ref
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,k", [(128, 128, 128), (256, 128, 384), (96, 64, 80),
+                                   (128, 256, 128)])
+def test_matmul_matches_pallas(m, n, k, dtype):
+    from repro.kernels.matmul_pom import matmul
+    rng = np.random.default_rng(m + n + k)
+    x, tx = _pair(rng.normal(size=(m, k)).astype(np.float32), dtype)
+    y, ty = _pair(rng.normal(size=(k, n)).astype(np.float32), dtype)
+    want = matmul(x, y, bm=64, bn=64, bk=64, interpret=True)
+    got = ops.matmul(tx, ty)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,bm,steps", [(64, 48, 16, 1), (128, 64, 32, 3), (32, 32, 32, 2)])
+def test_jacobi2d_matches_pallas(m, n, bm, steps, dtype):
+    """f32 within 1e-5; bf16 within 1e-2 (both compute in f32 and round once
+    a sweep, so they agree to the bit here)."""
+    from repro.kernels.stencil import jacobi2d
+    rng = np.random.default_rng(m)
+    x, tx = _pair(rng.normal(size=(m, n)).astype(np.float32), dtype)
+    want = jacobi2d(x, steps, bm=bm, interpret=True)
+    got = ops.jacobi2d(tx, steps)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    tol = 1e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_jacobi2d_ragged_matches_jax_ref():
+    """m = 200 is no multiple of the Pallas kernel's 128-row block: JAX's
+    pure-jnp reference is the yardstick."""
+    from repro.kernels import ref as jref
+    x, tx = _pair(np.random.default_rng(200).normal(size=(200, 64)).astype(np.float32),
+                  "float32")
+    np.testing.assert_allclose(_np(ops.jacobi2d(tx, 3)), _np(jref.jacobi2d(x, 3)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_jacobi2d_reference_fault_at_m_200():
+    """ROADMAP Queue 3: the JAX Pallas stencil asserts m % bm == 0 with
+    bm = min(128, m), so m = 200 raises; the port's op answers."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    xa = np.random.default_rng(0).normal(size=(200, 64)).astype(np.float32)
+    with pytest.raises(AssertionError):
+        jops.jacobi2d(jnp.asarray(xa), 1, impl="pallas")
+    np.testing.assert_allclose(ops.jacobi2d(torch.from_numpy(xa), 1).numpy(),
+                               np.asarray(jref.jacobi2d(jnp.asarray(xa), 1)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_jacobi2d_bf16_follows_the_tpu_kernel():
+    """In bf16 the port follows the Pallas kernel (f32 math, one rounding a
+    sweep), not JAX's ref.jacobi2d (bf16 math), which differs by 2^-7 here."""
+    from repro.kernels import ref as jref
+    from repro.kernels.stencil import jacobi2d
+    x, tx = _pair(np.random.default_rng(0).normal(size=(128, 64)).astype(np.float32),
+                  "bfloat16")
+    got = _np(ops.jacobi2d(tx, 3))
+    np.testing.assert_array_equal(got, _np(jacobi2d(x, 3, interpret=True)))
+    assert np.abs(got - _np(jref.jacobi2d(x, 3))).max() == 2.0 ** -7
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (1, 6), (2, 7), (6, 1), (5, 2), (2, 2)])
+def test_jacobi2d_tiny_grid_copies(m, n):
+    """Below 3 rows or columns every cell is boundary: the sweep copies."""
+    x = torch.from_numpy(np.random.default_rng(m * n).normal(size=(m, n)).astype(np.float32))
+    torch.testing.assert_close(ops.jacobi2d(x, 4), x, rtol=0, atol=0)
+
+
+def test_jacobi2d_three_by_three_and_zero_steps():
+    x = torch.arange(9, dtype=torch.float32).reshape(3, 3)
+    got = ops.jacobi2d(x, 1)
+    want = x.clone()
+    want[1, 1] = 0.2 * (1 + 7 + 3 + 5 + 4)
+    torch.testing.assert_close(got, want)
+    assert ops.jacobi2d(x, 0) is x
+    assert stencil_mod.jacobi2d(x, 0) is x
+
+
+def test_cpu_path_of_library_kernels_does_not_count_launches():
+    before = (matmul_mod.launches, stencil_mod.launches)
+    ops.matmul(torch.zeros(8, 4), torch.zeros(4, 3))
+    ops.matmul(torch.zeros(8, 4), torch.zeros(4, 3), schedule="naive")
+    ops.jacobi2d(torch.zeros(8, 5), 3)
+    assert (matmul_mod.launches, stencil_mod.launches) == before
+
+
+def test_plain_versions_route_library_ops_to_ref():
+    x, y = torch.randn(6, 5), torch.randn(5, 4)
+    with ops.plain_versions():
+        torch.testing.assert_close(ops.matmul(x, y), tref.matmul(x, y))
+        torch.testing.assert_close(ops.jacobi2d(x, 2), tref.jacobi2d(x, 2))
+    assert not ops._plain
+
+
+def test_matmul_bad_schedule_raises():
+    with pytest.raises(ValueError):
+        ops.matmul(torch.zeros(4, 4), torch.zeros(4, 4), schedule="fast")
+
+
+@pytest.mark.parametrize("m,n,k,xb", [(4096, 4096, 4096, 2), (4096, 4096, 4096, 4),
+                                      (2048, 2560, 960, 2), (1000, 3000, 520, 2),
+                                      (96, 64, 80, 4), (1, 1, 1, 4), (0, 8, 8, 2)])
+def test_pom_matmul_schedule_returns_kernel_tiles(m, n, k, xb):
+    s = autotune.pom_matmul_schedule(m, n, k, xb)
+    assert (s.bm, s.bn, s.bk) in autotune.MATMUL_TILES
+    assert s.smem_bytes == autotune.matmul_smem_bytes(s.bm, s.bn, s.bk) <= H100.smem_bytes
+    assert autotune.MATMUL_NAIVE in autotune.MATMUL_TILES
 
 
 # --------------------------------------------------------------------------
@@ -569,3 +687,91 @@ def test_gpu_new_wrappers_raise_on_unsupported_input():
                           torch.zeros(1, 8, 2, 8192, device=dev), chunk=64, p_tile=64)
     with pytest.raises(ValueError):
         scan_mod.ssm_scan(x, a, bm.transpose(2, 3).contiguous().transpose(2, 3), bm)
+
+
+# (M, K, N, dtype): 4096^3, smollm_360m's FFN up-projection, ragged shapes,
+# K = 1 and a single output
+MATMUL_CASES = [
+    (4096, 4096, 4096, "bfloat16"),
+    (2048, 960, 2560, "bfloat16"),
+    (1000, 520, 3000, "float32"),
+    (130, 70, 200, "bfloat16"),
+    (7, 1, 300, "float32"),
+    (1, 33, 1, "float32"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MATMUL_CASES)
+def test_gpu_matmul_matches_plain(case):
+    """Every compiled tile, within 1e-4 (f32) or 2e-2 (bf16: one rounding
+    of the f32 sum, 2^-8 relative) of the largest |value|."""
+    dev = _cuda()
+    m, k, n, dtype = case
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    dt = getattr(torch, dtype)
+    x = torch.randn(m, k, generator=g, device=dev).to(dt)
+    y = torch.randn(k, n, generator=g, device=dev).to(dt)
+    want = tref.matmul(x, y).float()
+    tol = (2e-2 if dtype == "bfloat16" else 1e-4) * want.abs().max().item()
+    for bm, bn, bk in autotune.MATMUL_TILES:
+        n0 = matmul_mod.launches
+        got = matmul_mod.matmul(x, y, bm=bm, bn=bn, bk=bk)
+        torch.cuda.synchronize()
+        assert matmul_mod.launches == n0 + 1
+        assert got.dtype == dt and got.shape == (m, n)
+        assert (got.float() - want).abs().max().item() <= tol, (bm, bn, bk)
+
+
+# (M, N, steps, dtype): the paper's 1024^2, ragged, tiny grids
+JACOBI_CASES = [
+    (1024, 1024, 10, "float32"),
+    (1000, 777, 3, "float32"),
+    (200, 64, 2, "bfloat16"),
+    (33, 65, 1, "float32"),
+    (2, 40, 3, "float32"),
+    (40, 1, 3, "bfloat16"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", JACOBI_CASES)
+def test_gpu_jacobi2d_matches_plain(case):
+    dev = _cuda()
+    m, n, steps, dtype = case
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    x = torch.randn(m, n, generator=g, device=dev).to(getattr(torch, dtype))
+    want = tref.jacobi2d(x, steps)
+    n0 = stencil_mod.launches
+    got = stencil_mod.jacobi2d(x, steps)
+    torch.cuda.synchronize()
+    assert stencil_mod.launches == n0 + steps
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert stencil_mod.jacobi2d(x, 0) is x
+
+
+@pytest.mark.gpu
+def test_gpu_library_wrappers_raise_on_unsupported_input():
+    dev = _cuda()
+    x = torch.zeros(8, 4, device=dev)
+    with pytest.raises(TypeError):
+        matmul_mod.matmul(x.half(), torch.zeros(4, 4, device=dev).half())
+    with pytest.raises(TypeError):
+        matmul_mod.matmul(x, torch.zeros(4, 4, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        matmul_mod.matmul(x, torch.zeros(4, 4, device=dev).t())
+    with pytest.raises(ValueError):
+        matmul_mod.matmul(x, torch.zeros(4, 4))
+    with pytest.raises(ValueError):
+        matmul_mod.matmul(x, torch.zeros(5, 4, device=dev))
+    with pytest.raises(ValueError):
+        matmul_mod.matmul(x, torch.zeros(4, 4, device=dev), bm=32, bn=32, bk=32)
+    with pytest.raises(ValueError):
+        stencil_mod.jacobi2d(torch.zeros(2, 8, 8, device=dev))
+    with pytest.raises(TypeError):
+        stencil_mod.jacobi2d(x.half())
+    with pytest.raises(ValueError):
+        stencil_mod.jacobi2d(torch.zeros(8, 16, device=dev)[:, ::2])
+    with pytest.raises(ValueError):
+        stencil_mod.jacobi2d(x, -1)

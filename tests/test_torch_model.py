@@ -205,9 +205,10 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')"
         " or m == 'benchmarks' or m.startswith('benchmarks.')]\n"
-        "assert len(mods) >= 54, mods\n"
+        "assert len(mods) >= 56, mods\n"
         "for m in ('models.moe', 'models.mamba2', 'models.xlstm', 'kernels.grouped_matmul',"
-        " 'kernels.ssm_scan'): assert 'repro_torch.' + m in mods, m\n"
+        " 'kernels.ssm_scan', 'kernels.matmul_pom', 'kernels.stencil'):"
+        " assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
