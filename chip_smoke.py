@@ -8,11 +8,14 @@ without the final ok line):
                 power limit;
   2. build   -- builds every CUDA kernel of the paths from
                 ``src/repro_torch/csrc`` (one nvcc per source, all eight in
-                parallel) and prints ptxas's summary;
+                parallel) and prints ptxas's summary; counts the wgmma
+                (HGMMA) and TMA-load (UTMALDG) instructions in the SASS of
+                matmul_pom and grouped_matmul and fails if either is 0;
   3. kernels -- each LM kernel against its plain PyTorch version on the card:
                 the attention kernels at smollm's shapes and ragged ones,
                 grouped_matmul at granite_moe_1b's decode (cap 8) and forward
-                (cap 640) shapes and a ragged one, bf16 and f32, ssm_scan at
+                (cap 640) shapes and a ragged one, bf16 and f32, through both
+                schedules and every tensor-core tile, ssm_scan at
                 zamba2's and xlstm's shapes, P = 1 and a ragged S (y and h);
   4. contraction vs plain -- the contraction kernel against its plain
                 version in f32 and bf16 on the compile path's schedules
@@ -32,8 +35,9 @@ without the final ok line):
                 and 16) and a forward (4 x 512; zamba2 2 x 1024, xlstm
                 2 x 512); every kernel must run exactly as often as the
                 family's layers say (grouped_matmul 72 times a granite decode
-                step and forward, ssm_scan 38 times a zamba2 forward and 96
-                an xlstm one).  Then the checks, each against the same
+                step and forward, every one on the tensor-core route,
+                ssm_scan 38 times a zamba2 forward and 96 an xlstm one).
+                Then the checks, each against the same
                 tokens through the plain versions on the card
                 (``ops.plain_versions()``): granite in bf16 with the kernel
                 run's expert choices replayed (``moe_routes``); zamba2 and
@@ -64,8 +68,10 @@ without the final ok line):
                 1000 x 520 x 3000 and once with ``schedule="naive"``;
                 ``ops.jacobi2d`` at 1024^2 and 4096^2 x 10 steps (f32),
                 1024^2 x 10 in bf16 and a ragged 1000 x 777 x 3; exactly one
-                launch a matmul and one a sweep; each result against its
-                plain version, and ``ops.jacobi2d(A, 10)`` against the
+                launch a matmul (the four bf16 ones on the tensor cores, the
+                f32 one on the CUDA cores) and one a sweep; each result
+                against its plain version, every tensor-core tile against
+                it at the bf16 shapes, and ``ops.jacobi2d(A, 10)`` against the
                 compile path's jacobi2d program at 1024^2;
  13. numbers -- per-kernel times with CUDA events (L2 flushed before every
                 launch), each kernel's bound, the plain version's time and a
@@ -73,7 +79,8 @@ without the final ok line):
                 ``torch.add``, ``torch.bmm``, ``torch.matmul``; none for the
                 scan and the stencil; the port never calls them), with the
                 card's clocks, temperature and power draw sampled before and
-                after each group.  One ``{"kernels": [...]}`` JSON line.
+                after each group; the matmul and grouped-matmul rows name
+                their route and tile.  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
 the smollm forward, each family's serve and forward, the compile path as
 phases 8-11, the kernel library) and read just after; the counts in the
@@ -136,6 +143,9 @@ FAMILIES = {"granite_moe_1b": dict(serve=(8, 32, 32), forward=(4, 512), consiste
                                check_dtype="float32")}
 KERNEL_MODULES = ("decode_attention", "flash_attention", "contraction", "probe",
                   "grouped_matmul", "ssm_scan", "matmul_pom", "stencil")
+# the kernels with a tensor-core and a CUDA-core route: their wrappers count
+# the tensor-core launches (launches_tc) beside all of them (launches)
+ROUTED = ("grouped_matmul", "matmul_pom")
 # the kernel library's matmul (M, K, N, dtype): the JAX autotune test's and
 # bench_kernels.py's 4096^3 in bf16 and f32, smollm_360m's FFN up-projection
 # at the forward (4 x 512 tokens, d_model 960 -> d_ff 2560) and a ragged one
@@ -157,8 +167,11 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def _kernel_modules() -> dict:
@@ -167,13 +180,32 @@ def _kernel_modules() -> dict:
 
 
 def zero_counts() -> None:
-    """Sets every kernel wrapper's launch count to 0."""
-    for m in _kernel_modules().values():
+    """Sets every kernel wrapper's launch counts to 0 (per route too)."""
+    for n, m in _kernel_modules().items():
         m.launches = 0
+        if n in ROUTED:
+            m.launches_tc = 0
 
 
 def read_counts() -> dict:
     return {n: m.launches for n, m in _kernel_modules().items()}
+
+
+def read_routes() -> dict:
+    """name -> {route: launches} of the ROUTED kernels."""
+    mods = _kernel_modules()
+    return {n: {"tensor_cores": mods[n].launches_tc,
+                "cuda_cores": mods[n].launches - mods[n].launches_tc} for n in ROUTED}
+
+
+def check_routes(label: str, name: str, tensor_cores: int, cuda_cores: int = 0) -> None:
+    """``name`` ran exactly so often on each route since the counts were
+    last set to 0."""
+    got = read_routes()[name]
+    print(f"{label}: {name} routes {got}")
+    if got != {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores}:
+        fail(f"{label}: {name} took routes {got}, expected {tensor_cores} on the tensor "
+             f"cores and {cuda_cores} on the CUDA cores")
 
 
 # --------------------------------------------------------------------------
@@ -209,9 +241,16 @@ def build_phase() -> None:
         regs = [ln.split("Used", 1)[1].strip() for ln in log.splitlines() if "Used" in ln]
         spills = [ln.strip() for ln in log.splitlines()
                   if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
+        serial = [ln.strip() for ln in log.splitlines() if "wgmma" in ln and "serializ" in ln]
         print(f"ptxas {name}: {len(regs)} kernels; "
               f"registers {sorted(set(int(r.split()[0]) for r in regs))}; "
-              f"spilling entries {len(spills)}" + (f" e.g. {spills[0]}" if spills else ""))
+              f"spilling entries {len(spills)}" + (f" e.g. {spills[0]}" if spills else "")
+              + (f"; wgmma serialized in {len(serial)}: {serial[0]}" if serial else ""))
+    for name in ROUTED:
+        counts = _build.sass_counts(name)
+        print(f"sass {name}: {counts}")
+        if not all(counts.values()):
+            fail(f"{name}: the tensor-core route compiled without wgmma or TMA: {counts}")
 
 
 # --------------------------------------------------------------------------
@@ -285,8 +324,11 @@ def _rel_tol(dtype, f32: float) -> float:
 def gmm_vs_plain(g) -> float:
     """grouped_matmul against ref.grouped_matmul: granite_moe_1b's decode
     (cap 8) and forward (cap 640) shapes and a ragged one (cap 320, f 1000,
-    d 500: no multiple of any tile), bf16 and f32, both schedules."""
-    from repro_torch.kernels import ops, ref
+    d 500: no multiple of any tile, and d no multiple of 8, so bf16 takes the
+    CUDA cores), bf16 and f32, both schedules, and every tensor-core tile
+    where the route is the tensor cores."""
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels import grouped_matmul as gmm_mod
     worst = 0.0
     for e, cap, d, f in GMM_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
@@ -294,12 +336,18 @@ def gmm_vs_plain(g) -> float:
             w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(dt)
             want = ref.grouped_matmul(x, w).float()
             scale = want.abs().max().item()
-            for schedule in ("pom", "naive"):
-                got = ops.grouped_matmul(x, w, schedule=schedule)
+            route = autotune.gmm_route(e, cap, d, f, x.element_size())
+            runs = [(sch, lambda sch=sch: ops.grouped_matmul(x, w, schedule=sch))
+                    for sch in ("pom", "naive")]
+            if route == autotune.TENSOR_CORES:
+                runs += [(f"tile {t}", lambda t=t: gmm_mod.grouped_matmul(x, w, tile=t))
+                         for t in autotune.GMM_TC_TILES]
+            for how, run in runs:
+                got = run()
                 torch.cuda.synchronize()
                 err = (got.float() - want).abs().max().item()
                 tol = _rel_tol(dt, 1e-4) * scale
-                print(f"grouped_matmul E{e} cap{cap} d{d} f{f} {str(dt)[6:]} {schedule}: "
+                print(f"grouped_matmul E{e} cap{cap} d{d} f{f} {str(dt)[6:]} {route} {how}: "
                       f"max abs err {err:.3g} (tolerance {tol:.3g})")
                 if not err <= tol:
                     fail(f"grouped_matmul disagrees with its plain version: {err}")
@@ -666,7 +714,8 @@ def family_phase(arch: str) -> dict:
     print(f"model {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"params {n_params}, {cfg.param_dtype}; init {time.perf_counter() - t0:.1f}s")
     fwd_per, dec_per = expected_launches(cfg)
-    kernel = "gmm_kernel" if cfg.family == "moe" else "ssm_scan_kernel"
+    # granite's grouped matmuls all take the tensor-core route (checked below)
+    kernel = "gemm_kernel" if cfg.family == "moe" else "ssm_scan_kernel"
     moe = cfg.family == "moe"
     v = cfg.vocab_size
     launches = {}
@@ -685,6 +734,8 @@ def family_phase(arch: str) -> dict:
     _add(launches, got)
     print(f"launches in the serve run: {got} ({steps} decode steps)")
     check_counts(f"{arch} serve", got, {k: n * steps for k, n in dec_per.items()})
+    if moe:
+        check_routes(f"{arch} serve", "grouped_matmul", got["grouped_matmul"])
     serve_peak = torch.cuda.max_memory_allocated()
     toks = res.tokens
     if toks.shape != (b, gen) or not bool(((toks >= 0) & (toks < v)).all()):
@@ -718,6 +769,8 @@ def family_phase(arch: str) -> dict:
     fwd_peak = torch.cuda.max_memory_allocated()
     print(f"launches in the forward run: {got}")
     check_counts(f"{arch} forward", got, fwd_per)
+    if moe:
+        check_routes(f"{arch} forward", "grouped_matmul", got["grouped_matmul"])
     if logits.shape != (fb, fs, cfg.padded_vocab_size) \
             or not bool(torch.isfinite(logits[..., :v]).all()):
         fail(f"{arch}: forward logits malformed or not finite")
@@ -1175,6 +1228,7 @@ def library_phase() -> dict:
     from repro_torch import workloads as W
     from repro_torch.core.pipeline import compile as pom_compile
     from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels import matmul_pom as mm_mod
     g = torch.Generator(device="cuda").manual_seed(8)
     mm_in = [(_randn(g, m, k, dtype=dt), _randn(g, k, n, dtype=dt), "pom")
              for m, k, n, dt in MATMUL_SHAPES]
@@ -1196,20 +1250,33 @@ def library_phase() -> dict:
     check_counts("kernel library", launches,
                  {"matmul_pom": len(mm_in),
                   "stencil": sum(steps for _, steps in jac_in) + 10})
+    bf16 = sum(x.dtype == torch.bfloat16 for x, _, _ in mm_in)
+    check_routes("kernel library", "matmul_pom", bf16, len(mm_in) - bf16)
 
     errs = {"matmul_pom": 0.0, "stencil": 0.0}
     for (x, y, sch), got in zip(mm_in, mm_out):
         (m, k), n = x.shape, y.shape[1]
+        route = autotune.matmul_route(m, n, k, x.element_size())
+        tc = route == autotune.TENSOR_CORES
         s = autotune.pom_matmul_schedule(m, n, k, x.element_size())
-        tile = (s.bm, s.bn, s.bk) if sch == "pom" else autotune.MATMUL_NAIVE
+        naive = autotune.MATMUL_TC_NAIVE if tc else autotune.MATMUL_NAIVE
+        tile = (s.bm, s.bn, s.bk) if sch == "pom" else naive
         want = ref.matmul(x, y).float()
-        err = (got.float() - want).abs().max().item()
         tol = MATMUL_RTOL[x.dtype] * want.abs().max().item()
-        print(f"matmul {m}x{k}x{n} {str(x.dtype)[6:]} {sch} tile {tile}: max abs err "
-              f"{err:.3g} (tolerance {tol:.3g})")
-        if got.shape != (m, n) or got.dtype != x.dtype or not err <= tol:
-            fail(f"matmul {m}x{k}x{n} disagrees with its plain version: {err}")
-        errs["matmul_pom"] = max(errs["matmul_pom"], err)
+        # the main path's result, then every tensor-core tile on the same inputs
+        runs = [(f"{sch} tile {tile}", got)]
+        if tc and sch == "pom":
+            runs += [(f"tile {t}", mm_mod.matmul(x, y, bm=t[0], bn=t[1], bk=t[2]))
+                     for t in autotune.MATMUL_TC_TILES]
+        for how, out in runs:
+            torch.cuda.synchronize()
+            err = (out.float() - want).abs().max().item()
+            print(f"matmul {m}x{k}x{n} {str(x.dtype)[6:]} {route} {how}: max abs err "
+                  f"{err:.3g} (tolerance {tol:.3g})")
+            if out.shape != (m, n) or out.dtype != x.dtype or not err <= tol:
+                fail(f"matmul {m}x{k}x{n} disagrees with its plain version: {err}")
+            errs["matmul_pom"] = max(errs["matmul_pom"], err)
+        del runs
     for (x, steps), got in zip(jac_in, jac_out):
         want = ref.jacobi2d(x, steps)
         err = (got.float() - want.float()).abs().max().item()
@@ -1395,21 +1462,25 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
     it)."""
     phase("numbers: MoE and SSM kernels")
     clocks("before")
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import autotune, ops, ref
     g = torch.Generator(device="cuda").manual_seed(7)
     dt = torch.bfloat16
     gmm = {}
     for e, cap, d, f in (GMM_SHAPES[0], GMM_SHAPES[2]):
         x = _randn(g, e, cap, d, dtype=dt)
         w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(dt)
+        s = autotune.pom_gmm_schedule(e, cap, d, f, x.element_size())
+        tile = (s.bm, s.bn, s.bk)
         bms, by = bound((e * cap * d + e * d * f + e * cap * f) * 2, 2.0 * e * cap * d * f, dt)
         ms = time_ms(lambda: ops.grouped_matmul(x, w))
         plain_ms = time_ms(lambda: ref.grouped_matmul(x, w), iters=20)
         lib_ms = time_ms(lambda: torch.bmm(x, w))
-        print(f"grouped_matmul E{e} cap{cap} d{d} f{f} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.bmm {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        print(f"grouped_matmul E{e} cap{cap} d{d} f{f} bf16 ({s.route}, tile {tile}): "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, bound "
+              f"{bms:.5f} ms ({by})")
         gmm[cap] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                    "library_ms": lib_ms, "shape": f"E {e}, cap {cap}, d {d}, f {f}, bf16"}
+                    "library_ms": lib_ms, "shape": f"E {e}, cap {cap}, d {d}, f {f}, bf16",
+                    "kernel_route": s.route, "tile": list(tile)}
         del x, w
     rows = [{"name": "grouped_matmul", "route": "cuda",
              "source": "src/repro_torch/csrc/grouped_matmul.cu",
@@ -1447,21 +1518,23 @@ def library_numbers_phase(errs: dict, launches: dict) -> list:
     sweep at 1024^2 f32 (the row; 4096^2 and the 10-sweep calls beside it)."""
     phase("numbers: kernel library")
     clocks("before")
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import autotune, ops, ref
     g = torch.Generator(device="cuda").manual_seed(9)
     mm = {}
     for dt in (torch.bfloat16, torch.float32):
         n = 4096
         x, y = _randn(g, n, n, dtype=dt), _randn(g, n, n, dtype=dt)
+        s = autotune.pom_matmul_schedule(n, n, n, x.element_size())
         bms, by = bound(3 * n * n * x.element_size(), 2.0 * n ** 3, dt)
         ms = time_ms(lambda: ops.matmul(x, y), iters=20, warmup=2)
         plain_ms = time_ms(lambda: ref.matmul(x, y), iters=20, warmup=2)
         lib_ms = time_ms(lambda: torch.matmul(x, y), iters=20, warmup=2)
-        print(f"matmul_pom {n}^3 {str(dt)[6:]}: {ms:.4f} ms ({2.0 * n ** 3 / ms / 1e9:.1f} "
-              f"TFLOP/s), plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by})")
+        print(f"matmul_pom {n}^3 {str(dt)[6:]} ({s.route}, tile {(s.bm, s.bn, s.bk)}): "
+              f"{ms:.4f} ms ({2.0 * n ** 3 / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"torch.matmul {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         mm[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                  "library_ms": lib_ms, "shape": f"{n}^3 {str(dt)[6:]}"}
+                  "library_ms": lib_ms, "shape": f"{n}^3 {str(dt)[6:]}",
+                  "kernel_route": s.route, "tile": [s.bm, s.bn, s.bk]}
         del x, y
     rows = [{"name": "matmul_pom", "route": "cuda",
              "source": "src/repro_torch/csrc/matmul_pom.cu",

@@ -6,28 +6,42 @@
 // accumulator in VMEM scratch is zeroed at the first k step and flushed at
 // the last, and cap, f and d must be multiples of their blocks (asserted).
 // Here the k axis is a loop inside the block with the f32 sums in
-// registers, and every edge (cap, d, f) is masked, so any shape runs.
+// registers, and any cap, d and f run.
 //
 // Bound: at the MoE decode shape (granite_moe_1b, batch 8: cap 8, E 32,
-// d 1024, f 512) the bytes of the expert weights (32 MiB a call, read once)
-// dominate; at the forward shape (4 x 512 tokens: cap 640) the 21.5 GFLOP
-// of a call dominate (f32 CUDA cores: this first version does not use the
-// tensor cores).  The design therefore lets the tile height follow cap
-// (BM 8, 32, 64 or 128 rows, chosen by autotune.pom_gmm_schedule): at
-// decode an 8-row tile reads each weight element once and computes no
-// padding rows, while at the forward shape a 128-row tile re-reads the
-// weights only cap / 128 times.  Each block stages a BM x BK tile of x
-// (transposed) and a BK x BN tile of w in shared memory per k step, and
-// every thread keeps a TM x TN block of f32 sums in registers.  Its rows
-// and columns are interleaved (row ty + i * BM/TM, column tx + j * BN/TN),
-// so the reads of a warp from shared memory and its stores to out are on
-// consecutive addresses.  wgmma, TMA and a multi-stage pipeline are later
-// work.
+// d 1024, f 512) the bytes of the expert weights (32 MiB a call, read
+// once) dominate; at the forward shape (4 x 512 tokens: cap 640) the
+// bytes still edge out the 21.5 GFLOP of a call at the tensor-core rate.
+// Two routes, chosen by shape (autotune.gmm_route), each with its tiles:
+//
+// * tensor cores (`grouped_matmul_tc_launch`): bf16 with d and f multiples
+//   of 8, so that TMA can describe both operands.  The mainloop of
+//   hopper_gemm.cuh with the expert in blockIdx.z and 3-D descriptors,
+//   (d, cap, E) for x and (f, d, E) for w, so that a tile at a cap or d
+//   tail reads TMA's zeros, never the next expert's rows.  At decode a
+//   64-row tile computes 56 rows of zeros (2.1 GFLOP, ~2 us at the
+//   tensor-core rate, under the ~10 us the weights take); what matters
+//   there is that E x ceil(f / bn) blocks fill the 132 SMs with enough
+//   stages in flight to stream the weights at the HBM rate
+//   (autotune.pom_gmm_schedule).  Tiles: autotune.GMM_TC_TILES.
+// * CUDA cores (`grouped_matmul_launch`): f32 (TF32 would break its 1e-4
+//   tolerance) and bf16 shapes TMA cannot describe (d = 500).  Every edge is
+//   masked.  The tile height follows cap (BM 8, 32, 64 or 128 rows,
+//   autotune.GMM_BM): at decode an 8-row tile reads each weight element
+//   once and computes no padding rows, while at the forward shape a 128-row
+//   tile re-reads the weights only cap / 128 times.  Each block stages a
+//   BM x BK tile of x (transposed) and a BK x BN tile of w in shared memory
+//   per k step, and every thread keeps a TM x TN block of f32 sums in
+//   registers.  Its rows and columns are interleaved (row ty + i * BM/TM,
+//   column tx + j * BN/TN), so the reads of a warp from shared memory and
+//   its stores to out are on consecutive addresses.
 //
 // Layouts (all contiguous): x (E, cap, d), w (E, d, f), out (E, cap, f) in
 // x's dtype (float32 or bfloat16; w of the same dtype).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -130,6 +144,21 @@ cudaError_t dispatch(const void* x, const void* w, void* out, int e, int cap, in
   }
 }
 
+// The tensor-core tiles of autotune.GMM_TC_TILES, (bm, bn, bk): bk is the
+// 64-deep stage of hopper_gemm.cuh.
+cudaError_t dispatch_tc(const void* x, const void* w, void* out, int e, int cap, int d, int f,
+                        int bm, int bn, int bk, cudaStream_t stream) {
+#define TILE(BM, BN, BK)                                             \
+  if (bm == BM && bn == BN && bk == BK)                              \
+    return hgemm::launch<BM, BN>(x, w, out, e, cap, f, d, stream);
+  TILE(64, 64, 64)
+  TILE(64, 128, 64)
+  TILE(128, 128, 64)
+  TILE(128, 256, 64)
+#undef TILE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -143,4 +172,12 @@ extern "C" int grouped_matmul_launch(const void* x, const void* w, void* out, in
   if (dtype == 0) return (int)dispatch<float>(x, w, out, e, cap, d, f, bm, st);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(x, w, out, e, cap, d, f, bm, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 on the tensor cores: d % 8 == 0, f % 8 == 0, x and w 16-byte
+// aligned.  Returns cudaGetLastError() after the launch (0 on success);
+// cudaErrorInvalidValue for a shape, tile or pointer the route does not take.
+extern "C" int grouped_matmul_tc_launch(const void* x, const void* w, void* out, int e, int cap,
+                                        int d, int f, int bm, int bn, int bk, void* stream) {
+  return (int)dispatch_tc(x, w, out, e, cap, d, f, bm, bn, bk, static_cast<cudaStream_t>(stream));
 }

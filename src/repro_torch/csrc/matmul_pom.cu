@@ -7,30 +7,39 @@
 // output dtype) at the last, and the wrapper copies zero-padded inputs so
 // that every dim is a multiple of its block.  Here one block computes one
 // (bm, bn) tile of out; the k axis is a loop inside the block with the f32
-// sums in registers, and every edge (M, N, K) is masked, so any shape runs
-// and nothing is padded or copied.
+// sums in registers, and nothing is padded or copied.
 //
 // Bound: at the sizes it is called with (4096^3, smollm_360m's FFN
-// up-projection 2048 x 960 x 2560) operations: 2 M N K against M K + K N +
-// M N elements moved.  This first version computes on the f32 CUDA cores
-// (67 TFLOP/s), so in bf16 it cannot come near the tensor-core bound
-// (989 TFLOP/s); wgmma with TMA-fed stages is later work.  The design
-// keeps the CUDA cores busy: each of the 256 threads (a 16 x 16 grid) owns
-// a (bm/16) x (bn/16) block of sums in registers, read from shared-memory
-// tiles staged bk deep, so a k step costs bm/16 + bn/64 shared loads (x
-// scalars, y as float4 in runs of 256 bytes a half-warp) per
-// (bm/16)(bn/16) fused multiply-adds, and the
-// next step's x and y elements are loaded from device memory into
-// registers while the current step computes.  The x tile is kept row-major
-// with its k rows padded by one, so both the coalesced stores (consecutive
-// threads walk k along a row of x) and the reads (two rows per warp) are
-// free of bank conflicts.  The tiles the schedule may pick are
-// autotune.MATMUL_TILES; the wrapper rejects any other.
+// up-projection 2048 x 960 x 2560, a ragged 1000 x 520 x 3000) operations:
+// 2 M N K against M K + K N + M N elements moved.  Two routes, chosen by
+// shape (autotune.matmul_route), each with its own tiles:
+//
+// * tensor cores (`matmul_pom_tc_launch`): bf16 with K and N multiples of
+//   8, so that TMA can describe both operands.  The mainloop of
+//   hopper_gemm.cuh: TMA loads into a ring of swizzled stages, wgmma with
+//   f32 sums in registers, one rounding to bf16; the m, n and k tails are
+//   zero-filled by TMA.  Its tiles, (bm, bn, 64), are
+//   autotune.MATMUL_TC_TILES.
+// * CUDA cores (`matmul_pom_launch`): f32 (TF32 would break its 1e-4
+//   tolerance) and bf16 shapes TMA cannot describe (k = 70).  Every edge is
+//   masked, so any shape runs.  Each of the 256 threads (a 16 x 16 grid)
+//   owns a (bm/16) x (bn/16) block of sums in registers, read from
+//   shared-memory tiles staged bk deep, so a k step costs bm/16 + bn/64
+//   shared loads (x scalars, y as float4 in runs of 256 bytes a half-warp)
+//   per (bm/16)(bn/16) fused multiply-adds, and the next step's x and y
+//   elements are loaded from device memory into registers while the
+//   current step computes.  The x tile is kept row-major with its k rows
+//   padded by one, so both the coalesced stores (consecutive threads walk k
+//   along a row of x) and the reads (two rows per warp) are free of bank
+//   conflicts.  The tiles the schedule may pick are autotune.MATMUL_TILES;
+//   the wrapper rejects any other.
 //
 // Layouts (all contiguous, row-major): x (M, K), y (K, N), out (M, N) in
 // x's dtype (float32 or bfloat16; y of the same dtype).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -178,6 +187,20 @@ cudaError_t dispatch(const void* x, const void* y, void* out, int m, int n, int 
   return cudaErrorInvalidValue;
 }
 
+// The tensor-core tiles of autotune.MATMUL_TC_TILES, (bm, bn, bk): bk is
+// the 64-deep stage of hopper_gemm.cuh.
+cudaError_t dispatch_tc(const void* x, const void* y, void* out, int m, int n, int k, int bm,
+                        int bn, int bk, cudaStream_t stream) {
+#define TILE(BM, BN, BK)                                             \
+  if (bm == BM && bn == BN && bk == BK)                              \
+    return hgemm::launch<BM, BN>(x, y, out, 1, m, n, k, stream);
+  TILE(64, 128, 64)
+  TILE(128, 128, 64)
+  TILE(128, 256, 64)
+#undef TILE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -190,4 +213,12 @@ extern "C" int matmul_pom_launch(const void* x, const void* y, void* out, int m,
   if (dtype == 0) return (int)dispatch<float>(x, y, out, m, n, k, bm, bn, bk, st);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(x, y, out, m, n, k, bm, bn, bk, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 on the tensor cores: k % 8 == 0, n % 8 == 0, x and y 16-byte
+// aligned.  Returns cudaGetLastError() after the launch (0 on success);
+// cudaErrorInvalidValue for a shape, tile or pointer the route does not take.
+extern "C" int matmul_pom_tc_launch(const void* x, const void* y, void* out, int m, int n, int k,
+                                    int bm, int bn, int bk, void* stream) {
+  return (int)dispatch_tc(x, y, out, m, n, k, bm, bn, bk, static_cast<cudaStream_t>(stream));
 }

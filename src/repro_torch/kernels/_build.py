@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes plain C functions and is compiled on its own
-into ``_build/lib<name>-<hash>.so`` (the hash is of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused), with
+into ``_build/lib<name>-<hash>.so`` (the hash is of the source, every
+``csrc/*.cuh`` it includes, and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused), with
 nvcc's output (the ``-Xptxas -v`` register and spill summary) beside it in
 ``lib<name>-<hash>.log``.
 Sources are compiled in parallel, one ``nvcc`` each.  Nothing here runs at
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,15 +45,42 @@ def nvcc() -> str:
     return found
 
 
+def headers(path: Path) -> list:
+    """The ``csrc`` headers that ``path`` includes (``#include "x.cuh"``),
+    directly or through another header, in the order first seen."""
+    seen: list = []
+    todo = [path]
+    while todo:
+        text = todo.pop(0).read_text()
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+            h = CSRC / inc
+            if h not in seen:
+                seen.append(h)
+                todo.append(h)
+    return seen
+
+
 def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for h in headers(src):
+        digest.update(h.name.encode() + h.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def log_path(name: str) -> Path:
     """nvcc's output for the library ``lib_path(name)``."""
     return lib_path(name).with_suffix(".log")
+
+
+def sass_counts(name: str, mnemonics=("HGMMA", "UTMALDG")) -> Dict[str, int]:
+    """How many instructions of each mnemonic the built library of ``name``
+    holds (``cuobjdump -sass``): HGMMA is wgmma, UTMALDG a TMA load."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build([name])[name])], capture_output=True,
+                          text=True, check=True).stdout
+    return {m: len(re.findall(rf"\b{m}\b", sass)) for m in mnemonics}
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:

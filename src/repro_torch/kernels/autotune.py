@@ -7,6 +7,12 @@ constraint is the shared-memory footprint of the port's own kernels (at
 most 232,448 bytes a block), and the block sizes are the ones those kernels
 are compiled for.  Ties in the bound go to fewer sequential KV steps, then to
 the smaller footprint (more blocks resident on an SM).
+
+The matmul and the grouped matmul have two routes each, and a pure function
+of the shape picks one before any tile is scored (``matmul_route``,
+``gmm_route``): the tensor cores (``csrc/hopper_gemm.cuh``: TMA-fed stages
+and wgmma) where TMA can describe the operands, the CUDA-core kernels
+otherwise.
 """
 from __future__ import annotations
 
@@ -32,6 +38,19 @@ SCAN_NT = 32
 # without spilling registers), and the fixed tile of ``schedule="naive"``
 MATMUL_TILES = ((64, 64, 32), (64, 128, 32), (128, 64, 32), (128, 128, 16))
 MATMUL_NAIVE = (128, 128, 16)
+# the two routes of the matmul and the grouped matmul
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+# (bm, bn, bk) tiles of the tensor-core route (csrc/hopper_gemm.cuh: bm/64
+# consumer warpgroups, bk the 64-deep stage), as instantiated by the TILE(...)
+# lines of csrc/matmul_pom.cu and csrc/grouped_matmul.cu, and the fixed tiles
+# of ``schedule="naive"`` (the CUDA-core grouped matmul's is GMM_NAIVE_BM)
+TC_BK = 64
+MATMUL_TC_TILES = ((64, 128, 64), (128, 128, 64), (128, 256, 64))
+MATMUL_TC_NAIVE = (128, 128, 64)
+GMM_TC_TILES = ((64, 64, 64), (64, 128, 64), (128, 128, 64), (128, 256, 64))
+GMM_TC_NAIVE = (128, 128, 64)
+GMM_NAIVE_BM = 64
+SMEM_PER_SM = 233_472          # shared memory of one SM; 1 KB of it is reserved a block
 
 
 def flash_smem_bytes(bq: int, bkv: int, d: int) -> int:
@@ -45,6 +64,51 @@ def decode_smem_bytes(group: int, d: int, bkv: int) -> int:
     return 4 * (2 * group * d + group * bkv + 3 * group + bkv * (d + 1) + bkv * d)
 
 
+def matmul_route(m: int, n: int, k: int, dtype_bytes: int) -> str:
+    """The route of an (m, k) @ (k, n) matmul: the tensor cores where TMA
+    can describe both operands (bf16, every row stride a multiple of 16
+    bytes: k and n multiples of 8, nothing empty), the CUDA cores for every
+    other shape and for f32 (TF32 would break its 1e-4 tolerance)."""
+    if dtype_bytes == 2 and min(m, n, k) > 0 and k % 8 == 0 and n % 8 == 0:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def gmm_route(e: int, cap: int, d: int, f: int, dtype_bytes: int) -> str:
+    """The route of an (e, cap, d) @ (e, d, f) grouped matmul, by the rule
+    of ``matmul_route`` (d and f multiples of 8)."""
+    if e > 0 and matmul_route(cap, f, d, dtype_bytes) == TENSOR_CORES:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def tc_stages(bm: int, bn: int, bk: int = TC_BK) -> int:
+    """Stages of the TMA ring of a tensor-core tile (``hgemm::stages_for``):
+    four, unless three let two blocks share an SM where four do not."""
+    def two_fit(stages: int) -> bool:
+        return 2 * (_tc_smem(bm, bn, bk, stages) + 1024) <= SMEM_PER_SM
+    return 3 if not two_fit(4) and two_fit(3) else 4
+
+
+def _tc_smem(bm: int, bn: int, bk: int, stages: int) -> int:
+    return stages * (bm + bn) * bk * 2 + 1024 + 16 * stages
+
+
+def tc_smem_bytes(bm: int, bn: int, bk: int = TC_BK) -> int:
+    """Dynamic shared memory of one tensor-core block: every stage of the
+    ring (a bm x bk tile of A and a bk x bn tile of B in bf16), 1 KB to
+    align the swizzled tiles, and a full and an empty barrier a stage."""
+    return _tc_smem(bm, bn, bk, tc_stages(bm, bn, bk))
+
+
+def _terms(model: HopperModel, flops: float, byts: float, blocks: int,
+           tensor_cores: bool) -> RooflineTerms:
+    """Roofline terms of a grid of ``blocks``: a grid that leaves SMs idle
+    gets their share of neither the peak rate nor the HBM rate."""
+    fill = min(1.0, max(blocks, 1) / model.spec.num_sms)
+    return model.kernel_terms(flops / fill, byts / fill, tensor_cores=tensor_cores)
+
+
 @dataclass(frozen=True)
 class MatmulSchedule:
     bm: int
@@ -52,39 +116,46 @@ class MatmulSchedule:
     bk: int
     terms: RooflineTerms
     smem_bytes: int
+    route: str = CUDA_CORES
 
 
 def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Dynamic shared memory of one ``csrc/matmul_pom.cu`` block: the f32 x
-    tile (bm rows of bk + 1, padded) and y tile (bk rows of bn)."""
+    """Dynamic shared memory of one CUDA-core ``csrc/matmul_pom.cu`` block:
+    the f32 x tile (bm rows of bk + 1, padded) and y tile (bk rows of bn)."""
     return 4 * (bm * (bk + 1) + bk * bn)
 
 
 @functools.lru_cache(maxsize=4096)
 def pom_matmul_schedule(m: int, n: int, k: int, dtype_bytes: int = 2,
                         spec: HopperSpec = H100) -> MatmulSchedule:
-    """Tile (bm, bn, bk) of ``MATMUL_TILES`` for ``csrc/matmul_pom.cu``
-    (one block per (bm, bn) tile of the output, a k loop of bk-deep steps).
+    """Tile (bm, bn, bk) for ``csrc/matmul_pom.cu`` (one block per (bm, bn)
+    tile of the output, a k loop of bk-deep steps), from the tiles of the
+    route ``matmul_route`` picks: ``MATMUL_TC_TILES`` or ``MATMUL_TILES``.
 
     Device-memory traffic: reads = m*k*ceil(n/bn) + k*n*ceil(m/bm), write
-    m*n.  The 2*m*n*k operations are charged at the f32 CUDA-core rate (the
-    kernel computes there), scaled down when the grid of tiles does not
-    fill the SMs.  Ties go to fewer bytes (larger tiles re-read less), then
-    to the smaller shared-memory footprint."""
+    m*n.  The 2*m*n*k operations (padded to whole tiles on the tensor
+    cores, which compute them) are charged at the route's rate: 989 TFLOP/s
+    on the tensor cores, 67 on the f32 CUDA cores.  Both terms are scaled
+    down when the grid of tiles does not fill the SMs.  Ties go to fewer
+    bytes (larger tiles re-read less), then to less padding, then to the
+    smaller shared-memory footprint (all the ring's stages on the tensor
+    cores)."""
     model = HopperModel(spec)
+    route = matmul_route(m, n, k, dtype_bytes)
+    tc = route == TENSOR_CORES
     best, best_key = None, None
-    for bm, bn, bk in MATMUL_TILES:
-        smem = matmul_smem_bytes(bm, bn, bk)
+    for bm, bn, bk in MATMUL_TC_TILES if tc else MATMUL_TILES:
+        smem = tc_smem_bytes(bm, bn, bk) if tc else matmul_smem_bytes(bm, bn, bk)
         if smem > spec.smem_bytes:
             continue
-        tiles = -(-m // bm) * -(-n // bn)
-        reads = m * k * (-(-n // bn)) + k * n * (-(-m // bm))
+        mt, nt = -(-m // bm), -(-n // bn)
+        reads = m * k * nt + k * n * mt
         byts = (reads + m * n) * dtype_bytes
-        fill = min(1.0, max(tiles, 1) / spec.num_sms)
-        terms = model.kernel_terms(2.0 * m * n * k / fill, byts, tensor_cores=False)
-        key = (terms.bound_s, byts, smem)
+        flops = 2.0 * (mt * bm * nt * bn * -(-k // bk) * bk if tc else m * n * k)
+        terms = _terms(model, flops, byts, mt * nt, tc)
+        key = (terms.bound_s, byts, flops, smem)
         if best is None or key < best_key:
-            best, best_key = MatmulSchedule(bm, bn, bk, terms, smem), key
+            best, best_key = MatmulSchedule(bm, bn, bk, terms, smem, route), key
     assert best is not None
     return best
 
@@ -223,34 +294,66 @@ def pom_scan_schedule(s: int, p: int, n: int, dtype_bytes: int = 2, groups: int 
     return best
 
 
+# the k step of each CUDA-core tile height of csrc/grouped_matmul.cu
+GMM_CC_BK = {8: 32, 32: 32, 64: 16, 128: 16}
+
+
+def gmm_smem_bytes(bm: int) -> int:
+    """Static shared memory of one CUDA-core ``csrc/grouped_matmul.cu``
+    block: the transposed x tile (bk rows of bm + 1) and the w tile (bk
+    rows of ``GMM_BN``), f32."""
+    bk = GMM_CC_BK[bm]
+    return 4 * (bk * (bm + 1) + bk * GMM_BN)
+
+
 @dataclass(frozen=True)
 class GmmSchedule:
     bm: int
     terms: RooflineTerms
+    bn: int = GMM_BN
+    bk: int = 0
+    route: str = CUDA_CORES
+    smem_bytes: int = 0
 
 
 @functools.lru_cache(maxsize=4096)
 def pom_gmm_schedule(e: int, cap: int, d: int, f: int, dtype_bytes: int = 2,
                      spec: HopperSpec = H100) -> GmmSchedule:
-    """Tile height bm for ``csrc/grouped_matmul.cu`` ((bm, ``GMM_BN``) output
-    tiles, one block per (expert, m tile, n tile)).
+    """Tile for ``csrc/grouped_matmul.cu`` (one block per (expert, m tile,
+    n tile)), from the tiles of the route ``gmm_route`` picks: (bm, bn, bk)
+    of ``GMM_TC_TILES`` on the tensor cores, a height bm of ``GMM_BM``
+    (``GMM_BN`` wide) on the CUDA cores.
 
-    The height follows the capacity: each tile computes bm rows whether or
-    not cap fills them, so at decode (cap 8) a 128-row tile would do 16x the
-    work, while there the bound is the bytes of the expert weights, read
-    once per m tile.  Work is charged at the f32 CUDA-core rate (the kernel
-    computes there), scaled down when the grid does not fill the SMs; ties
-    go to fewer bytes (taller tiles re-read the weights less)."""
+    Each tile computes bm rows whether or not cap fills them; at decode
+    (cap 8) the bound is the bytes of the expert weights, read once per m
+    tile.  On the CUDA cores the height follows the capacity (a 128-row
+    tile would do 16x the work at cap 8).  On the tensor cores every tile
+    is at least 64 rows (the 56 padding rows at decode cost ~2 us at the
+    tensor-core rate), so there the choice is the width: E x ceil(f / bn)
+    blocks must fill the SMs to stream the weights at the HBM rate.  Work
+    (padded to whole tiles) is charged at the route's rate; both terms are
+    scaled down when the grid does not fill the SMs; ties go to fewer bytes
+    (taller tiles re-read the weights less), then to fewer padding rows,
+    then to the smaller shared-memory footprint."""
     model = HopperModel(spec)
+    route = gmm_route(e, cap, d, f, dtype_bytes)
+    tc = route == TENSOR_CORES
+    if tc:
+        tiles = GMM_TC_TILES
+    else:
+        tiles = tuple((bm, GMM_BN, GMM_CC_BK[bm]) for bm in GMM_BM)
     best, best_key = None, None
-    n_tiles = -(-f // GMM_BN)
-    for bm in GMM_BM:
-        m_tiles = -(-cap // bm)
-        flops = 2.0 * e * m_tiles * bm * n_tiles * GMM_BN * d
+    for bm, bn, bk in tiles:
+        smem = tc_smem_bytes(bm, bn, bk) if tc else gmm_smem_bytes(bm)
+        if smem > spec.smem_bytes:
+            continue
+        m_tiles, n_tiles = -(-cap // bm), -(-f // bn)
+        kk = -(-d // bk) * bk if tc else d
+        flops = 2.0 * e * m_tiles * bm * n_tiles * bn * kk
         byts = e * (cap * d * n_tiles + d * f * m_tiles + cap * f) * dtype_bytes
-        fill = min(1.0, e * m_tiles * n_tiles / spec.num_sms)
-        terms = model.kernel_terms(flops / fill, byts, tensor_cores=False)
-        key = (terms.bound_s, byts)
+        terms = _terms(model, flops, byts, e * m_tiles * n_tiles, tc)
+        key = (terms.bound_s, byts, flops, smem)
         if best is None or key < best_key:
-            best, best_key = GmmSchedule(bm, terms), key
+            best, best_key = GmmSchedule(bm, terms, bn, bk, route, smem), key
+    assert best is not None
     return best

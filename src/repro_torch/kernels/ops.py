@@ -4,7 +4,11 @@ Every op but ``jacobi2d`` (which has no schedule, as in the JAX package)
 takes ``schedule='pom' | 'naive'`` (POM-DSE block sizes from ``autotune``
 vs fixed defaults).  There is no ``impl`` and no ``interpret``:
 the device of the tensors decides.  A CUDA tensor goes to the hand-written
-kernel, a CPU tensor to its plain PyTorch version.  Inside
+kernel, a CPU tensor to its plain PyTorch version.  ``matmul`` and
+``grouped_matmul`` have two kernels each; the pure functions
+``autotune.matmul_route`` / ``gmm_route`` pick one from the shape and dtype
+(the tensor cores for bf16 whose row strides TMA can describe, the CUDA
+cores otherwise), and the schedule then picks a tile of that route.  Inside
 ``plain_versions()`` every op takes the plain version on any device: that is
 how a model is run on the card as the reference its kernels are held to.
 """
@@ -13,7 +17,7 @@ from __future__ import annotations
 import contextlib
 
 from . import ref
-from .autotune import (MATMUL_NAIVE, pom_attention_schedule, pom_decode_schedule,
+from .autotune import (TENSOR_CORES, pom_attention_schedule, pom_decode_schedule,
                        pom_gmm_schedule, pom_matmul_schedule, pom_scan_schedule)
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
@@ -47,12 +51,10 @@ def matmul(x, y, *, schedule: str = "pom"):
     _check(schedule)
     if _plain:
         return ref.matmul(x, y)
-    if schedule == "pom":
-        s = pom_matmul_schedule(x.shape[0], y.shape[1], x.shape[1], x.element_size())
-        bm, bn, bk = s.bm, s.bn, s.bk
-    else:
-        bm, bn, bk = MATMUL_NAIVE
-    return _matmul_cuda(x, y, bm=bm, bn=bn, bk=bk)
+    if schedule == "naive":
+        return _matmul_cuda(x, y)          # the fixed tile of the route
+    s = pom_matmul_schedule(x.shape[0], y.shape[1], x.shape[1], x.element_size())
+    return _matmul_cuda(x, y, bm=s.bm, bn=s.bn, bk=s.bk)
 
 
 def jacobi2d(x, steps: int = 1):
@@ -94,12 +96,12 @@ def grouped_matmul(x, w, *, schedule: str = "pom"):
     _check(schedule)
     if _plain:
         return ref.grouped_matmul(x, w)
-    if schedule == "pom":
-        bm = pom_gmm_schedule(x.shape[0], x.shape[1], x.shape[2], w.shape[2],
-                              x.element_size()).bm
-    else:
-        bm = 64
-    return _gmm_cuda(x, w, bm=bm)
+    if schedule == "naive":
+        return _gmm_cuda(x, w)             # the fixed tile of the route
+    s = pom_gmm_schedule(x.shape[0], x.shape[1], x.shape[2], w.shape[2], x.element_size())
+    if s.route == TENSOR_CORES:
+        return _gmm_cuda(x, w, tile=(s.bm, s.bn, s.bk))
+    return _gmm_cuda(x, w, bm=s.bm)
 
 
 def ssm_scan(x, a, b, c, *, schedule: str = "pom"):

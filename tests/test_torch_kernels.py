@@ -402,10 +402,18 @@ def test_matmul_bad_schedule_raises():
                                       (2048, 2560, 960, 2), (1000, 3000, 520, 2),
                                       (96, 64, 80, 4), (1, 1, 1, 4), (0, 8, 8, 2)])
 def test_pom_matmul_schedule_returns_kernel_tiles(m, n, k, xb):
+    """The schedule's tile is one the kernel of its route compiles, with that
+    kernel's footprint (every stage of the ring on the tensor cores)."""
     s = autotune.pom_matmul_schedule(m, n, k, xb)
-    assert (s.bm, s.bn, s.bk) in autotune.MATMUL_TILES
-    assert s.smem_bytes == autotune.matmul_smem_bytes(s.bm, s.bn, s.bk) <= H100.smem_bytes
+    assert s.route == autotune.matmul_route(m, n, k, xb)
+    if s.route == autotune.TENSOR_CORES:
+        assert (s.bm, s.bn, s.bk) in autotune.MATMUL_TC_TILES
+        assert s.smem_bytes == autotune.tc_smem_bytes(s.bm, s.bn, s.bk) <= H100.smem_bytes
+    else:
+        assert (s.bm, s.bn, s.bk) in autotune.MATMUL_TILES
+        assert s.smem_bytes == autotune.matmul_smem_bytes(s.bm, s.bn, s.bk) <= H100.smem_bytes
     assert autotune.MATMUL_NAIVE in autotune.MATMUL_TILES
+    assert autotune.MATMUL_TC_NAIVE in autotune.MATMUL_TC_TILES
 
 
 # --------------------------------------------------------------------------
@@ -484,13 +492,131 @@ def test_pom_scan_schedule_splits_xlstm_carry_over_p():
 
 
 def test_pom_gmm_schedule_follows_cap():
-    """Decode (cap 8) takes the 8-row tile; the forward's cap 640 a tall one."""
-    assert autotune.pom_gmm_schedule(32, 8, 1024, 512, 2).bm == 8
+    """bf16 at granite's shapes runs on the tensor cores: decode (cap 8) takes
+    a 64-row tile whose width leaves E x ceil(f / bn) blocks to fill the SMs,
+    the forward's cap 640 a tall one.  On the CUDA cores (f32) the height
+    follows cap: 8 rows at decode, 128 at the forward."""
+    dec = autotune.pom_gmm_schedule(32, 8, 1024, 512, 2)
+    assert dec.route == autotune.TENSOR_CORES and dec.bm == 64
+    assert 32 * -(-512 // dec.bn) >= 0.9 * H100.num_sms
     assert autotune.pom_gmm_schedule(32, 640, 1024, 512, 2).bm == 128
+    assert autotune.pom_gmm_schedule(32, 8, 1024, 512, 4).bm == 8
+    assert autotune.pom_gmm_schedule(32, 640, 1024, 512, 4).bm == 128
     for cap in (8, 24, 100, 320, 640, 1288):
-        s = autotune.pom_gmm_schedule(32, cap, 1024, 512, 2)
-        assert s.bm in autotune.GMM_BM
-        assert s.terms.bound_s > 0
+        for xb in (2, 4):
+            s = autotune.pom_gmm_schedule(32, cap, 1024, 512, xb)
+            tiles = autotune.GMM_TC_TILES if xb == 2 else [
+                (bm, autotune.GMM_BN, autotune.GMM_CC_BK[bm]) for bm in autotune.GMM_BM]
+            assert (s.bm, s.bn, s.bk) in tiles
+            assert s.terms.bound_s > 0
+
+
+# (M, N, K, bytes, route): 4096^3, smollm's FFN and the ragged library shape
+# in bf16 on the tensor cores; K = 70, N = 1, f32 and empty on the CUDA cores
+MATMUL_ROUTES = [(4096, 4096, 4096, 2, "tensor_cores"), (2048, 2560, 960, 2, "tensor_cores"),
+                 (1000, 3000, 520, 2, "tensor_cores"), (1, 8, 8, 2, "tensor_cores"),
+                 (130, 200, 70, 2, "cuda_cores"), (7, 300, 1, 2, "cuda_cores"),
+                 (64, 1, 64, 2, "cuda_cores"), (4096, 4096, 4096, 4, "cuda_cores"),
+                 (0, 8, 8, 2, "cuda_cores"), (8, 8, 0, 2, "cuda_cores")]
+
+
+@pytest.mark.parametrize("m,n,k,xb,route", MATMUL_ROUTES)
+def test_matmul_route(m, n, k, xb, route):
+    assert autotune.matmul_route(m, n, k, xb) == route
+
+
+# (E, cap, d, f, bytes, route): granite's decode (wi/wg, wo) and forward
+# shapes and the tail shapes in bf16 on the tensor cores; d = 500, f = 70
+# and f32 on the CUDA cores
+GMM_ROUTES = [(32, 8, 1024, 512, 2, "tensor_cores"), (32, 8, 512, 1024, 2, "tensor_cores"),
+              (32, 640, 1024, 512, 2, "tensor_cores"), (32, 640, 512, 1024, 2, "tensor_cores"),
+              (3, 37, 72, 64, 2, "tensor_cores"), (1, 1000, 520, 64, 2, "tensor_cores"),
+              (32, 320, 500, 1000, 2, "cuda_cores"), (4, 37, 100, 70, 2, "cuda_cores"),
+              (32, 8, 1024, 512, 4, "cuda_cores"), (0, 8, 64, 64, 2, "cuda_cores")]
+
+
+@pytest.mark.parametrize("e,cap,d,f,xb,route", GMM_ROUTES)
+def test_gmm_route(e, cap, d, f, xb, route):
+    assert autotune.gmm_route(e, cap, d, f, xb) == route
+
+
+@pytest.mark.parametrize("e,cap,d,f,xb,route", GMM_ROUTES)
+def test_pom_gmm_schedule_returns_tiles_of_its_route(e, cap, d, f, xb, route):
+    """The grouped matmul's tile belongs to its route and fits shared memory
+    with every stage of the ring."""
+    s = autotune.pom_gmm_schedule(e, cap, d, f, xb)
+    assert s.route == route
+    if route == autotune.TENSOR_CORES:
+        assert (s.bm, s.bn, s.bk) in autotune.GMM_TC_TILES
+        assert s.smem_bytes == autotune.tc_smem_bytes(s.bm, s.bn, s.bk)
+    else:
+        assert s.bm in autotune.GMM_BM and (s.bn, s.bk) == (autotune.GMM_BN,
+                                                           autotune.GMM_CC_BK[s.bm])
+        assert s.smem_bytes == autotune.gmm_smem_bytes(s.bm)
+    assert s.smem_bytes <= H100.smem_bytes
+
+
+@pytest.mark.parametrize("bm,bn,bk", sorted(set(autotune.MATMUL_TC_TILES
+                                                + autotune.GMM_TC_TILES)))
+def test_every_tensor_core_tile_fits_with_all_stages(bm, bn, bk):
+    """Every stage of the ring fits in a block's shared memory, each stage's
+    tiles on a 1024-byte swizzle period, 3 or 4 stages, and three stages
+    only where they let two blocks share an SM."""
+    stages = autotune.tc_stages(bm, bn, bk)
+    smem = autotune.tc_smem_bytes(bm, bn, bk)
+    assert stages in (3, 4) and bk == autotune.TC_BK
+    assert smem == stages * (bm + bn) * bk * 2 + 1024 + 16 * stages <= H100.smem_bytes
+    assert (bm * bk * 2) % 1024 == 0 and (bk * 64 * 2) % 1024 == 0
+    if stages == 3:
+        assert 2 * (smem + 1024) <= autotune.SMEM_PER_SM
+
+
+def _tile_instantiations(source: str) -> tuple:
+    """The (bm, bn, bk) of the TILE(...) lines of ``dispatch_tc`` in a
+    ``csrc`` source."""
+    import re
+    from pathlib import Path
+    text = (Path(autotune.__file__).resolve().parent.parent / "csrc" / source).read_text()
+    body = text[text.index("cudaError_t dispatch_tc("):]
+    body = body[:body.index("#undef TILE")]
+    return tuple(tuple(int(v) for v in t)
+                 for t in re.findall(r"^\s*TILE\((\d+), (\d+), (\d+)\)", body, flags=re.M))
+
+
+def test_tensor_core_tile_sets_match_the_sources():
+    assert _tile_instantiations("matmul_pom.cu") == autotune.MATMUL_TC_TILES
+    assert _tile_instantiations("grouped_matmul.cu") == autotune.GMM_TC_TILES
+    assert autotune.GMM_TC_NAIVE in autotune.GMM_TC_TILES
+
+
+def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
+    """An edited header a source includes gives the library a new name (so
+    a stale build is never reused); an unrelated header does not."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int y;\n")
+    (tmp_path / "c.cuh").write_text("int z;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [h.name for h in _build.headers(tmp_path / "k.cu")] == ["a.cuh", "b.cuh"]
+    before = _build.lib_path("k")
+    (tmp_path / "c.cuh").write_text("int w;\n")
+    assert _build.lib_path("k") == before
+    (tmp_path / "b.cuh").write_text("int y2;\n")
+    assert _build.lib_path("k") != before
+
+
+def test_cpu_path_takes_any_tile_or_route():
+    """On the CPU the wrappers return the plain version whatever the tile,
+    and count nothing."""
+    x, y = torch.randn(16, 8), torch.randn(8, 24)
+    before = (matmul_mod.launches_tc, gmm_mod.launches_tc)
+    torch.testing.assert_close(matmul_mod.matmul(x.bfloat16(), y.bfloat16(), bm=128, bn=128,
+                                                 bk=64), tref.matmul(x.bfloat16(), y.bfloat16()))
+    xe, we = x[None], y[None]
+    torch.testing.assert_close(gmm_mod.grouped_matmul(xe, we, tile=(64, 64, 64)),
+                               tref.grouped_matmul(xe, we))
+    assert (matmul_mod.launches_tc, gmm_mod.launches_tc) == before
 
 
 # --------------------------------------------------------------------------
@@ -714,13 +840,112 @@ def test_gpu_matmul_matches_plain(case):
     y = torch.randn(k, n, generator=g, device=dev).to(dt)
     want = tref.matmul(x, y).float()
     tol = (2e-2 if dtype == "bfloat16" else 1e-4) * want.abs().max().item()
-    for bm, bn, bk in autotune.MATMUL_TILES:
-        n0 = matmul_mod.launches
+    tc = autotune.matmul_route(m, n, k, x.element_size()) == autotune.TENSOR_CORES
+    for bm, bn, bk in (autotune.MATMUL_TC_TILES if tc else ()) + autotune.MATMUL_TILES:
+        n0, ntc = matmul_mod.launches, matmul_mod.launches_tc
         got = matmul_mod.matmul(x, y, bm=bm, bn=bn, bk=bk)
         torch.cuda.synchronize()
         assert matmul_mod.launches == n0 + 1
+        assert matmul_mod.launches_tc == ntc + ((bm, bn, bk) in autotune.MATMUL_TC_TILES)
         assert got.dtype == dt and got.shape == (m, n)
         assert (got.float() - want).abs().max().item() <= tol, (bm, bn, bk)
+
+
+# (M, K, N) in bf16 for the tensor-core tiles: aligned, an M tail (M 1000),
+# a K tail (k 520: 8 x 64 + 8), an N tail (200), one row, and K = 8 (one
+# stage, mostly TMA zeros)
+MATMUL_TC_CASES = [(1024, 1024, 1024), (1000, 520, 3000), (130, 72, 200), (1, 64, 64),
+                   (256, 8, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MATMUL_TC_CASES)
+def test_gpu_matmul_tensor_core_tiles_match_plain(case):
+    """Every tensor-core tile within 2e-2 of the largest |value| (one bf16
+    rounding of an f32 sum), through ops.matmul's route and counted there."""
+    dev = _cuda()
+    m, k, n = case
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    y = torch.randn(k, n, generator=g, device=dev).bfloat16()
+    want = tref.matmul(x, y).float()
+    tol = 2e-2 * want.abs().max().item()
+    assert autotune.matmul_route(m, n, k, 2) == autotune.TENSOR_CORES
+    for bm, bn, bk in autotune.MATMUL_TC_TILES:
+        got = matmul_mod.matmul(x, y, bm=bm, bn=bn, bk=bk)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert (got.float() - want).abs().max().item() <= tol, (bm, bn, bk)
+    for schedule in ("pom", "naive"):
+        ntc = matmul_mod.launches_tc
+        got = ops.matmul(x, y, schedule=schedule)
+        torch.cuda.synchronize()
+        assert matmul_mod.launches_tc == ntc + 1
+        assert (got.float() - want).abs().max().item() <= tol
+
+
+# (E, cap, d, f) in bf16 for the tensor-core tiles: granite's decode and
+# forward, a cap tail (37), a d tail (72 = 64 + 8) with an f tail, E = 1
+GMM_TC_CASES = [(32, 8, 1024, 512), (32, 640, 512, 1024), (3, 37, 256, 128),
+                (4, 64, 72, 200), (1, 1000, 520, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_TC_CASES)
+def test_gpu_grouped_matmul_tensor_core_tiles_match_plain(case):
+    """Every tensor-core tile within 2e-2 of the largest |value|; the
+    experts stay apart at every tail (a d tail reading the next expert's
+    rows would be far off); ops.grouped_matmul counts a tensor-core launch."""
+    dev = _cuda()
+    e, cap, d, f = case
+    g = torch.Generator(device=dev).manual_seed(e + cap + d + f)
+    x = torch.randn(e, cap, d, generator=g, device=dev).bfloat16()
+    w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).bfloat16()
+    want = tref.grouped_matmul(x, w).float()
+    tol = 2e-2 * want.abs().max().item()
+    assert autotune.gmm_route(e, cap, d, f, 2) == autotune.TENSOR_CORES
+    for tile in autotune.GMM_TC_TILES:
+        got = gmm_mod.grouped_matmul(x, w, tile=tile)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (e, cap, f)
+        assert (got.float() - want).abs().max().item() <= tol, tile
+    for schedule in ("pom", "naive"):
+        ntc = gmm_mod.launches_tc
+        got = ops.grouped_matmul(x, w, schedule=schedule)
+        torch.cuda.synchronize()
+        assert gmm_mod.launches_tc == ntc + 1
+        assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_gpu_tensor_core_route_raises_where_tma_cannot_describe():
+    """A tensor-core tile on a shape or pointer the route does not take
+    raises; the same shapes run on the CUDA cores through ops."""
+    dev = _cuda()
+    x = torch.zeros(64, 70, device=dev, dtype=torch.bfloat16)
+    y = torch.zeros(70, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        matmul_mod.matmul(x, y, bm=128, bn=128, bk=64)
+    n0, ntc = matmul_mod.launches, matmul_mod.launches_tc
+    ops.matmul(x, y)
+    assert (matmul_mod.launches, matmul_mod.launches_tc) == (n0 + 1, ntc)
+    with pytest.raises(ValueError):
+        matmul_mod.matmul(x.float(), y.float(), bm=128, bn=128, bk=64)
+    buf = torch.zeros(64 * 64 + 4, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):          # 8-byte offset: contiguous but misaligned
+        matmul_mod.matmul(buf[4:].view(64, 64), buf[4:].view(64, 64), bm=128, bn=128, bk=64)
+    xe = torch.zeros(2, 8, 500, device=dev, dtype=torch.bfloat16)
+    we = torch.zeros(2, 500, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gmm_mod.grouped_matmul(xe, we, tile=(64, 64, 64))
+    with pytest.raises(ValueError):
+        gmm_mod.grouped_matmul(xe[:, :, :64].contiguous(), we[:, :64].contiguous(),
+                               tile=(64, 64, 32))
+    with pytest.raises(ValueError):
+        gmm_mod.grouped_matmul(xe, we, bm=8, tile=(64, 64, 64))
+    n0, ntc = gmm_mod.launches, gmm_mod.launches_tc
+    ops.grouped_matmul(xe, we)
+    assert (gmm_mod.launches, gmm_mod.launches_tc) == (n0 + 1, ntc)
 
 
 # (M, N, steps, dtype): the paper's 1024^2, ragged, tiny grids

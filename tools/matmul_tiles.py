@@ -1,17 +1,26 @@
-"""Every tile compiled into ``csrc/matmul_pom.cu``, and the stencil sweep, on one GPU.
+"""Every tile compiled into ``csrc/matmul_pom.cu`` and ``csrc/grouped_matmul.cu``,
+and the stencil sweep, on one GPU.
 
     python3 tools/matmul_tiles.py
 
-Builds the ``matmul_pom`` and ``stencil`` kernels, prints ptxas's registers,
-stack frame and spills for each compiled kernel (from the ``.log`` beside the
-library), then for every tile of ``autotune.MATMUL_TILES`` and the four
-larger tiles the source also compiles (they spill registers; the wrapper
-refuses them, so they are launched here through the C entry point): its max abs error
-against the plain version and its time at 4096^3 (bf16 and f32), at
-smollm_360m's FFN up-projection (2048 x 960 x 2560, bf16) and at a ragged
-1000 x 520 x 3000 (bf16), beside ``torch.matmul`` and the tile the schedule
-picks.  Then one stencil sweep at 1024^2 and 4096^2 (f32) and 1024^2 bf16.
-This is the measurement behind the choice of ``MATMUL_TILES``.
+Builds the ``matmul_pom``, ``grouped_matmul`` and ``stencil`` kernels, prints
+ptxas's registers, stack frame and spills for each compiled kernel (from the
+``.log`` beside the library) and the number of wgmma (HGMMA) and TMA-load
+(UTMALDG) instructions in the SASS of the two matmul libraries: non-zero
+counts show that the tensor-core route was compiled.  Then, for the matmul,
+every tile of ``autotune.MATMUL_TC_TILES`` (tensor cores, where
+``matmul_route`` takes the shape), of ``autotune.MATMUL_TILES`` and the four
+larger CUDA-core tiles the source also compiles (they spill registers; the
+wrapper refuses them, so they are launched here through the C entry point):
+its max abs error against the plain version and its time at 4096^3 (bf16 and
+f32), at smollm_360m's FFN up-projection (2048 x 960 x 2560, bf16) and at a
+ragged 1000 x 520 x 3000 (bf16), beside ``torch.matmul`` and the tile the
+schedule picks.  For the grouped matmul, every tile of
+``autotune.GMM_TC_TILES`` and every CUDA-core height of ``autotune.GMM_BM``
+at granite_moe_1b's decode (cap 8) and forward (cap 640) shapes, beside
+``torch.bmm``, the plain version and the schedule's pick.  Then one stencil
+sweep at 1024^2 and 4096^2 (f32) and 1024^2 bf16.  This is the measurement
+behind the tile sets and the schedules' choices.
 
 Imports nothing of JAX.  Exits non-zero without a card.
 """
@@ -31,6 +40,8 @@ sys.path.insert(0, str(ROOT))
 SPILLING_TILES = ((128, 128, 32), (128, 256, 16), (128, 256, 32), (256, 128, 16))
 SHAPES = [(4096, 4096, 4096, torch.bfloat16), (4096, 4096, 4096, torch.float32),
           (2048, 960, 2560, torch.bfloat16), (1000, 520, 3000, torch.bfloat16)]
+# granite_moe_1b's grouped matmuls (E, cap, d, f): decode (wi/wg, wo) and forward
+GMM_SHAPES = [(32, 8, 1024, 512), (32, 8, 512, 1024), (32, 640, 1024, 512)]
 
 
 def ptxas_summary(name: str) -> None:
@@ -70,10 +81,14 @@ def main() -> None:
     from repro_torch.kernels import stencil as st
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
-    _build.build(["matmul_pom", "stencil"])
-    for name in ("matmul_pom", "stencil"):
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import matmul_pom as mm
+    _build.build(["matmul_pom", "grouped_matmul", "stencil"])
+    for name in ("matmul_pom", "grouped_matmul", "stencil"):
         print(f"ptxas {name}:")
         ptxas_summary(name)
+    for name in ("matmul_pom", "grouped_matmul"):
+        print(f"sass {name}: {_build.sass_counts(name)}")
     g = torch.Generator(device="cuda").manual_seed(0)
     for m, k, n, dt in SHAPES:
         x = torch.randn(m, k, generator=g, device="cuda").to(dt)
@@ -84,15 +99,45 @@ def main() -> None:
         bms, by = bound((m * k + k * n + m * n) * x.element_size(), 2.0 * m * n * k, dt)
         lib = time_ms(lambda: torch.matmul(x, y), iters=20)
         print(f"matmul {m}x{k}x{n} {str(dt)[6:]}: bound {bms:.4f} ms ({by}), torch.matmul "
-              f"{lib:.4f} ms, schedule picks {(s.bm, s.bn, s.bk)}")
-        for tile in autotune.MATMUL_TILES + SPILLING_TILES:
-            got = launch(x, y, tile)
+              f"{lib:.4f} ms, schedule picks {(s.bm, s.bn, s.bk)} ({s.route})")
+        tc = s.route == autotune.TENSOR_CORES
+        for tile in (autotune.MATMUL_TC_TILES if tc else ()) + autotune.MATMUL_TILES \
+                + SPILLING_TILES:
+            if tile in autotune.MATMUL_TC_TILES:
+                run = (lambda t: lambda: mm.matmul(x, y, bm=t[0], bn=t[1], bk=t[2]))(tile)
+            else:
+                run = (lambda t: lambda: launch(x, y, t))(tile)
+            got = run()
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
-            ms = time_ms(lambda: launch(x, y, tile), iters=10, warmup=2)
+            ms = time_ms(run, iters=10, warmup=2)
             print(f"  tile {tile}: {ms:.4f} ms ({2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s), "
                   f"max abs err {err:.3g} ({err / scale:.2e} of scale)")
         del x, y, want, got
+    for e, cap, d, f in GMM_SHAPES:
+        x = torch.randn(e, cap, d, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(torch.bfloat16)
+        want = ref.grouped_matmul(x, w).float()
+        scale = want.abs().max().item()
+        s = autotune.pom_gmm_schedule(e, cap, d, f, 2)
+        bms, by = bound((e * cap * d + e * d * f + e * cap * f) * 2, 2.0 * e * cap * d * f,
+                        torch.bfloat16)
+        lib = time_ms(lambda: torch.bmm(x, w))
+        plain = time_ms(lambda: ref.grouped_matmul(x, w), iters=20)
+        print(f"grouped_matmul E{e} cap{cap} d{d} f{f} bf16: bound {bms:.5f} ms ({by}), "
+              f"torch.bmm {lib:.4f} ms, plain {plain:.4f} ms, schedule picks "
+              f"{(s.bm, s.bn, s.bk)} ({s.route})")
+        runs = [(f"tile {t}", (lambda t: lambda: gmm.grouped_matmul(x, w, tile=t))(t))
+                for t in autotune.GMM_TC_TILES]
+        runs += [(f"CUDA-core bm {b}", (lambda b: lambda: gmm.grouped_matmul(x, w, bm=b))(b))
+                 for b in autotune.GMM_BM]
+        for label, run in runs:
+            got = run()
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            ms = time_ms(run, iters=20, warmup=3)
+            print(f"  {label}: {ms:.4f} ms, max abs err {err:.3g} ({err / scale:.2e} of scale)")
+        del x, w, want, got
     for m, dt in ((1024, torch.float32), (4096, torch.float32), (1024, torch.bfloat16)):
         a = torch.randn(m, m, generator=g, device="cuda").to(dt)
         err = (st.jacobi2d(a, 10).float() - ref.jacobi2d(a, 10).float()).abs().max().item()
