@@ -10,9 +10,13 @@ without the final ok line):
                 ``src/repro_torch/csrc`` (one nvcc per source, all eight in
                 parallel) and prints ptxas's summary; counts the wgmma
                 (HGMMA) and TMA-load (UTMALDG) instructions in the SASS of
-                matmul_pom and grouped_matmul and fails if either is 0;
+                matmul_pom, grouped_matmul and flash_attention and fails if
+                either is 0;
   3. kernels -- each LM kernel against its plain PyTorch version on the card:
-                the attention kernels at smollm's shapes and ragged ones,
+                the attention kernels at smollm's shapes and ragged ones
+                (flash in bf16 on every tensor-core tile too: a ragged Sq,
+                Sq < Skv, Sq > Skv with rows that see no key, group 4 and
+                1, non-causal, D 128, and D 32 on the CUDA cores),
                 grouped_matmul at granite_moe_1b's decode (cap 8) and forward
                 (cap 640) shapes and a ragged one, bf16 and f32, through both
                 schedules and every tensor-core tile, ssm_scan at
@@ -28,14 +32,16 @@ without the final ok line):
                 32 times per decode step; logits are held against the same
                 tokens teacher-forced through the plain attention;
   6. forward -- a 512-token prompt (batch 4) through ``forward`` (the flash
-                kernel), held against teacher-forced decode logits;
+                kernel, all 32 launches on the tensor-core route), held
+                against teacher-forced decode logits;
   7. families -- granite_moe_1b, zamba2_1_2b and xlstm_1_3b at full width
                 and depth (bf16, seeded random weights), one at a time.  The
                 main path: a serve (batch 8; prompt 32 and gen 32, xlstm 16
                 and 16) and a forward (4 x 512; zamba2 2 x 1024, xlstm
                 2 x 512); every kernel must run exactly as often as the
                 family's layers say (grouped_matmul 72 times a granite decode
-                step and forward, every one on the tensor-core route,
+                step and forward, every one on the tensor-core route, as
+                are granite's 24 and zamba2's 6 flash launches a forward;
                 ssm_scan 38 times a zamba2 forward and 96 an xlstm one).
                 Then the checks, each against the same
                 tokens through the plain versions on the card
@@ -53,7 +59,8 @@ without the final ok line):
                 32 x 32 x 32 with the DSL's tile/split/unroll primitives,
                 through ``compile(fn, target="cuda")``: calling the program
                 and ``jitted()`` each launch the contraction kernel once per
-                statement and agree with ``torch.matmul`` compositions;
+                statement, every launch on its strided (shared-memory ring)
+                kernel, and agree with ``torch.matmul`` compositions;
  10. workloads -- the thirteen serving workloads (``serving_cases(False)``)
                 through ``jitted()`` and ``batched(8)`` on the card against
                 the numpy oracle and eight sequential calls (times after a
@@ -72,15 +79,20 @@ without the final ok line):
                 f32 one on the CUDA cores) and one a sweep; each result
                 against its plain version, every tensor-core tile against
                 it at the bf16 shapes, and ``ops.jacobi2d(A, 10)`` against the
-                compile path's jacobi2d program at 1024^2;
+                compile path's jacobi2d program at 1024^2; then the
+                library's ops on a misaligned bf16 operand (CUDA cores) and
+                a transposed one (copied to contiguous), each against its
+                plain version;
  13. numbers -- per-kernel times with CUDA events (L2 flushed before every
                 launch), each kernel's bound, the plain version's time and a
                 PyTorch yardstick on the same inputs (SDPA, ``torch.addmm``,
                 ``torch.add``, ``torch.bmm``, ``torch.matmul``; none for the
                 scan and the stencil; the port never calls them), with the
                 card's clocks, temperature and power draw sampled before and
-                after each group; the matmul and grouped-matmul rows name
-                their route and tile.  One ``{"kernels": [...]}`` JSON line.
+                after each group; the matmul, grouped-matmul and flash rows
+                name their route and tile (flash's CUDA-core route and the
+                contraction's table kernel timed beside them on the same
+                inputs).  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
 the smollm forward, each family's serve and forward, the compile path as
 phases 8-11, the kernel library) and read just after; the counts in the
@@ -145,7 +157,7 @@ KERNEL_MODULES = ("decode_attention", "flash_attention", "contraction", "probe",
                   "grouped_matmul", "ssm_scan", "matmul_pom", "stencil")
 # the kernels with a tensor-core and a CUDA-core route: their wrappers count
 # the tensor-core launches (launches_tc) beside all of them (launches)
-ROUTED = ("grouped_matmul", "matmul_pom")
+ROUTED = ("grouped_matmul", "matmul_pom", "flash_attention")
 # the kernel library's matmul (M, K, N, dtype): the JAX autotune test's and
 # bench_kernels.py's 4096^3 in bf16 and f32, smollm_360m's FFN up-projection
 # at the forward (4 x 512 tokens, d_model 960 -> d_ff 2560) and a ragged one
@@ -185,6 +197,8 @@ def zero_counts() -> None:
         m.launches = 0
         if n in ROUTED:
             m.launches_tc = 0
+        if n == "contraction":
+            m.launches_strided = 0
 
 
 def read_counts() -> dict:
@@ -291,24 +305,51 @@ def kernel_phase() -> dict:
                 fail(f"decode_attention disagrees with its plain version: {err}")
             errs["decode_attention"] = max(errs["decode_attention"], err)
 
-    # (B, Hq, Hkv, Sq, Skv, D, causal, dtype)
-    flash_cases = [(FWD_B, 15, 5, FWD_S, FWD_S, 64, True, torch.bfloat16),
+    # (B, Hq, Hkv, Sq, Skv, D, causal, dtype); bf16 at D 64 and 128 takes the
+    # tensor cores (its tile is run directly too), D 32 and f32 the CUDA cores
+    bf16 = torch.bfloat16
+    flash_cases = [(FWD_B, 15, 5, FWD_S, FWD_S, 64, True, bf16),       # smollm_360m's forward
+                   (2, 32, 32, 1024, 1024, 64, True, bf16),         # zamba2_1_2b's forward
+                   (4, 16, 8, 512, 512, 64, True, bf16),            # granite_moe_1b's forward
+                   (2, 4, 4, 130, 130, 64, True, bf16),             # ragged Sq
+                   (1, 4, 1, 64, 200, 64, True, bf16),              # Sq < Skv suffix
+                   (1, 4, 2, 200, 64, 64, True, bf16),              # Sq > Skv: rows see no key
+                   (2, 8, 2, 130, 130, 64, True, bf16),             # group 4
+                   (1, 4, 4, 96, 96, 64, True, bf16),               # group 1
+                   (2, 4, 4, 100, 100, 64, False, bf16),            # non-causal
+                   (2, 8, 2, 300, 300, 128, True, bf16),            # D 128
+                   (2, 4, 4, 130, 130, 32, True, bf16),             # D 32: CUDA cores
                    (2, 4, 4, 100, 100, 64, False, torch.float32),   # non-causal, ragged
                    (1, 4, 1, 64, 200, 64, True, torch.float32),     # Sq < Skv suffix
                    (2, 8, 2, 130, 130, 32, True, torch.float32),    # group 4, ragged
                    (1, 4, 4, 96, 96, 128, True, torch.float32)]     # group 1
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_attention as flash_mod
     for b, hq, hkv, sq, skv, d, causal, dt in flash_cases:
         q = _randn(g, b, hq, sq, d, dtype=dt)
         k, v = _randn(g, b, hkv, skv, d, dtype=dt), _randn(g, b, hkv, skv, d, dtype=dt)
         want = ref.attention(q, k, v, causal=causal)
-        for schedule in ("pom", "naive"):
-            got = ops.attention(q, k, v, causal=causal, schedule=schedule)
+        route = autotune.attention_route(sq, skv, d, q.element_size())
+        runs = [(sch, lambda sch=sch: ops.attention(q, k, v, causal=causal, schedule=sch))
+                for sch in ("pom", "naive")]
+        if route == autotune.TENSOR_CORES:
+            runs += [(f"tile {t}", lambda t=t: flash_mod.flash_attention(
+                q, k, v, causal=causal, bq=t[0], bkv=t[1])) for t in autotune.FLASH_TC_TILES]
+        for how, run in runs:
+            ntc = flash_mod.launches_tc
+            got = run()
             torch.cuda.synchronize()
+            took_tc = flash_mod.launches_tc - ntc
             err = (got.float() - want.float()).abs().max().item()
             print(f"flash B{b} Hq{hq} Hkv{hkv} Sq{sq} Skv{skv} D{d} causal={causal} "
-                  f"{str(dt)[6:]} {schedule}: max abs err {err:.3g}")
+                  f"{str(dt)[6:]} {route} {how}: max abs err {err:.3g}")
+            if took_tc != (route == autotune.TENSOR_CORES):
+                fail(f"flash_attention took the wrong route: {took_tc} tensor-core launches "
+                     f"for route {route}")
             if not err <= _tol(dt):
                 fail(f"flash_attention disagrees with its plain version: {err}")
+            if causal and sq > skv and not bool((got[:, :, :sq - skv] == 0).all()):
+                fail("flash_attention: a query row that sees no key is not 0")
             errs["flash_attention"] = max(errs["flash_attention"], err)
     errs["grouped_matmul"] = gmm_vs_plain(g)
     errs["ssm_scan"] = scan_vs_plain(g)
@@ -520,6 +561,7 @@ def forward_phase(model) -> dict:
     if launches["flash_attention"] != cfg.num_layers:
         fail(f"flash_attention ran {launches['flash_attention']} times, "
              f"expected {cfg.num_layers}")
+    check_routes("smollm_360m forward", "flash_attention", cfg.num_layers)
     v = cfg.vocab_size
     if logits.shape != (FWD_B, FWD_S, cfg.padded_vocab_size) \
             or not bool(torch.isfinite(logits[..., :v]).all()):
@@ -771,6 +813,7 @@ def family_phase(arch: str) -> dict:
     check_counts(f"{arch} forward", got, fwd_per)
     if moe:
         check_routes(f"{arch} forward", "grouped_matmul", got["grouped_matmul"])
+    check_routes(f"{arch} forward", "flash_attention", got["flash_attention"])
     if logits.shape != (fb, fs, cfg.padded_vocab_size) \
             or not bool(torch.isfinite(logits[..., :v]).all()):
         fail(f"{arch}: forward logits malformed or not finite")
@@ -917,7 +960,9 @@ def contraction_phase() -> tuple:
     worst = 0.0
     for label, build, b in cases:
         d = lower_stmt_cuda(build().fn.statements[0], device="cuda").desc
-        label += " (tiled kernel)" if cmod.gemm_view(d) else " (generic kernel)"
+        view = cmod.gemm_view(d)
+        label += (" (generic kernel)" if view is None else " (table kernel)"
+                  if cmod.gemm_strides(d, view) is None else " (strided kernel in f32)")
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(b * d.x_numel, generator=g, device="cuda").to(dt)
             y = torch.randn(b * d.y_numel, generator=g, device="cuda").to(dt)
@@ -992,12 +1037,15 @@ def compile_path_phase() -> dict:
         for label, run in (("call", prog), ("jitted", prog.jitted())):
             run(arrs)                            # warm-up
             torch.cuda.synchronize()
-            n0 = cmod.launches
+            n0, s0 = cmod.launches, cmod.launches_strided
             t0 = time.perf_counter()
             got = run(arrs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = cmod.launches - n0
+            if cmod.launches_strided - s0 != n_stmt:
+                fail(f"{name} {label}: {cmod.launches_strided - s0} of {n_stmt} statements "
+                     "took the strided contraction kernel")
             err = max((got[k] - want[k]).abs().max().item() / scale[k] for k in want)
             print(f"{name} {label}: {launches} contraction launches, wall "
                   f"{wall * 1e3:.2f} ms, {flops / wall / 1e9:.1f} GFLOP/s, "
@@ -1295,8 +1343,65 @@ def library_phase() -> dict:
           f"{prog.mode}): max abs err {err:.3g} (tolerance {JACOBI_ATOL[torch.float32]})")
     if not err <= JACOBI_ATOL[torch.float32]:
         fail(f"ops.jacobi2d disagrees with the compile path: {err}")
+    errs["misaligned_or_transposed"] = odd_operands(g)
     return {"errs": errs, "launches": launches, "wall_ms": wall * 1e3,
             "vs_compile_path_max_abs_err": err}
+
+
+def _misaligned(g, *shape):
+    """A contiguous bf16 tensor of ``shape`` 8 bytes off a 16-byte boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    out = torch.randn(n + 4, generator=g, device="cuda").bfloat16()[4:].view(*shape)
+    if out.data_ptr() % 16 != 8:
+        fail("could not make a misaligned operand")
+    return out
+
+
+def odd_operands(g) -> float:
+    """ops.matmul, ops.grouped_matmul and ops.jacobi2d on a misaligned bf16
+    operand (the route must be the CUDA cores: TMA cannot describe it) and
+    on a transposed one (copied to contiguous), each against its plain
+    version; the largest error relative to the plain result's largest
+    |value|."""
+    from repro_torch.kernels import grouped_matmul as gmm_mod
+    from repro_torch.kernels import matmul_pom as mm_mod
+    from repro_torch.kernels import ops, ref
+    xt = _randn(g, 1024, 512, dtype=torch.bfloat16)
+    w = _randn(g, 8, 512, 256, dtype=torch.bfloat16)
+    cases = [("matmul misaligned", mm_mod, 0, lambda: (_misaligned(g, 512, 512),
+                                                       _misaligned(g, 512, 256)),
+              ops.matmul, ref.matmul),
+             ("matmul x.t()", mm_mod, 1, lambda: (xt.t(), xt), ops.matmul, ref.matmul),
+             ("grouped_matmul misaligned", gmm_mod, 0, lambda: (_misaligned(g, 8, 64, 512),
+                                                                _misaligned(g, 8, 512, 256)),
+              ops.grouped_matmul, ref.grouped_matmul),
+             ("grouped_matmul w.transpose(1, 2)", gmm_mod, 1, lambda: (w.transpose(1, 2), w),
+              ops.grouped_matmul, ref.grouped_matmul),
+             ("jacobi2d misaligned", None, None, lambda: (_misaligned(g, 1000, 512), 3),
+              ops.jacobi2d, ref.jacobi2d),
+             ("jacobi2d x.t()", None, None, lambda: (_randn(g, 512, 1000,
+                                                            dtype=torch.float32).t(), 3),
+              ops.jacobi2d, ref.jacobi2d)]
+    worst = 0.0
+    for label, mod, tc, make, op, plain in cases:
+        args = make()
+        ntc = mod.launches_tc if mod else 0
+        got = op(*args)
+        torch.cuda.synchronize()
+        want = plain(*args).float()
+        err = (got.float() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        route = "" if mod is None else (" tensor cores" if mod.launches_tc - ntc else
+                                        " cuda cores")
+        print(f"{label} {tuple(args[0].shape)}{route}: max rel err vs plain {err:.3g}")
+        if mod is not None and mod.launches_tc - ntc != tc:
+            fail(f"{label}: took the{route} route")
+        if got.shape != want.shape or not err <= (2e-2 if got.dtype == torch.bfloat16
+                                                  else 1e-5):
+            fail(f"{label} disagrees with its plain version: {err}")
+        worst = max(worst, err)
+    return worst
 
 
 # --------------------------------------------------------------------------
@@ -1327,6 +1432,18 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
         ends[i].record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def timed_route(mod, fn, **kw) -> tuple:
+    """(``time_ms(fn)``, the route every launch of ``mod``'s kernel took in
+    that run), read from the wrapper's counts."""
+    from repro_torch.kernels import autotune
+    n0, ntc = mod.launches, mod.launches_tc
+    ms = time_ms(fn, **kw)
+    n, tc = mod.launches - n0, mod.launches_tc - ntc
+    if n == 0 or tc not in (0, n):
+        fail(f"{mod.__name__}: {tc} of {n} timed launches on the tensor cores")
+    return ms, (autotune.TENSOR_CORES if tc else autotune.CUDA_CORES)
 
 
 def bound(byts: float, flops: float, dtype) -> tuple:
@@ -1386,18 +1503,28 @@ def numbers_phase(errs: dict, launches: dict) -> list:
     byts = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
     flops = 4.0 * d * b * hq * (s * (s + 1) // 2)
     bms, by = bound(byts, flops, dt)
-    ms = time_ms(lambda: ops.attention(q, k, v, causal=True))
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_attention as flash_mod
+    sch = autotune.pom_attention_schedule(s, s, d, 2, True)
+    ms, route = timed_route(flash_mod, lambda: ops.attention(q, k, v, causal=True))
+    if route != sch.route:
+        fail(f"flash_attention: ops.attention took the {route} route, its schedule "
+             f"{sch.route}")
+    cc_ms = time_ms(lambda: flash_mod.flash_attention(q, k, v, bq=64, bkv=64), iters=20)
     plain_ms = time_ms(lambda: ref.attention(q, k, v, causal=True), iters=20)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                             enable_gqa=True))
-    print(f"flash_attention B{b} S{s}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+    print(f"flash_attention B{b} S{s} ({route}, tile {(sch.bq, sch.bkv)}): {ms:.4f} ms, "
+          f"CUDA-core route (64, 64) {cc_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:27",
                  "launches": launches["flash_attention"],
                  "max_abs_err": errs["flash_attention"], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                 "library": "scaled_dot_product_attention", "kernel_route": route,
+                 "tile": [sch.bq, sch.bkv], "cuda_core_route_ms": cc_ms})
     clocks("after")
     return rows
 
@@ -1426,18 +1553,31 @@ def compile_numbers_phase(errs: dict, launches: dict) -> list:
     x, y, o = operands(d)
     byts = 4 * (d.x_numel + d.y_numel + 2 * d.o_numel)   # X, Y, D read once; D written
     bms, by = bound(byts, d.flops(), torch.float32)
+    n0, s0 = cmod.launches, cmod.launches_strided
     ms = time_ms(lambda: cmod.contraction(d, x, y, o), iters=20, warmup=2)
+    if cmod.launches_strided - s0 != cmod.launches - n0:
+        fail(f"gemm n{n}: {cmod.launches_strided - s0} of {cmod.launches - n0} timed "
+             "launches took the strided kernel")
+    strides = cmod.gemm_strides
+    cmod.gemm_strides = lambda desc, view: None     # the same inputs on the table kernel
+    try:
+        table_ms = time_ms(lambda: cmod.contraction(d, x, y, o), iters=20, warmup=2)
+    finally:
+        cmod.gemm_strides = strides
     lib_ms = time_ms(lambda: torch.addmm(o.view(n, n), x.view(n, n), y.view(n, n)), iters=20)
     plain_ms = time_ms(lambda: ref.contraction(d, x, y, o), iters=20, warmup=2)
-    print(f"contraction gemm n{n} t{POM_T} f32: {ms:.3f} ms "
-          f"({d.flops() / ms / 1e6:.1f} GFLOP/s), plain {plain_ms:.4f} ms, "
+    print(f"contraction gemm n{n} t{POM_T} f32 (strided kernel): {ms:.3f} ms "
+          f"({d.flops() / ms / 1e6:.1f} GFLOP/s), table kernel {table_ms:.3f} ms, "
+          f"plain {plain_ms:.4f} ms, "
           f"torch.addmm {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     rows.append({"name": "contraction", "route": "cuda",
                  "source": "src/repro_torch/csrc/contraction.cu",
                  "replaces": "src/repro/core/backend_pallas.py:286",
                  "launches": launches["contraction"], "max_abs_err": errs["contraction"],
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                 "library_ms": lib_ms, "shape": f"gemm n{n} tile {POM_T} f32"})
+                 "library_ms": lib_ms, "library": "torch.addmm",
+                 "shape": f"gemm n{n} tile {POM_T} f32", "kernel_path": "strided",
+                 "table_kernel_ms": table_ms})
     del x, y, o
 
     x8 = torch.arange(8, dtype=torch.float32, device="cuda")
@@ -1463,6 +1603,7 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
     phase("numbers: MoE and SSM kernels")
     clocks("before")
     from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels import grouped_matmul as gmm_mod
     g = torch.Generator(device="cuda").manual_seed(7)
     dt = torch.bfloat16
     gmm = {}
@@ -1472,15 +1613,15 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
         s = autotune.pom_gmm_schedule(e, cap, d, f, x.element_size())
         tile = (s.bm, s.bn, s.bk)
         bms, by = bound((e * cap * d + e * d * f + e * cap * f) * 2, 2.0 * e * cap * d * f, dt)
-        ms = time_ms(lambda: ops.grouped_matmul(x, w))
+        ms, route = timed_route(gmm_mod, lambda: ops.grouped_matmul(x, w))
         plain_ms = time_ms(lambda: ref.grouped_matmul(x, w), iters=20)
         lib_ms = time_ms(lambda: torch.bmm(x, w))
-        print(f"grouped_matmul E{e} cap{cap} d{d} f{f} bf16 ({s.route}, tile {tile}): "
+        print(f"grouped_matmul E{e} cap{cap} d{d} f{f} bf16 ({route}, tile {tile}): "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, bound "
               f"{bms:.5f} ms ({by})")
         gmm[cap] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                     "library_ms": lib_ms, "shape": f"E {e}, cap {cap}, d {d}, f {f}, bf16",
-                    "kernel_route": s.route, "tile": list(tile)}
+                    "kernel_route": route, "tile": list(tile)}
         del x, w
     rows = [{"name": "grouped_matmul", "route": "cuda",
              "source": "src/repro_torch/csrc/grouped_matmul.cu",
@@ -1519,6 +1660,7 @@ def library_numbers_phase(errs: dict, launches: dict) -> list:
     phase("numbers: kernel library")
     clocks("before")
     from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels import matmul_pom as mm_mod
     g = torch.Generator(device="cuda").manual_seed(9)
     mm = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -1526,15 +1668,15 @@ def library_numbers_phase(errs: dict, launches: dict) -> list:
         x, y = _randn(g, n, n, dtype=dt), _randn(g, n, n, dtype=dt)
         s = autotune.pom_matmul_schedule(n, n, n, x.element_size())
         bms, by = bound(3 * n * n * x.element_size(), 2.0 * n ** 3, dt)
-        ms = time_ms(lambda: ops.matmul(x, y), iters=20, warmup=2)
+        ms, route = timed_route(mm_mod, lambda: ops.matmul(x, y), iters=20, warmup=2)
         plain_ms = time_ms(lambda: ref.matmul(x, y), iters=20, warmup=2)
         lib_ms = time_ms(lambda: torch.matmul(x, y), iters=20, warmup=2)
-        print(f"matmul_pom {n}^3 {str(dt)[6:]} ({s.route}, tile {(s.bm, s.bn, s.bk)}): "
+        print(f"matmul_pom {n}^3 {str(dt)[6:]} ({route}, tile {(s.bm, s.bn, s.bk)}): "
               f"{ms:.4f} ms ({2.0 * n ** 3 / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
               f"torch.matmul {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         mm[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                   "library_ms": lib_ms, "shape": f"{n}^3 {str(dt)[6:]}",
-                  "kernel_route": s.route, "tile": [s.bm, s.bn, s.bk]}
+                  "kernel_route": route, "tile": [s.bm, s.bn, s.bk]}
         del x, y
     rows = [{"name": "matmul_pom", "route": "cuda",
              "source": "src/repro_torch/csrc/matmul_pom.cu",

@@ -18,13 +18,18 @@
 // dtype once.  D arrives holding the statement's initial contents (the
 // wrapper clones it), so points the statement does not store keep them.
 //
-// Two kernels.  GEMM-shaped statements (f32 or bf16, every output dim moves
-// X or Y but not both, M and N of at least 64; gemm, 2mm, 3mm and the conv
-// nests) take contraction_gemm_kernel below: it re-blocks the output into
-// 128 x 128 tiles, since the DSE's blocks (32 x 32 at most on the compile
-// path) are too small for register tiling.  Every other statement (the
-// matrix-vector shapes of bicg/gesummv, batched dims, f64) takes the generic
-// contraction_kernel.
+// Three kernels.  GEMM-shaped statements (f32 or bf16, every output dim
+// moves X or Y but not both, M and N of at least 128; gemm, 2mm, 3mm and
+// the conv nests) re-block the output into 128 x 128 tiles, since the DSE's
+// blocks (32 x 32 at most on the compile path) are too small for register
+// tiling.  Those whose M, N and K groups each linearise to one stride, X
+// contiguous along K and Y along N (the tiled gemm, 2mm and 3mm) take, in
+// f32, contraction_strided_kernel: a multi-stage shared-memory ring, no
+// offset tables.  The others (the conv nests' implicit im2col, other
+// layouts, bf16) take contraction_gemm_kernel, which gathers X and Y
+// through per-statement offset tables.  Every other statement (the
+// matrix-vector shapes of bicg/gesummv, batched dims, f64) takes the
+// generic contraction_kernel.
 //
 // Generic mapping: the output points are linearised as (batch, output grid
 // dims, output block dims), the DSE's block dims innermost, and walked by
@@ -42,12 +47,13 @@
 // kernel does nothing about that bound beyond keeping every product in a
 // register FMA chain (it reads X and Y through L1/L2, coalesced along the
 // innermost output dim); it ran gemm n 4096 at 1.2 TFLOP/s.  The GEMM-shaped
-// kernel attacks it the classic way: each X and Y element staged in shared
-// memory feeds 128 FMAs, 64 accumulators per thread stay in registers, the
-// next step's elements are loaded into registers while the current step
-// computes, and the launch bounds keep two CTAs on each SM.  A deeper
-// shared-memory pipeline (cp.async or TMA), warp specialisation and wgmma
-// for bf16 are later work.
+// kernels attack it the classic way: each X and Y element staged in shared
+// memory feeds 128 FMAs and 64 accumulators per thread stay in registers,
+// with two CTAs on each SM.  The table kernel prefetches the next 8-deep k
+// step through registers (two __syncthreads a step, each element a scalar
+// load through two int64 offsets); the strided kernel keeps three 16-deep
+// steps in flight in a shared-memory ring (cp.async for Y, 16-byte loads
+// of X one step ahead; one __syncthreads a step, no tables).  Warp specialisation and wgmma for bf16 are later work.
 //
 // All offsets are 64-bit, so arrays and batches past 2^31 elements work.
 #include <cuda_bf16.h>
@@ -303,4 +309,242 @@ extern "C" int contraction_gemm_launch(const void* x, const void* y, void* out,
   if (dtype == 1)
     return (int)launch_gemm<__nv_bfloat16>(x, y, out, tables, M, N, K, batch, bx, by, bo, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------------------
+// The strided (affine) GEMM-shaped path, f32.  When each of the M, N and K
+// groups of dims linearises to one stride (contraction.gemm_strides) and the
+// operands have the row-major layout of the compile path's tiled gemm, 2mm
+// and 3mm (contraction.takes_strided: X contiguous along K, Y along N, every
+// row and batch lane on a 16-byte boundary), element (m, k) of X is
+// x[x0 + m sxm + k], (k, n) of Y is y[y0 + k syk + n] and the output (m, n)
+// is out[o0 + m som + n son]: no offset tables.  Each CTA computes a
+// 128 x 128 tile with 256 threads, 8 x 8 sums a thread in registers.  X and
+// Y tiles (16 deep) live in a ring of four shared-memory stages, one
+// __syncthreads a k step.  Y's runs along N land in its tile by 16-byte
+// cp.async copies; X's runs along K cannot land in a k-major tile 16 bytes
+// at a time, so each thread loads two float4s of the next tile into
+// registers before a step's products and stores them transposed after them.
+// Both tiles are stored k-major ([k][m], [k][n], rows padded to 132
+// floats), so the inner loop reads a thread's 8 rows and 8 columns as
+// float4s in two groups 64 apart, without bank conflicts.  Each output's
+// products are summed in k order into one f32 register (fmaf), as the
+// generic and the table kernels do, so all three give the same bits; any
+// other layout takes the table kernel.
+struct StridedGemm {
+  int64_t M, N, K;
+  int64_t sxm, sxk, syk, syn, som, son;
+  int64_t x0, y0, o0;
+  int64_t bx, by, bo;          // batch strides (0: shared)
+};
+
+namespace {
+
+// 16-deep k steps in four stages (32-deep steps in three were slower at
+// gemm n 4096 on an H100)
+constexpr int kSBM = 128, kSBN = 128, kSBK = 16, kSStages = 4, kSThreads = 256;
+constexpr int kSLd = 132;                    // floats a k row of a staged tile (128 + 4)
+constexpr int kSTile = kSBK * kSLd;          // floats of one staged X (or Y) tile
+constexpr int kSSmem = kSStages * 2 * kSTile * 4;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes of which the first `bytes` are read, the rest zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Y's kSBK x 128 tile at (k0, n0), element (k, n) = src[(k0 + k) syk + n0 + n],
+// staged into dst[k][n] by 16-byte cp.async copies: thread tid copies four
+// n at n = 4 (tid % 32) of the rows k = tid / 32 + 8 r.
+struct YOperand {
+  const float* p;
+  int64_t syk, n_left;
+  int ka, na;
+
+  __device__ __forceinline__ YOperand(const float* src, int64_t syk_, int64_t n0, int64_t N,
+                                      int tid)
+      : syk(syk_), ka(tid / 32), na((tid % 32) * 4) {
+    n_left = N - n0 - na;
+    p = src + ka * syk + n0 + na;
+  }
+
+  // issues the copies of the tile at k0 (k_left = K - k0); zeros outside Y
+  __device__ __forceinline__ void stage(uint32_t dst, int64_t k0, int64_t k_left) const {
+    const float* q = p + k0 * syk;
+    const int64_t kl = k_left - ka;
+    const int bytes = n_left >= 4 ? 16 : (n_left > 0 ? 4 * static_cast<int>(n_left) : 0);
+#pragma unroll
+    for (int r = 0; r < kSBK * 128 / 4 / kSThreads; ++r) {
+      const bool ok = 8 * r < kl && bytes > 0;
+      cp_async16(dst + 4 * ((ka + 8 * r) * kSLd + na), ok ? q + 8 * r * syk : p, ok ? bytes : 0);
+    }
+  }
+};
+
+// X's kSBK x 128 tile at (k0, m0), element (k, m) = src[(m0 + m) sxm + k0 + k]:
+// thread tid loads four k at k = 4 (tid % 4) of the rows m = tid / 4 + 64 r
+// into registers and stores them transposed into dst[k][m].
+struct XOperand {
+  const float* p;
+  int64_t sxm, m_left;
+  int ka, ma;
+  float4 held[2];                    // the next tile's elements
+
+  __device__ __forceinline__ XOperand(const float* src, int64_t sxm_, int64_t m0, int64_t M,
+                                      int tid)
+      : sxm(sxm_), ka((tid % 4) * 4), ma(tid / 4) {
+    m_left = M - m0 - ma;
+    p = src + ka + (m0 + ma) * sxm;
+  }
+
+  // loads the tile at k0 into `held` (zeros outside X)
+  __device__ __forceinline__ void load(int64_t k0, int64_t k_left) {
+    const float* q = p + k0;
+    const int64_t kl = k_left - ka;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* row = q + 64 * r * sxm;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (64 * r < m_left) {
+        if (kl >= 4) {
+          v = *reinterpret_cast<const float4*>(row);
+        } else {                       // the k tail
+          if (kl > 0) v.x = row[0];
+          if (kl > 1) v.y = row[1];
+          if (kl > 2) v.z = row[2];
+        }
+      }
+      held[r] = v;
+    }
+  }
+
+  // stores `held` transposed into the k-major tile `dst`
+  __device__ __forceinline__ void store(float* dst) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* d = dst + ka * kSLd + ma + 64 * r;
+      d[0] = held[r].x;
+      d[kSLd] = held[r].y;
+      d[2 * kSLd] = held[r].z;
+      d[3 * kSLd] = held[r].w;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kSThreads, 2)
+contraction_strided_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                           float* __restrict__ out, const StridedGemm g) {
+  extern __shared__ __align__(16) float ssm[];   // stage s: X tile, then Y tile
+  const int tid = threadIdx.x;
+  const int64_t m0 = (int64_t)blockIdx.y * kSBM, n0 = (int64_t)blockIdx.x * kSBN;
+  const int64_t b = blockIdx.z;
+  XOperand xo(x + g.x0 + b * g.bx, g.sxm, m0, g.M, tid);
+  const YOperand yo(y + g.y0 + b * g.by, g.syk, n0, g.N, tid);
+  const uint32_t s0 = smem_addr(ssm);
+  const int k_tiles = static_cast<int>((g.K + kSBK - 1) / kSBK);
+#pragma unroll
+  for (int s = 0; s < kSStages - 1; ++s) {
+    if (s < k_tiles) {
+      const int64_t k0 = (int64_t)s * kSBK;
+      xo.load(k0, g.K - k0);
+      xo.store(ssm + 2 * s * kSTile);
+      yo.stage(s0 + 4 * (2 * s + 1) * kSTile, k0, g.K - k0);
+    }
+    cp_async_commit();
+  }
+  // this thread's rows are 4 ty + {0..3} and 64 + 4 ty + {0..3}, its
+  // columns 4 tx + {0..3} and 64 + 4 tx + {0..3}; a warp is 4 ty x 8 tx, so
+  // each of its float4 loads reads 64 (X) or 128 (Y) consecutive bytes: one
+  // shared-memory wavefront
+  const int warp = tid / 32, lane = tid % 32;
+  const int tx = (warp % 2) * 8 + lane % 8, ty = (warp / 2) * 4 + lane / 8;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<kSStages - 2>();     // the copies of step kt have landed (this thread's)
+    __syncthreads();                   // ... everyone's; step kt - 1's stage is free
+    const int nt = kt + kSStages - 1;
+    if (nt < k_tiles) {                // step nt: X into registers, Y copies issued
+      const int64_t k0 = (int64_t)nt * kSBK;
+      xo.load(k0, g.K - k0);
+      yo.stage(s0 + 4 * (2 * (nt % kSStages) + 1) * kSTile, k0, g.K - k0);
+    }
+    cp_async_commit();
+    const float* as = ssm + 2 * (kt % kSStages) * kSTile;
+    const float* bs = as + kSTile;
+#pragma unroll
+    for (int kk = 0; kk < kSBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kSLd + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * kSLd + 64 + ty * 4);
+      const float4 c0 = *reinterpret_cast<const float4*>(bs + kk * kSLd + tx * 4);
+      const float4 c1 = *reinterpret_cast<const float4*>(bs + kk * kSLd + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
+    }
+    // the held X tile goes to step nt's stage, free since this step's barrier
+    if (nt < k_tiles) xo.store(ssm + 2 * (nt % kSStages) * kSTile);
+  }
+  cp_async_wait<0>();
+  float* ob = out + g.o0 + b * g.bo;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (m >= g.M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int64_t n = n0 + (j / 4) * 64 + tx * 4 + j % 4;
+      if (n < g.N) {
+        float* o = ob + m * g.som + n * g.son;
+        *o = *o + acc[i][j];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// The strided GEMM-shaped variant (f32).  `out` holds D's initial contents.
+// Returns cudaErrorInvalidValue for a layout the kernel does not stage (see
+// contraction.takes_strided): X must be contiguous along K and Y along N,
+// with sxm, syk, x0, y0, bx, by multiples of 4 and x, y 16-byte aligned.
+extern "C" int contraction_strided_launch(const void* x, const void* y, void* out,
+                                          const StridedGemm* desc, int64_t batch, void* stream) {
+  const StridedGemm& g = *desc;
+  if (g.M < 0 || g.N < 0 || g.K < 0 || batch < 0 || batch > 65535 ||
+      (g.M + kSBM - 1) / kSBM > 65535 || (g.N + kSBN - 1) / kSBN > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  if (g.sxk != 1 || g.syn != 1 || ((g.sxm | g.syk | g.x0 | g.y0 | g.bx | g.by) & 3) != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (g.M == 0 || g.N == 0 || batch == 0) return (int)cudaSuccess;
+  static const cudaError_t attr =   // once per process
+      cudaFuncSetAttribute(contraction_strided_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)((g.N + kSBN - 1) / kSBN), (unsigned)((g.M + kSBM - 1) / kSBM),
+                  (unsigned)batch);
+  contraction_strided_kernel<<<grid, kSThreads, kSSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y), static_cast<float*>(out), g);
+  return (int)cudaGetLastError();
 }

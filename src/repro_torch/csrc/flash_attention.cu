@@ -5,17 +5,37 @@
 // src/repro/kernels/flash_attention.py.  There the KV blocks are an
 // "arbitrary" grid axis with (max, sum, acc) carried in VMEM scratch; here
 // one block owns one (b * Hq + h, q tile) and walks the KV tiles in a loop,
-// staging each K and V tile in shared memory and keeping the online-softmax
-// state in f32 (m, l in shared memory, acc in registers).
+// keeping the online-softmax state in f32.
 //
 // Bound: at the port's prefill shapes (smollm_360m: Hq 15, Hkv 5, D 64,
 // bf16, S 512) the card's bound is its bytes: q, k, v read once and o
 // written once take longer at 3.35 TB/s than the causal FLOPs at the bf16
-// tensor-core rate.  This first version computes in f32 on the CUDA cores
-// and re-reads each K/V tile once per q tile (from L2), so it runs well above
-// that bound; wgmma and TMA are later work.  What the design does keep:
-// causal KV tiles wholly above the diagonal are skipped, so the causal
-// kernel does about half the work of the full one.
+// tensor-core rate.  Two routes, chosen by autotune.attention_route:
+//
+// * tensor cores (`flash_attention_tc_launch`, flash_kernel_tc): bf16 with
+//   D 64 or 128 and 16-byte aligned q, k, v (what TMA needs).  One block of
+//   two consumer warpgroups (64 q rows each) and one producer warp per
+//   (b * Hq + h, 128-row q tile).  The producer loads the Q tile once and
+//   the K and V tiles (64 x D) through a two-stage ring, all by TMA (3-D
+//   maps over (D, S, B * H), 128-byte swizzle), with a full and an empty
+//   mbarrier a stage.  Each warpgroup computes S = Q K^T with
+//   wgmma.m64n64k16 (both operands K-major in shared memory, nothing
+//   transposed), runs the online softmax on the accumulator fragment in
+//   registers (a row spread over a quad of threads: quad shuffles for the
+//   max, exp2f with scale * log2 e folded in, the row sums kept per thread
+//   and reduced once at the end), rounds P to bf16 in registers -- the S
+//   fragment's consecutive pairs are exactly wgmma's register A operand --
+//   and adds P V with wgmma.m64nDk16 from registers, V read through the
+//   transpose bit.  O stays in f32 registers and is rounded once.  K and V
+//   are read once per q tile of 128 rows; causal q tiles launch heaviest
+//   first; KV tiles wholly above a warpgroup's diagonal are skipped and only
+//   edge tiles are masked.  TMA fills a box past Sq or Skv with zeros of
+//   the same head (never the next head's rows); a zero K row scores 0, so
+//   keys at or past Skv are masked to -inf like the causal ones.
+// * CUDA cores (`flash_attention_launch`, flash_kernel): f32 and every
+//   other shape, computing in f32 with each K and V tile staged in shared
+//   memory (m, l in shared memory, acc in registers) and re-read once per q
+//   tile of at most 64 rows.
 //
 // Layouts (all contiguous): q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D),
 // out (B, Hq, Sq, D) in q's dtype.  Query head hq uses kv head
@@ -26,6 +46,8 @@
 
 #include <atomic>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -289,6 +311,331 @@ cudaError_t dispatch_d(int d, int bq, int bkv, const void* q, const void* k, con
   }
 }
 
+// ------------------------------------------------ the tensor-core route (bf16)
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kBQ = 128;                      // q rows of a block: two warpgroups of 64
+constexpr int kConsumers = kBQ / 64;
+constexpr int kThreads = kConsumers * 128 + 32;   // + the producer warp
+constexpr int kStages = 2;                    // stages of the K/V ring
+constexpr int kBKV = 64;                      // keys of a K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory: the Q tile (D / 64 boxes of 128 rows x 128 bytes), then
+// kStages stages of a K and a V tile (D / 64 boxes of kBKV rows x 128 bytes
+// each), then a full and an empty barrier a stage and the Q barrier; 1 KB
+// to align every tile to the 1024-byte period of the 128-byte swizzle.
+// Must agree with repro_torch.kernels.autotune.flash_tc_smem_bytes.
+template <int D>
+struct Tile {
+  static_assert(D == 64 || D == 128, "head dim");
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBKV * D * 2;      // one K (or V) tile
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + 8 * (2 * kStages + 1);
+  // two blocks an SM at D 64, where the registers allow it (the S and O
+  // fragments: ~100 a thread)
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
+};
+
+// d += A (64 x 16 bf16 in registers: the m64k16 fragment) B (16 x N,
+// MN-major in shared memory, read through the transpose bit): O += P V with
+// N = D.
+template <int N>
+struct WgmmaRS;
+
+// d (f32, the m64n64 fragment) += A (64 x 16) B (16 x 64), both K-major in
+// shared memory: S = Q K^T over a tile of kBKV keys.
+struct WgmmaSS {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31},"
+        " %32, %33, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+        : "memory");
+  }
+};
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
+flash_kernel_tc(const __grid_constant__ CUtensorMap tma_q, const __grid_constant__ CUtensorMap tma_k,
+                const __grid_constant__ CUtensorMap tma_v, __nv_bfloat16* __restrict__ out,
+                int hq, int hkv, int sq, int skv, int causal, float scale_log2) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ring = qs + T::kQBytes;
+  const uint32_t bars = ring + kStages * T::kStageBytes;   // full[s], empty[s], then Q's
+  const uint32_t qbar = bars + 16 * kStages;
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;                     // b * hq + query head
+  const int kvz = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  // causal q tiles in reverse: the ones with the most keys launch first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBQ;
+  const int seq_off = skv - sq;
+  // the KV tiles up to the last key the block's last row sees
+  const int kv_end = causal ? min(skv, max(0, min(q0 + kBQ, sq) + seq_off)) : skv;
+  const int n_tiles = (kv_end + kBKV - 1) / kBKV;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                       // full: the producer's arrival + bytes
+      mbar_init(bars + 8 * (kStages + s), kConsumers);  // empty: one arrival a warpgroup
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = tid / 128;
+
+  if (wg == kConsumers) {                        // the producer warp
+    if (tid % 32 == 0 && n_tiles > 0) {
+      mbar_expect_tx(qbar, T::kQBytes);
+#pragma unroll
+      for (int c = 0; c < T::kBoxes; ++c) tma_load(qs + c * kBQ * 128, &tma_q, qbar, c * 64, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(bars + 8 * (kStages + s), ((t / kStages) & 1) ^ 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t ks = ring + s * T::kStageBytes;
+        mbar_expect_tx(full, T::kStageBytes);
+#pragma unroll
+        for (int c = 0; c < T::kBoxes; ++c) {
+          tma_load(ks + c * kBKV * 128, &tma_k, full, c * 64, t * kBKV, kvz);
+          tma_load(ks + T::kKVBytes + c * kBKV * 128, &tma_v, full, c * 64, t * kBKV, kvz);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: q rows q_wg ... q_wg + 63.  The m64 fragments
+  // hold, for each 8-column group j, rows r and r + 8 (r = warp * 16 +
+  // lane / 4) at columns 8 j + 2 (lane % 4) + {0, 1}.
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int q_wg = q0 + wg * 64;
+  const int row = q_wg + warp * 16 + lane / 4;   // and row + 8
+  const int wg_end = causal ? min(kv_end, max(0, min(q_wg + 64, sq) + seq_off))
+                            : (q_wg < sq ? skv : 0);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};           // running max (log2 units), rows r, r + 8
+  float l[2] = {0.f, 0.f};                       // this thread's part of the row sums
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int j0 = t * kBKV;
+    mbar_wait(bars + 8 * s, (t / kStages) & 1);
+    if (j0 < wg_end) {                           // else wholly above this warpgroup's diagonal
+      const uint32_t ks = ring + s * T::kStageBytes;
+      const uint32_t vs = ks + T::kKVBytes;
+      float sc[kBKV / 2];
+#pragma unroll
+      for (int i = 0; i < kBKV / 2; ++i) sc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // a k16 step is 32 bytes along a swizzled 128-byte row of box kk / 4
+        const uint32_t step = (kk % 4) * 32;
+        WgmmaSS::mma(sc, desc(qs + (kk / 4) * kBQ * 128 + wg * 64 * 128 + step, 16, 1024),
+                          desc(ks + (kk / 4) * kBKV * 128 + step, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+
+      // scale (log2 units); mask the keys past Skv and, on the diagonal, the
+      // causal ones
+      const bool edge = j0 + kBKV > skv || (causal && j0 + kBKV - 1 > q_wg + seq_off);
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = sc[4 * j + e] * scale_log2;
+          if (edge) {
+            const int key = j0 + 8 * j + 2 * (lane % 4) + (e & 1);
+            const int r = row + 8 * (e >> 1);
+            if (key >= skv || (causal && key > r + seq_off)) v = -INFINITY;
+          }
+          sc[4 * j + e] = v;
+        }
+      // online softmax on the fragment: a row lives in the quad of lanes
+      // sharing lane / 4
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kBKV / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        const float base = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+        const float corr = exp2f(m[h] - base);
+        m[h] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(sc[4 * j + 2 * h + e] - base);
+            sc[4 * j + 2 * h + e] = p;
+            sum += p;
+          }
+        l[h] = l[h] * corr + sum;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j + 2 * h] *= corr;
+          o[4 * j + 2 * h + 1] *= corr;
+        }
+      }
+      // P in bf16: the S fragment's consecutive pairs are wgmma's A
+      // fragment of the k16 step kk (registers 4 kk ... 4 kk + 3)
+      uint32_t pa[kBKV / 4];
+#pragma unroll
+      for (int i = 0; i < kBKV / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk)
+        // V: 16 key rows of 128 bytes a k16 step, 8-row groups 1024 bytes
+        // apart (stride), 64-column boxes kBKV * 128 bytes apart (leading)
+        WgmmaRS<D>::mma(o, pa + 4 * kk, desc(vs + kk * 2048, kBKV * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    if (tid % 128 == 0) mbar_arrive(bars + 8 * (kStages + s));   // stage s is free again
+  }
+
+  // epilogue: the quad's row sums, one rounding to bf16, masked rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __nv_bfloat16* ob = out + static_cast<size_t>(bh) * sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= sq) continue;
+    const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(r) * D + 8 * j + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int hq,
+                   int hkv, int sq, int skv, int causal, float scale, cudaStream_t stream) {
+  using T = Tile<D>;
+  const int q_tiles = (sq + kBQ - 1) / kBQ;
+  if (q_tiles > 65535 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0)
+    return cudaErrorInvalidValue;
+  auto kern = flash_kernel_tc<D>;
+  static const cudaError_t attr =   // once per instantiation
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_map(&mq, q, D, sq, static_cast<uint64_t>(b) * hq, 64, kBQ);
+  if (err == cudaSuccess) err = make_map(&mk, k, D, skv, static_cast<uint64_t>(b) * hkv, 64, kBKV);
+  if (err == cudaSuccess) err = make_map(&mv, v, D, skv, static_cast<uint64_t>(b) * hkv, 64, kBKV);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * hq, q_tiles);
+  kern<<<grid, kThreads, T::kSmem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out), hq,
+                                             hkv, sq, skv, causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// The tile of autotune.FLASH_TC_TILES, (bq, bkv) = (kBQ, kBKV), at the head
+// dims of autotune.FLASH_TC_DIMS.
+cudaError_t dispatch(int d, int bq, int bkv, const void* q, const void* k, const void* v,
+                     void* out, int b, int hq, int hkv, int sq, int skv, int causal, float scale,
+                     cudaStream_t st) {
+  if (bq != kBQ || bkv != kBKV) return cudaErrorInvalidValue;
+  if (d == 64) return launch<64>(q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
+  if (d == 128) return launch<128>(q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -308,4 +655,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return (int)dispatch_d<__nv_bfloat16>(d, bq, bkv, q, k, v, out, b, hq, hkv, sq, skv,
                                           causal, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 on the tensor cores: D 64 or 128, bq 128, bkv 64, q, k and v
+// 16-byte aligned.  Returns cudaGetLastError() after the launch (0 on
+// success); cudaErrorInvalidValue for a shape, tile or pointer the route
+// does not take.
+extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
+                                         int b, int hq, int hkv, int sq, int skv, int d, int bq,
+                                         int bkv, int causal, float scale, void* stream) {
+  if (b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)tc::dispatch(d, bq, bkv, q, k, v, out, b, hq, hkv, sq, skv, causal, scale,
+                           static_cast<cudaStream_t>(stream));
 }

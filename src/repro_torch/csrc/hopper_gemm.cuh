@@ -39,16 +39,16 @@
 // and 16-byte aligned base pointers.  Other shapes and f32 run on the
 // CUDA-core kernels of the two .cu files.
 //
-// cuTensorMapEncodeTiled (CUDA's low-level API) is looked up through the
-// runtime (cudaGetDriverEntryPointByVersion, or cudaGetDriverEntryPoint
-// before CUDA 12.5) rather than by linking libcuda: the libraries keep the
-// build flags of the other six kernels and link nothing more.
+// The primitives (mbarriers, TMA, wgmma descriptors and fences, the tensor
+// map) are hopper.cuh's, shared with the flash-attention forward.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 // Everything here has internal linkage (the unnamed namespace): both
 // libraries include this header, and a static local of a template with
@@ -57,6 +57,8 @@
 // would skip the opt-in for its own kernel.
 namespace hgemm {
 namespace {
+
+using namespace hopper;
 
 constexpr int kBK = 64;              // k depth of a stage: 64 bf16, one 128-byte swizzle row
 constexpr int kBoxN = 64;            // columns of one B box (128 bytes)
@@ -87,73 +89,6 @@ struct Tile {
   static constexpr int kStageBytes = stage_bytes(BM, BN);
   static constexpr int kSmem = smem_bytes(BM, BN, kStages);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the phase of parity `parity` of the barrier has completed.
-// A wait of more than 2^31 cycles (~1 s; a stage takes microseconds) can
-// only be a broken pipeline: it traps, so the launch fails instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  for (int tries = 0;; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == 64) start = clock64();
-    if (tries > 64 && clock64() - start > (1ll << 31)) __trap();
-  }
-}
-
-// One TMA box of a 3-D tensor map into shared memory, counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // d (f32, the m64nN fragment) += A (64 x 16, K-major) B (16 x N, MN-major:
 // the last immediate sets the transpose bit of B).  Written out for each N.
@@ -286,7 +221,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
       mbar_init(bars + 8 * s, 1);                          // full: the producer's arrival + bytes
       mbar_init(bars + 8 * (S + s), T::kConsumers);        // empty: one arrival a warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   const int wg = tid / 128;
@@ -349,46 +284,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
             __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
-}
-
-// ---------------------------------------------------------------- host side
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A row-major bf16 tensor (d2, d1, d0) (d0 contiguous) as a 3-D TMA map
-// with boxes (1, box1, box0), 128-byte swizzle, zeros outside the tensor.
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
-                            uint64_t d2, uint32_t box0, uint32_t box1) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {box0, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // out[z] = a[z] @ b[z] for z < batch: a (batch, m, k), b (batch, k, n), out

@@ -5,14 +5,19 @@ loop per block dimension, every candidate scored by the roofline model, the
 one with the smallest bound kept), retargeted at Hopper: the resource
 constraint is the shared-memory footprint of the port's own kernels (at
 most 232,448 bytes a block), and the block sizes are the ones those kernels
-are compiled for.  Ties in the bound go to fewer sequential KV steps, then to
-the smaller footprint (more blocks resident on an SM).
+are compiled for.  Each schedule's docstring says how it breaks ties in the
+bound (fewer bytes or fewer sequential steps first, the smaller footprint
+last).
 
-The matmul and the grouped matmul have two routes each, and a pure function
-of the shape picks one before any tile is scored (``matmul_route``,
-``gmm_route``): the tensor cores (``csrc/hopper_gemm.cuh``: TMA-fed stages
-and wgmma) where TMA can describe the operands, the CUDA-core kernels
-otherwise.
+The matmul, the grouped matmul and flash attention have two routes each,
+and a pure function of the shape, the dtype and the operands' alignment
+picks one before any tile is scored (``matmul_route``, ``gmm_route``,
+``attention_route``): the tensor cores (TMA-fed stages and wgmma:
+``csrc/hopper_gemm.cuh``, the tensor-core kernel of
+``csrc/flash_attention.cu``) where TMA can describe the operands (bf16,
+16-byte row strides, 16-byte aligned base pointers), the CUDA-core kernels
+otherwise.  Each schedule takes the same ``aligned`` flag, so the tile it
+returns always belongs to the route that will run.
 """
 from __future__ import annotations
 
@@ -50,6 +55,19 @@ MATMUL_TC_NAIVE = (128, 128, 64)
 GMM_TC_TILES = ((64, 64, 64), (64, 128, 64), (128, 128, 64), (128, 256, 64))
 GMM_TC_NAIVE = (128, 128, 64)
 GMM_NAIVE_BM = 64
+# the (bq, bkv) tile of flash attention's tensor-core route (two consumer
+# warpgroups of 64 q rows, a two-stage ring of 64-key K/V tiles), as
+# instantiated by the TILE(...) line of ``tc::dispatch`` in
+# csrc/flash_attention.cu, the head dims it is compiled for (one or two
+# 128-byte TMA boxes a row; D 32 runs on the CUDA cores) and its stages; and
+# the CUDA-core route's fixed tile.  One tile: at D 64, the dim of every
+# model, (128, 64) holds two blocks an SM, and (128, 128) with one took 22%
+# longer at smollm's forward on an H100 (PERF.md)
+FLASH_TC_TILES = ((128, 64),)
+FLASH_TC_DIMS = (64, 128)
+FLASH_TC_STAGES = 2
+FLASH_TC_NAIVE = FLASH_TC_TILES[0]
+FLASH_NAIVE = (64, 64)
 SMEM_PER_SM = 233_472          # shared memory of one SM; 1 KB of it is reserved a block
 
 
@@ -58,26 +76,45 @@ def flash_smem_bytes(bq: int, bkv: int, d: int) -> int:
     return 4 * (bq * (d + 1) + bkv * (d + 1) + bkv * d + bq * (bkv + 1) + 3 * bq)
 
 
+def flash_tc_smem_bytes(bq: int, bkv: int, d: int) -> int:
+    """Dynamic shared memory of one tensor-core flash block
+    (``tc::Tile::kSmem``): the bf16 Q tile, every stage of the K/V ring, a
+    full and an empty barrier a stage and Q's, and 1 KB to align the
+    swizzled tiles."""
+    return 1024 + bq * d * 2 + FLASH_TC_STAGES * 2 * bkv * d * 2 + 8 * (2 * FLASH_TC_STAGES + 1)
+
+
 def decode_smem_bytes(group: int, d: int, bkv: int) -> int:
     """Dynamic shared memory of one decode-attention block (f32): q, acc,
     p, the softmax state and the staged K (padded) and V tiles."""
     return 4 * (2 * group * d + group * bkv + 3 * group + bkv * (d + 1) + bkv * d)
 
 
-def matmul_route(m: int, n: int, k: int, dtype_bytes: int) -> str:
+def matmul_route(m: int, n: int, k: int, dtype_bytes: int, aligned: bool = True) -> str:
     """The route of an (m, k) @ (k, n) matmul: the tensor cores where TMA
     can describe both operands (bf16, every row stride a multiple of 16
-    bytes: k and n multiples of 8, nothing empty), the CUDA cores for every
-    other shape and for f32 (TF32 would break its 1e-4 tolerance)."""
-    if dtype_bytes == 2 and min(m, n, k) > 0 and k % 8 == 0 and n % 8 == 0:
+    bytes: k and n multiples of 8, nothing empty, and both base pointers
+    16-byte ``aligned``), the CUDA cores for every other shape or pointer and
+    for f32 (TF32 would break its 1e-4 tolerance)."""
+    if aligned and dtype_bytes == 2 and min(m, n, k) > 0 and k % 8 == 0 and n % 8 == 0:
         return TENSOR_CORES
     return CUDA_CORES
 
 
-def gmm_route(e: int, cap: int, d: int, f: int, dtype_bytes: int) -> str:
+def gmm_route(e: int, cap: int, d: int, f: int, dtype_bytes: int, aligned: bool = True) -> str:
     """The route of an (e, cap, d) @ (e, d, f) grouped matmul, by the rule
-    of ``matmul_route`` (d and f multiples of 8)."""
-    if e > 0 and matmul_route(cap, f, d, dtype_bytes) == TENSOR_CORES:
+    of ``matmul_route`` (d and f multiples of 8, x and w aligned)."""
+    if e > 0 and matmul_route(cap, f, d, dtype_bytes, aligned) == TENSOR_CORES:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def attention_route(sq: int, skv: int, d: int, dtype_bytes: int, aligned: bool = True) -> str:
+    """The route of flash attention over (Sq, D) queries and (Skv, D) keys:
+    the tensor cores for bf16 at a head dim of ``FLASH_TC_DIMS`` (rows of one
+    or two 128-byte TMA boxes) with q, k and v 16-byte ``aligned``; the CUDA
+    cores for f32, D 32 and any other shape or pointer."""
+    if aligned and dtype_bytes == 2 and d in FLASH_TC_DIMS and min(sq, skv) > 0:
         return TENSOR_CORES
     return CUDA_CORES
 
@@ -127,10 +164,11 @@ def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def pom_matmul_schedule(m: int, n: int, k: int, dtype_bytes: int = 2,
-                        spec: HopperSpec = H100) -> MatmulSchedule:
+                        spec: HopperSpec = H100, *, aligned: bool = True) -> MatmulSchedule:
     """Tile (bm, bn, bk) for ``csrc/matmul_pom.cu`` (one block per (bm, bn)
     tile of the output, a k loop of bk-deep steps), from the tiles of the
-    route ``matmul_route`` picks: ``MATMUL_TC_TILES`` or ``MATMUL_TILES``.
+    route ``matmul_route`` picks (with ``aligned``): ``MATMUL_TC_TILES`` or
+    ``MATMUL_TILES``.
 
     Device-memory traffic: reads = m*k*ceil(n/bn) + k*n*ceil(m/bm), write
     m*n.  The 2*m*n*k operations (padded to whole tiles on the tensor
@@ -141,7 +179,7 @@ def pom_matmul_schedule(m: int, n: int, k: int, dtype_bytes: int = 2,
     smaller shared-memory footprint (all the ring's stages on the tensor
     cores)."""
     model = HopperModel(spec)
-    route = matmul_route(m, n, k, dtype_bytes)
+    route = matmul_route(m, n, k, dtype_bytes, aligned)
     tc = route == TENSOR_CORES
     best, best_key = None, None
     for bm, bn, bk in MATMUL_TC_TILES if tc else MATMUL_TILES:
@@ -166,34 +204,54 @@ class AttentionSchedule:
     bkv: int
     terms: RooflineTerms
     smem_bytes: int
+    route: str = CUDA_CORES
 
 
 @functools.lru_cache(maxsize=4096)
 def pom_attention_schedule(sq: int, skv: int, d: int, dtype_bytes: int = 2,
-                           causal: bool = True,
-                           spec: HopperSpec = H100) -> AttentionSchedule:
-    """Flash-attention block sizes (bq, bkv) for ``csrc/flash_attention.cu``.
+                           causal: bool = True, spec: HopperSpec = H100, *,
+                           aligned: bool = True) -> AttentionSchedule:
+    """Flash-attention block sizes (bq, bkv) for ``csrc/flash_attention.cu``
+    on the route ``attention_route`` picks (with ``aligned``): the
+    tensor-core route's one tile ``FLASH_TC_NAIVE``, or the best of
+    ``FLASH_BQ`` x ``FLASH_BKV`` on the CUDA cores.
 
     K and V are modelled as re-read once per q tile, so a larger bq moves
     fewer bytes; a larger bkv means fewer steps of the softmax recurrence
-    (the POM split factor).  The kernel computes on the CUDA cores in f32,
-    so FLOPs are charged at the f32 rate.  The kernel takes head_dim in
-    ``HEAD_DIMS``; its wrapper rejects others."""
+    (the POM split factor).  FLOPs are charged at the route's rate: on the
+    tensor cores the kernel's own work (each q tile computes whole KV tiles
+    up to its last row's last visible key) at the bf16 tensor-core rate, on
+    the CUDA cores the causal fraction at the f32 rate.  Ties go to fewer
+    sequential KV steps, then to the smaller footprint.  The CUDA-core
+    kernel takes head_dim in ``HEAD_DIMS``; its wrapper rejects others."""
     model = HopperModel(spec)
+    route = attention_route(sq, skv, d, dtype_bytes, aligned)
+    tc = route == TENSOR_CORES
     frac = 0.5 if causal and sq == skv else 1.0
+    if tc:
+        tiles = FLASH_TC_TILES
+    else:
+        tiles = tuple((bq, bkv) for bq in FLASH_BQ for bkv in FLASH_BKV)
     best, best_key = None, None
-    for bq in FLASH_BQ:
-        for bkv in FLASH_BKV:
-            smem = flash_smem_bytes(bq, bkv, d)
-            if smem > spec.smem_bytes:
-                continue
-            q_tiles = -(-sq // bq)
+    for bq, bkv in tiles:
+        smem = flash_tc_smem_bytes(bq, bkv, d) if tc else flash_smem_bytes(bq, bkv, d)
+        if smem > spec.smem_bytes:
+            continue
+        q_tiles = -(-sq // bq)
+        if tc:
+            keys = 0     # keys a q tile computes, summed over the q tiles
+            for i in range(q_tiles):
+                end = min(skv, max(0, min((i + 1) * bq, sq) + skv - sq)) if causal else skv
+                keys += -(-end // bkv) * bkv
+            flops = 4.0 * bq * keys * d
+            byts = (2 * sq * d + 2 * keys * d) * dtype_bytes
+        else:
             flops = 4.0 * sq * skv * d * frac
             byts = (2 * sq * d + 2 * skv * d * q_tiles * frac) * dtype_bytes
-            terms = model.kernel_terms(flops, byts, tensor_cores=False)
-            key = (terms.bound_s, -(-skv // bkv), smem)
-            if best is None or key < best_key:
-                best, best_key = AttentionSchedule(bq, bkv, terms, smem), key
+        terms = model.kernel_terms(flops, byts, tensor_cores=tc)
+        key = (terms.bound_s, -(-skv // bkv), smem)
+        if best is None or key < best_key:
+            best, best_key = AttentionSchedule(bq, bkv, terms, smem, route), key
     assert best is not None
     return best
 
@@ -318,9 +376,10 @@ class GmmSchedule:
 
 @functools.lru_cache(maxsize=4096)
 def pom_gmm_schedule(e: int, cap: int, d: int, f: int, dtype_bytes: int = 2,
-                     spec: HopperSpec = H100) -> GmmSchedule:
+                     spec: HopperSpec = H100, *, aligned: bool = True) -> GmmSchedule:
     """Tile for ``csrc/grouped_matmul.cu`` (one block per (expert, m tile,
-    n tile)), from the tiles of the route ``gmm_route`` picks: (bm, bn, bk)
+    n tile)), from the tiles of the route ``gmm_route`` picks (with
+    ``aligned``): (bm, bn, bk)
     of ``GMM_TC_TILES`` on the tensor cores, a height bm of ``GMM_BM``
     (``GMM_BN`` wide) on the CUDA cores.
 
@@ -336,7 +395,7 @@ def pom_gmm_schedule(e: int, cap: int, d: int, f: int, dtype_bytes: int = 2,
     (taller tiles re-read the weights less), then to fewer padding rows,
     then to the smaller shared-memory footprint."""
     model = HopperModel(spec)
-    route = gmm_route(e, cap, d, f, dtype_bytes)
+    route = gmm_route(e, cap, d, f, dtype_bytes, aligned)
     tc = route == TENSOR_CORES
     if tc:
         tiles = GMM_TC_TILES

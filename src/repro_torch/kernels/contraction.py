@@ -14,15 +14,22 @@ kernel ``csrc/contraction.cu``.
   ``numel`` elements is shared by every lane.
 * Bound on the H100: operations at the gemm sizes of the compile path
   (2 n^3 f32 FLOPs on CUDA cores, TF32 off), bytes for matrix-vector shapes.
-* Design: two kernels in one source.  GEMM-shaped statements (every output
-  dim moves X or Y but not both; M and N at least one 128 tile; f32 or
-  bf16) take a shared-memory tiled kernel: 128 x 128 output tiles, 8 x 8
-  outputs per thread in registers, X and Y gathered through per-statement
-  offset tables (``gemm_tables``).  Every other statement takes the generic
-  kernel: one thread per output point, the DSE's block dims innermost, the
-  reduction (grid and block dims) a loop inside the thread.  Both sum each
-  output's products in k order in f32 (f64 for f64) and cast once.  See the
-  source note in the ``.cu`` file.
+* Design: three kernels in one source.  GEMM-shaped statements (every
+  output dim moves X or Y but not both; M and N at least one 128 tile; f32
+  or bf16) take a shared-memory tiled kernel: 128 x 128 output tiles, 8 x 8
+  outputs per thread in registers.  In f32, a statement whose M, N and K
+  groups each linearise to one stride (``gemm_strides``) with X contiguous
+  along K and Y along N (``takes_strided``: the tiled gemm, 2mm, 3mm) takes
+  the strided kernel, its X and Y tiles staged in a four-stage
+  shared-memory ring (``cp.async`` copies of Y, 16-byte loads of X stored
+  transposed); the others (the conv nests' implicit im2col, other layouts,
+  bf16) gather X and Y through per-statement offset tables
+  (``gemm_tables``).  Every other statement takes the generic kernel: one
+  thread per output point, the DSE's block dims innermost, the reduction
+  (grid and block dims) a loop inside the thread.  All three sum each
+  output's products in k order in one f32 FMA chain (f64 for f64) and cast
+  once, so a GEMM-shaped statement gives the same bits on any of them.  See
+  the source note in the ``.cu`` file.
 
 A CUDA tensor goes to the kernel (or the wrapper raises); a CPU tensor goes
 to the plain version ``ref.contraction``.
@@ -42,10 +49,14 @@ from .ref import offset_grid
 MAX_DIMS = 16                 # descriptor capacity per dim class (kMaxDims)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
-launches = 0          # kernel launches through this wrapper, process-wide
+# kernel launches through this wrapper, process-wide: all of them, and those
+# of the strided GEMM-shaped kernel
+launches = 0
+launches_strided = 0
 
 _FN = None
 _GEMM_FN = None
+_STRIDED_FN = None
 TILE = 128            # the tiled kernel's output tile edge (kBM = kBN in the .cu)
 GEMM_MIN = TILE       # M and N from which a GEMM-shaped statement takes the tiled
                       # kernel: each fills at least one whole tile
@@ -103,6 +114,13 @@ class _C(ctypes.Structure):
                                         "points", "red_points")]
 
 
+class _G(ctypes.Structure):
+    """The C ``StridedGemm`` of ``csrc/contraction.cu``."""
+    _fields_ = [(f, ctypes.c_int64) for f in ("M", "N", "K", "sxm", "sxk", "syk", "syn",
+                                               "som", "son", "x0", "y0", "o0", "bx", "by",
+                                               "bo")]
+
+
 def _kernel():
     global _FN
     if _FN is None:
@@ -124,6 +142,17 @@ def _gemm_kernel():
         fn.restype = ctypes.c_int
         _GEMM_FN = fn
     return _GEMM_FN
+
+
+def _strided_kernel():
+    global _STRIDED_FN
+    if _STRIDED_FN is None:
+        fn = _build.load("contraction").contraction_strided_launch
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, ctypes.POINTER(_G), ctypes.c_int64, p]
+        fn.restype = ctypes.c_int
+        _STRIDED_FN = fn
+    return _STRIDED_FN
 
 
 def gemm_view(desc: ContractionDesc) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
@@ -170,6 +199,52 @@ def gemm_tables(desc: ContractionDesc, view, device) -> Tuple[torch.Tensor, ...]
     return tabs
 
 
+def _one_stride(trips, coefs) -> Optional[int]:
+    """The stride of the flattened index (first dim outermost) of a group of
+    dims, when the group linearises: each dim's coefficient is the next
+    dim's times the next dim's trip (dims of trip 1 dropped).  0 for an
+    empty group; ``None`` when the group does not linearise."""
+    dims = [(t, c) for t, c in zip(trips, coefs) if t != 1]
+    for (_, c), (t_next, c_next) in zip(dims, dims[1:]):
+        if c != c_next * t_next:
+            return None
+    return dims[-1][1] if dims else 0
+
+
+def gemm_strides(desc: ContractionDesc, view) -> Optional[Tuple[int, ...]]:
+    """(sxm, sxk, syk, syn, som, son) of a GEMM-shaped statement whose M, N
+    and K groups each linearise to one stride for every array they move
+    (M: X and D; N: Y and D; K: X and Y), so that element (m, k) of X is
+    ``x0 + m sxm + k sxk`` and so on, with m, n, k the flattened indices of
+    ``gemm_tables``; ``None`` otherwise (the conv nests' implicit im2col)."""
+    m_dims, n_dims = view
+    pick = lambda vals, dims: [vals[i] for i in dims]  # noqa: E731
+    mt, nt = pick(desc.out_trips, m_dims), pick(desc.out_trips, n_dims)
+    out = (_one_stride(mt, pick(desc.out_x, m_dims)),
+           _one_stride(desc.red_trips, desc.red_x),
+           _one_stride(desc.red_trips, desc.red_y),
+           _one_stride(nt, pick(desc.out_y, n_dims)),
+           _one_stride(mt, pick(desc.out_o, m_dims)),
+           _one_stride(nt, pick(desc.out_o, n_dims)))
+    return None if None in out else out
+
+
+def takes_strided(strides: Optional[Tuple[int, ...]], desc: ContractionDesc, bx: int, by: int,
+                  x_ptr: int, y_ptr: int) -> bool:
+    """Whether a statement with ``gemm_strides`` ``strides`` has the layout
+    the strided kernel stages: X contiguous along K and Y along N (the
+    row-major gemm, 2mm and 3mm of the compile path), every row and batch
+    lane of both starting on a 16-byte boundary (sxm, syk, x0, y0 and the
+    batch strides ``bx``, ``by`` multiples of 4 elements, both base pointers
+    16-byte aligned).  Every other layout takes the table kernel, which
+    gives the same bits."""
+    if strides is None:
+        return False
+    sxm, sxk, syk, syn, _, _ = strides
+    return (sxk == 1 and syn == 1 and x_ptr % 16 == 0 and y_ptr % 16 == 0
+            and all(v % 4 == 0 for v in (sxm, syk, desc.x0, desc.y0, bx, by)))
+
+
 def _lanes(t: torch.Tensor, numel: int, name: str) -> int:
     """How many lanes of ``numel`` elements ``t`` holds."""
     if numel <= 0 or t.numel() % numel:
@@ -210,7 +285,7 @@ def contraction(desc: ContractionDesc, x: torch.Tensor, y: torch.Tensor,
 
     ``init`` is not modified.  Returns a new tensor of ``init``'s shape and
     dtype."""
-    global launches
+    global launches, launches_strided
     if init.device.type == "cpu":
         return contraction_plain(desc, x, y, init)
     if init.device.type != "cuda":
@@ -235,7 +310,20 @@ def contraction(desc: ContractionDesc, x: torch.Tensor, y: torch.Tensor,
     bo = desc.o_numel if batch > 1 else 0
     stream = torch.cuda.current_stream(init.device).cuda_stream
     view = gemm_view(desc) if init.dtype != torch.float64 and batch <= 65535 else None
-    if view is not None:
+    strides = gemm_strides(desc, view) if view and init.dtype == torch.float32 else None
+    strided = takes_strided(strides, desc, bx, by, x.data_ptr(), y.data_ptr())
+    if strided:
+        m = n = 1
+        for i in view[0]:
+            m *= desc.out_trips[i]
+        for i in view[1]:
+            n *= desc.out_trips[i]
+        sxm, sxk, syk, syn, som, son = strides
+        g = _G(m, n, desc.red_points, sxm, sxk, syk, syn, som, son, desc.x0, desc.y0,
+               desc.o0, bx, by, bo)
+        rc = _strided_kernel()(x.data_ptr(), y.data_ptr(), out.data_ptr(), ctypes.byref(g),
+                               batch, stream)
+    elif view is not None:
         tabs = gemm_tables(desc, view, init.device)
         ptrs = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in tabs])
         rc = _gemm_kernel()(x.data_ptr(), y.data_ptr(), out.data_ptr(), ptrs,
@@ -248,4 +336,5 @@ def contraction(desc: ContractionDesc, x: torch.Tensor, y: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"contraction kernel launch failed: CUDA error {rc}")
     launches += 1
+    launches_strided += strided
     return out

@@ -10,7 +10,8 @@ CUDA kernels of ``csrc/grouped_matmul.cu``.
   against 0.0217 ms of tensor-core operations).
 * Design: one block per (expert, m tile, n tile); the k axis, sequential on
   the TPU, is a loop inside the block with f32 sums in registers.  Two
-  routes, chosen by ``autotune.gmm_route`` from the shape alone:
+  routes, chosen by ``autotune.gmm_route`` from the shape, the dtype and
+  the operands' alignment:
 
   - tensor cores: bf16 with d and f multiples of 8 (16-byte row strides,
     what TMA needs) and 16-byte aligned x and w.  The mainloop of
@@ -19,7 +20,7 @@ CUDA kernels of ``csrc/grouped_matmul.cu``.
     Tiles ``autotune.GMM_TC_TILES``, (bm, bn, bk) with bm >= 64: at decode
     the schedule picks the width that fills the SMs.
   - CUDA cores: f32 (TF32 would break its 1e-4 tolerance) and any bf16
-    shape TMA cannot describe (d = 500).  Every edge masked; the tile
+    shape or pointer TMA cannot describe (d = 500, a misaligned operand).  Every edge masked; the tile
     height ``bm`` of ``autotune.GMM_BM`` follows cap (8 rows at decode, 128
     at the forward).
 
@@ -88,7 +89,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int | None = None,
         raise ValueError("grouped_matmul: x and w must be contiguous")
     e, cap, d = x.shape
     f = w.shape[2]
-    route = gmm_route(e, cap, d, f, x.element_size())
+    aligned = not (x.data_ptr() % 16 or w.data_ptr() % 16)
+    route = gmm_route(e, cap, d, f, x.element_size(), aligned)
     if bm is not None and tile is not None:
         raise ValueError("grouped_matmul: give bm (CUDA cores) or tile (tensor cores), "
                          "not both")
@@ -102,13 +104,13 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int | None = None,
         tile = tuple(tile)
         if tile not in GMM_TC_TILES:
             raise ValueError(f"grouped_matmul: tile {tile} not in {GMM_TC_TILES}")
+        if not aligned:
+            raise ValueError("grouped_matmul: the tensor-core route needs 16-byte aligned "
+                             "x and w")
         if route != TENSOR_CORES:
             raise ValueError(f"grouped_matmul: tensor-core tile {tile} for E{e} cap{cap} d{d} "
                              f"f{f} {x.dtype}: the route needs bf16 with d and f multiples "
                              "of 8")
-        if x.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("grouped_matmul: the tensor-core route needs 16-byte aligned "
-                             "x and w")
     elif bm not in GMM_BM:
         raise ValueError(f"grouped_matmul: bm {bm} not in {GMM_BM}")
     out = torch.empty((e, cap, f), dtype=x.dtype, device=x.device)

@@ -10,14 +10,16 @@ kernels of ``csrc/matmul_pom.cu``.
 * Design: one block per (bm, bn) output tile; the k axis, sequential on
   the TPU (f32 scratch zeroed at the first k step, flushed at the last), is
   a loop inside the block with the f32 sums in registers.  Two routes,
-  chosen by ``autotune.matmul_route`` from the shape alone:
+  chosen by ``autotune.matmul_route`` from the shape, the dtype and the
+  operands' alignment:
 
   - tensor cores: bf16 with K and N multiples of 8 (16-byte row strides,
     what TMA needs) and 16-byte aligned x and y.  The mainloop of
     ``csrc/hopper_gemm.cuh``: TMA loads into a ring of swizzled stages,
     wgmma, zero-filled tails.  Tiles ``autotune.MATMUL_TC_TILES``.
   - CUDA cores: f32 (TF32 would break its 1e-4 tolerance) and any bf16
-    shape TMA cannot describe (K = 70).  Every edge masked.  Tiles
+    shape or pointer TMA cannot describe (K = 70, an operand 8 bytes off a
+    16-byte boundary).  Every edge masked.  Tiles
     ``autotune.MATMUL_TILES``.
 
   The tile names its route (the tensor-core tiles are 64 deep, the
@@ -87,18 +89,19 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None, bn: int |
         raise ValueError("matmul: x and y must be row-major contiguous")
     m, k = x.shape
     n = y.shape[1]
-    route = matmul_route(m, n, k, x.element_size())
+    aligned = not (x.data_ptr() % 16 or y.data_ptr() % 16)
+    route = matmul_route(m, n, k, x.element_size(), aligned)
     tile = (bm, bn, bk)
     if tile == (None, None, None):
         tile = MATMUL_TC_NAIVE if route == TENSOR_CORES else MATMUL_NAIVE
     tc = tile in MATMUL_TC_TILES
     if not tc and tile not in MATMUL_TILES:
         raise ValueError(f"matmul: tile {tile} not in {MATMUL_TC_TILES + MATMUL_TILES}")
+    if tc and not aligned:
+        raise ValueError("matmul: the tensor-core route needs 16-byte aligned x and y")
     if tc and route != TENSOR_CORES:
         raise ValueError(f"matmul: tensor-core tile {tile} for {m}x{k}x{n} {x.dtype}: the "
                          "route needs bf16 with K and N multiples of 8")
-    if tc and (x.data_ptr() % 16 or y.data_ptr() % 16):
-        raise ValueError("matmul: the tensor-core route needs 16-byte aligned x and y")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out

@@ -4,13 +4,22 @@ Every op but ``jacobi2d`` (which has no schedule, as in the JAX package)
 takes ``schedule='pom' | 'naive'`` (POM-DSE block sizes from ``autotune``
 vs fixed defaults).  There is no ``impl`` and no ``interpret``:
 the device of the tensors decides.  A CUDA tensor goes to the hand-written
-kernel, a CPU tensor to its plain PyTorch version.  ``matmul`` and
-``grouped_matmul`` have two kernels each; the pure functions
-``autotune.matmul_route`` / ``gmm_route`` pick one from the shape and dtype
-(the tensor cores for bf16 whose row strides TMA can describe, the CUDA
-cores otherwise), and the schedule then picks a tile of that route.  Inside
-``plain_versions()`` every op takes the plain version on any device: that is
-how a model is run on the card as the reference its kernels are held to.
+kernel, a CPU tensor to its plain PyTorch version.  ``matmul``,
+``grouped_matmul`` and ``attention`` have two kernels each; the pure
+functions ``autotune.matmul_route`` / ``gmm_route`` / ``attention_route``
+pick one from the shape, the dtype and whether every operand is 16-byte
+aligned (the tensor cores for bf16 that TMA can describe, the CUDA cores
+otherwise), and the schedule, given the same flag, then picks a tile of
+that route.
+
+Every op passes ``.contiguous()`` of its operands to the kernel wrappers
+(a copy only for a non-contiguous view, e.g. ``matmul(x.t(), y)``), since
+the kernels take row-major contiguous tensors; the wrappers themselves
+still raise on a non-contiguous tensor, and on a tensor-core tile for an
+operand TMA cannot describe.  So an op computes every input its plain
+version computes.  Inside ``plain_versions()`` every op takes the plain
+version on any device: that is how a model is run on the card as the
+reference its kernels are held to.
 """
 from __future__ import annotations
 
@@ -46,14 +55,21 @@ def _check(schedule: str) -> None:
         raise ValueError(f"schedule must be 'pom' or 'naive', got {schedule!r}")
 
 
+def _aligned(*ts) -> bool:
+    """Every tensor's data starts on a 16-byte boundary (what TMA needs)."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
 def matmul(x, y, *, schedule: str = "pom"):
     """x: (M, K) @ y: (K, N) -> (M, N) in x's dtype, f32 sums."""
     _check(schedule)
     if _plain:
         return ref.matmul(x, y)
+    x, y = x.contiguous(), y.contiguous()
     if schedule == "naive":
         return _matmul_cuda(x, y)          # the fixed tile of the route
-    s = pom_matmul_schedule(x.shape[0], y.shape[1], x.shape[1], x.element_size())
+    s = pom_matmul_schedule(x.shape[0], y.shape[1], x.shape[1], x.element_size(),
+                            aligned=_aligned(x, y))
     return _matmul_cuda(x, y, bm=s.bm, bn=s.bn, bk=s.bk)
 
 
@@ -61,7 +77,7 @@ def jacobi2d(x, steps: int = 1):
     """``steps`` Jacobi-2D sweeps of x (M, N), the boundary passing through."""
     if _plain:
         return ref.jacobi2d(x, steps)
-    return _jacobi_cuda(x, steps)
+    return _jacobi_cuda(x.contiguous(), steps)
 
 
 def attention(q, k, v, *, causal: bool = True, schedule: str = "pom"):
@@ -69,13 +85,12 @@ def attention(q, k, v, *, causal: bool = True, schedule: str = "pom"):
     _check(schedule)
     if _plain:
         return ref.attention(q, k, v, causal=causal)
-    if schedule == "pom":
-        s = pom_attention_schedule(q.shape[2], k.shape[2], q.shape[3],
-                                   q.element_size(), causal)
-        bq, bkv = s.bq, s.bkv
-    else:
-        bq = bkv = 64
-    return _flash_cuda(q, k, v, causal=causal, bq=bq, bkv=bkv)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if schedule == "naive":
+        return _flash_cuda(q, k, v, causal=causal)   # the fixed tile of the route
+    s = pom_attention_schedule(q.shape[2], k.shape[2], q.shape[3], q.element_size(), causal,
+                               aligned=_aligned(q, k, v))
+    return _flash_cuda(q, k, v, causal=causal, bq=s.bq, bkv=s.bkv)
 
 
 def decode_attention(q, k, v, *, length=None, schedule: str = "pom"):
@@ -83,6 +98,7 @@ def decode_attention(q, k, v, *, length=None, schedule: str = "pom"):
     _check(schedule)
     if _plain:
         return ref.decode_attention(q, k, v, length=length)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if schedule == "pom":
         bkv = pom_decode_schedule(k.shape[2], q.shape[2], q.shape[1] // k.shape[1],
                                   q.element_size()).bkv
@@ -96,9 +112,11 @@ def grouped_matmul(x, w, *, schedule: str = "pom"):
     _check(schedule)
     if _plain:
         return ref.grouped_matmul(x, w)
+    x, w = x.contiguous(), w.contiguous()
     if schedule == "naive":
         return _gmm_cuda(x, w)             # the fixed tile of the route
-    s = pom_gmm_schedule(x.shape[0], x.shape[1], x.shape[2], w.shape[2], x.element_size())
+    s = pom_gmm_schedule(x.shape[0], x.shape[1], x.shape[2], w.shape[2], x.element_size(),
+                         aligned=_aligned(x, w))
     if s.route == TENSOR_CORES:
         return _gmm_cuda(x, w, tile=(s.bm, s.bn, s.bk))
     return _gmm_cuda(x, w, bm=s.bm)

@@ -394,3 +394,96 @@ def test_plain_contraction_matches_gathered_sum(seed):
         o = torch.randn(b * on, dtype=torch.float64)
         torch.testing.assert_close(plain(d, x, y, o), _gathered(d, x, y, o),
                                    msg=lambda m: f"{d}: {m}")
+
+
+# --------------------------------------------------------------------------
+# the strided kernel's view: one stride per group of dims
+# --------------------------------------------------------------------------
+def _tile_every_statement(build, t):
+    """``build()`` with every statement tiled as ``chip_smoke.py`` tiles the
+    compile path's gemm, 2mm and 3mm: tile (i, j) and split k by t, the
+    intra-tile loops innermost and fully unrolled."""
+    from repro_torch.core.dsl import ComputeHandle
+    f = build()
+    for s in f.fn.statements:
+        h = ComputeHandle(s)
+        i, j, k = s.dims
+        h.tile(i, j, t, t, i + "_o", j + "_o", i + "_i", j + "_i")
+        h.split(k, t, k + "_o", k + "_i")
+        s.domain = s.domain.permute([i + "_o", j + "_o", k + "_o", i + "_i", j + "_i", k + "_i"])
+        for d in (i + "_i", j + "_i", k + "_i"):
+            h.unroll(d, t)
+        h.pipeline(k + "_o", 1)
+    return f
+
+
+def _strided_cases():
+    cases = [(f"serving {n}", b) for n, b in port_workloads.serving_cases(False)]
+    cases += [(f"default {n}", b) for n, b in port_workloads.default_cases()]
+    cases += [(f"tiled {n} {size}", lambda b=b, size=size: _tile_every_statement(
+                  lambda: b(size), 32))
+              for n, b in (("gemm", port_workloads.gemm), ("2mm", port_workloads.mm2),
+                           ("3mm", port_workloads.mm3)) for size in (256, 4096)]
+    cases += [("conv (64,16,30,30)", lambda: port_workloads.conv_nest("conv", 64, 16, 30, 30)),
+              ("conv (128,2,12,12)", lambda: port_workloads.conv_nest("conv", 128, 2, 12, 12))]
+    return cases
+
+
+@pytest.mark.parametrize("label,build", _strided_cases(), ids=[c[0] for c in _strided_cases()])
+def test_gemm_strides_agree_with_the_tables(label, build):
+    """Where ``gemm_strides`` gives one stride per group, the strides
+    reproduce every offset of ``gemm_tables``; the gemm, 2mm and 3mm
+    statements are strided and row-major (``takes_strided``), the conv nests
+    (implicit im2col) are not strided."""
+    from repro_torch.kernels.contraction import (gemm_strides, gemm_tables, gemm_view,
+                                                 takes_strided)
+    seen = 0
+    for stmt in build().fn.statements:
+        try:
+            desc = lower_stmt_cuda(stmt, device="cpu").desc
+        except CudaLowerError:
+            continue
+        view = gemm_view(desc)
+        if view is None:
+            continue
+        seen += 1
+        strides = gemm_strides(desc, view)
+        matmul = any(w in label for w in ("gemm", "2mm", "3mm"))
+        assert (strides is not None) == matmul, (label, stmt.name)
+        if strides is None:
+            continue
+        assert takes_strided(strides, desc, 0, 0, 0, 0), (label, stmt.name, strides)
+        sxm, sxk, syk, syn, som, son = strides
+        mx, mo, ny, no, kx, ky = gemm_tables(desc, view, "cpu")
+        for tab, base, stride in ((mx, desc.x0, sxm), (mo, desc.o0, som), (ny, desc.y0, syn),
+                                  (no, 0, son), (kx, 0, sxk), (ky, 0, syk)):
+            want = base + torch.arange(tab.numel()) * stride
+            assert torch.equal(tab, want), (label, stmt.name)
+    if label.startswith(("tiled", "default gemm", "default 2mm", "default 3mm", "conv (128")):
+        assert seen > 0
+
+
+# (label, (sxm, sxk, syk, syn), x0, y0, bx, by, x_ptr, y_ptr, strided)
+TAKES_STRIDED = [("row_major", (96, 1, 256, 1), 0, 0, 0, 0, 0, 0, True),
+                 ("row_major_batched", (96, 1, 256, 1), 4, 8, 12288, 0, 256, 512, True),
+                 ("x_transposed", (1, 304, 260, 1), 0, 0, 0, 0, 0, 0, False),
+                 ("y_transposed", (77, 1, 1, 77), 0, 0, 0, 0, 0, 0, False),
+                 ("x_rows_off_16_bytes", (78, 1, 256, 1), 0, 0, 0, 0, 0, 0, False),
+                 ("y_rows_off_16_bytes", (96, 1, 258, 1), 0, 0, 0, 0, 0, 0, False),
+                 ("x_offset", (96, 1, 256, 1), 2, 0, 0, 0, 0, 0, False),
+                 ("y_lanes_off", (96, 1, 256, 1), 0, 0, 0, 6, 0, 0, False),
+                 ("x_pointer_misaligned", (96, 1, 256, 1), 0, 0, 0, 0, 8, 0, False),
+                 ("y_pointer_misaligned", (96, 1, 256, 1), 0, 0, 0, 0, 0, 4, False)]
+
+
+@pytest.mark.parametrize("label,strides,x0,y0,bx,by,xp,yp,want", TAKES_STRIDED,
+                         ids=[c[0] for c in TAKES_STRIDED])
+def test_takes_strided_follows_the_layout(label, strides, x0, y0, bx, by, xp, yp, want):
+    """Only X contiguous along K and Y along N, with every row and lane on a
+    16-byte boundary, take the strided kernel; no strides take the table
+    kernel."""
+    from repro_torch.kernels.contraction import ContractionDesc, takes_strided
+    d = ContractionDesc((128, 128), (0, 0), (0, 0), (128, 1), (96,), (1,), (1,), x0, y0, 0,
+                        1, 1, 1)
+    assert takes_strided((*strides, 128, 1), d, bx, by, xp, yp) == want
+    assert not takes_strided(None, d, 0, 0, 0, 0)

@@ -184,3 +184,101 @@ def test_gpu_program_matches_cpu(name):
         np.testing.assert_allclose(called[k].cpu().numpy(), w, rtol=1e-4, atol=1e-4)
         for i in range(B):
             np.testing.assert_allclose(batched[k][i].cpu().numpy(), w, rtol=1e-4, atol=1e-4)
+
+
+def _mm2_stmt(n, t, which):
+    """Statement ``which`` of 2mm at n, every statement tiled by t."""
+    from repro_torch.core.dsl import ComputeHandle
+    f = workloads.mm2(n)
+    for s in f.fn.statements:
+        h = ComputeHandle(s)
+        i, j, k = s.dims
+        h.tile(i, j, t, t, i + "_o", j + "_o", i + "_i", j + "_i")
+        h.split(k, t, k + "_o", k + "_i")
+        s.domain = s.domain.permute([i + "_o", j + "_o", k + "_o", i + "_i", j + "_i", k + "_i"])
+        for d in (i + "_i", j + "_i", k + "_i"):
+            h.unroll(d, t)
+    return f.fn.statements[which]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,build", [
+    ("gemm_tiled", lambda: _sched_gemm(256, 32)),
+    ("gemm_unscheduled", lambda: workloads.gemm(160).fn.statements[0]),
+    ("gemm_ragged", lambda: workloads.gemm(200).fn.statements[0]),
+    ("2mm_s1", lambda: _mm2_stmt(256, 32, 0)),
+    ("2mm_s2", lambda: _mm2_stmt(256, 32, 1)),
+])
+def test_gpu_strided_kernel_equals_table_kernel(label, build, monkeypatch):
+    """The affine gemm statements take the strided (cp.async ring) kernel
+    in f32, which sums each output in k order like the table kernel: the
+    same bits, and within the f32 tolerance of the plain version."""
+    d = lower_stmt_cuda(build(), device="cuda").desc
+    assert cmod.gemm_strides(d, cmod.gemm_view(d)) is not None
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x, y, o = (torch.randn(k, generator=g, device="cuda") for k in (d.x_numel, d.y_numel,
+                                                                   d.o_numel))
+    n0 = cmod.launches_strided
+    strided = cmod.contraction(d, x, y, o)
+    torch.cuda.synchronize()
+    assert cmod.launches_strided == n0 + 1
+    monkeypatch.setattr(cmod, "gemm_strides", lambda desc, view: None)
+    table = cmod.contraction(d, x, y, o)
+    torch.cuda.synchronize()
+    assert cmod.launches_strided == n0 + 1
+    assert torch.equal(strided, table), label
+    want = tref.contraction(d, x, y, o)
+    assert (strided - want).abs().max().item() <= _tol(torch.float32, want.abs().max().item())
+
+
+# (label, M, N, K, (sxm, sxk), (syk, syn), lanes, strided): affine
+# layouts, with ragged edges, a k tail inside a run of four (K = 77) and
+# batched lanes sharing Y; the row-major ones (X contiguous along K, Y
+# along N, rows on 16-byte boundaries) take the strided kernel, the others
+# the table kernel
+STRIDED_LAYOUTS = [("row_major", 256, 256, 96, (96, 1), (256, 1), 1, True),
+                   ("x_transposed", 301, 260, 200, (1, 304), (260, 1), 1, False),
+                   ("x_rows_padded_k_tail", 200, 136, 77, (80, 1), (136, 1), 1, True),
+                   ("y_transposed_k_tail", 256, 130, 77, (77, 1), (1, 77), 1, False),
+                   ("both_transposed", 129, 131, 64, (1, 129), (1, 64), 1, False),
+                   ("batched_shared_y", 128, 256, 96, (96, 1), (256, 1), 3, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,m,n,k,xs,ys,lanes,strided", STRIDED_LAYOUTS)
+def test_gpu_affine_layouts_take_their_kernel(label, m, n, k, xs, ys, lanes, strided,
+                                              monkeypatch):
+    """Each affine layout takes the kernel ``takes_strided`` names, within the
+    f32 tolerance of the plain version and bit-equal to the table kernel."""
+    from repro_torch.kernels.contraction import ContractionDesc
+    (sxm, sxk), (syk, syn) = xs, ys
+    x_numel = (m - 1) * sxm + (k - 1) * sxk + 1
+    y_numel = (k - 1) * syk + (n - 1) * syn + 1
+    d = ContractionDesc((m, n), (sxm, 0), (0, syn), (n, 1), (k,), (sxk,), (syk,), 0, 0, 0,
+                        x_numel + (-x_numel) % 4, y_numel, m * n)
+    assert cmod.gemm_strides(d, cmod.gemm_view(d)) == (sxm, sxk, syk, syn, n, 1)
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    x = torch.randn(lanes * d.x_numel, generator=g, device="cuda")
+    y = torch.randn(d.y_numel, generator=g, device="cuda")
+    o = torch.randn(lanes * m * n, generator=g, device="cuda")
+    n0 = cmod.launches_strided
+    got = cmod.contraction(d, x, y, o)
+    torch.cuda.synchronize()
+    assert cmod.launches_strided == n0 + strided
+    want = tref.contraction(d, x, y, o)
+    assert (got - want).abs().max().item() <= _tol(torch.float32, want.abs().max().item())
+    monkeypatch.setattr(cmod, "gemm_strides", lambda desc, view: None)
+    assert torch.equal(got, cmod.contraction(d, x, y, o)), label
+
+
+@pytest.mark.gpu
+def test_gpu_strided_launch_refuses_other_layouts():
+    """The strided kernel's C entry point refuses a layout it does not stage
+    (X contiguous along M) instead of computing it."""
+    import ctypes
+    n = 128
+    x, y, o = (torch.zeros(n * n, device="cuda") for _ in range(3))
+    g = cmod._G(n, n, n, 1, n, n, 1, n, 1, 0, 0, 0, 0, 0, 0)
+    rc = cmod._strided_kernel()(x.data_ptr(), y.data_ptr(), o.data_ptr(), ctypes.byref(g), 1,
+                                torch.cuda.current_stream().cuda_stream)
+    assert rc != 0

@@ -427,10 +427,19 @@ def test_pom_matmul_schedule_smem_and_alignment():
 
 
 def test_pom_attention_schedule_long_context():
+    """bf16 at D 128 takes a tensor-core tile; f32 (and a misaligned bf16
+    operand) a CUDA-core one, each with its own kernel's footprint."""
     s = autotune.pom_attention_schedule(8192, 8192, 128, 2, True)
+    assert s.route == autotune.TENSOR_CORES
     assert s.smem_bytes <= H100.smem_bytes
-    assert s.smem_bytes == autotune.flash_smem_bytes(s.bq, s.bkv, 128)
-    assert s.bq in autotune.FLASH_BQ and s.bkv in autotune.FLASH_BKV
+    assert s.smem_bytes == autotune.flash_tc_smem_bytes(s.bq, s.bkv, 128)
+    assert (s.bq, s.bkv) in autotune.FLASH_TC_TILES
+    for s in (autotune.pom_attention_schedule(8192, 8192, 128, 4, True),
+              autotune.pom_attention_schedule(8192, 8192, 128, 2, True, aligned=False)):
+        assert s.route == autotune.CUDA_CORES
+        assert s.smem_bytes <= H100.smem_bytes
+        assert s.smem_bytes == autotune.flash_smem_bytes(s.bq, s.bkv, 128)
+        assert s.bq in autotune.FLASH_BQ and s.bkv in autotune.FLASH_BKV
 
 
 @pytest.mark.parametrize("d", autotune.HEAD_DIMS)
@@ -618,6 +627,144 @@ def test_cpu_path_takes_any_tile_or_route():
                                tref.grouped_matmul(xe, we))
     assert (matmul_mod.launches_tc, gmm_mod.launches_tc) == before
 
+
+# --------------------------------------------------------------------------
+# routes know alignment; every schedule returns a tile of its route
+# --------------------------------------------------------------------------
+# (Sq, Skv, D, bytes, route): smollm's forward, a ragged and a suffix shape
+# and D 128 in bf16 on the tensor cores; D 32, f32 and empty on the CUDA cores
+ATTENTION_ROUTES = [(512, 512, 64, 2, "tensor_cores"), (130, 130, 64, 2, "tensor_cores"),
+                    (64, 200, 64, 2, "tensor_cores"), (96, 96, 128, 2, "tensor_cores"),
+                    (100, 100, 32, 2, "cuda_cores"), (512, 512, 64, 4, "cuda_cores"),
+                    (512, 512, 96, 2, "cuda_cores"), (0, 8, 64, 2, "cuda_cores")]
+
+
+@pytest.mark.parametrize("sq,skv,d,xb,route", ATTENTION_ROUTES)
+def test_attention_route(sq, skv, d, xb, route):
+    assert autotune.attention_route(sq, skv, d, xb) == route
+    assert autotune.attention_route(sq, skv, d, xb, True) == route
+
+
+@pytest.mark.parametrize("route_fn,args", [
+    (autotune.matmul_route, (4096, 4096, 4096, 2)),
+    (autotune.matmul_route, (64, 64, 64, 2)),
+    (autotune.gmm_route, (32, 8, 1024, 512, 2)),
+    (autotune.gmm_route, (32, 640, 1024, 512, 2)),
+    (autotune.attention_route, (512, 512, 64, 2)),
+    (autotune.attention_route, (96, 96, 128, 2)),
+])
+def test_misaligned_operand_takes_the_cuda_cores(route_fn, args):
+    """A bf16 shape the tensor cores take goes to the CUDA cores when an
+    operand is not 16-byte aligned (TMA cannot describe it)."""
+    assert route_fn(*args) == autotune.TENSOR_CORES
+    assert route_fn(*args, aligned=True) == autotune.TENSOR_CORES
+    assert route_fn(*args, aligned=False) == autotune.CUDA_CORES
+
+
+def _route_tiles(route, tc_tiles, cc_tiles):
+    return tc_tiles if route == autotune.TENSOR_CORES else cc_tiles
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("m,n,k,xb", [(4096, 4096, 4096, 2), (2048, 2560, 960, 2),
+                                      (64, 64, 64, 2), (130, 200, 70, 2), (4096, 4096, 4096, 4)])
+def test_matmul_schedule_tile_belongs_to_its_route(m, n, k, xb, aligned):
+    s = autotune.pom_matmul_schedule(m, n, k, xb, aligned=aligned)
+    assert s.route == autotune.matmul_route(m, n, k, xb, aligned)
+    assert (s.bm, s.bn, s.bk) in _route_tiles(s.route, autotune.MATMUL_TC_TILES,
+                                              autotune.MATMUL_TILES)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("e,cap,d,f,xb", [(32, 8, 1024, 512, 2), (32, 640, 1024, 512, 2),
+                                          (4, 37, 100, 70, 2), (32, 8, 1024, 512, 4)])
+def test_gmm_schedule_tile_belongs_to_its_route(e, cap, d, f, xb, aligned):
+    s = autotune.pom_gmm_schedule(e, cap, d, f, xb, aligned=aligned)
+    assert s.route == autotune.gmm_route(e, cap, d, f, xb, aligned)
+    cc = tuple((bm, autotune.GMM_BN, autotune.GMM_CC_BK[bm]) for bm in autotune.GMM_BM)
+    assert (s.bm, s.bn, s.bk) in _route_tiles(s.route, autotune.GMM_TC_TILES, cc)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sq,skv,d,xb,causal", [(512, 512, 64, 2, True), (1024, 1024, 64, 2, True),
+                                                (130, 130, 64, 2, True), (64, 200, 64, 2, True),
+                                                (100, 100, 64, 2, False), (96, 96, 128, 2, True),
+                                                (100, 100, 32, 2, True), (512, 512, 64, 4, True)])
+def test_attention_schedule_tile_belongs_to_its_route(sq, skv, d, xb, causal, aligned):
+    s = autotune.pom_attention_schedule(sq, skv, d, xb, causal, aligned=aligned)
+    assert s.route == autotune.attention_route(sq, skv, d, xb, aligned)
+    if s.route == autotune.TENSOR_CORES:
+        assert (s.bq, s.bkv) in autotune.FLASH_TC_TILES
+        assert s.smem_bytes == autotune.flash_tc_smem_bytes(s.bq, s.bkv, d)
+    else:
+        assert s.bq in autotune.FLASH_BQ and s.bkv in autotune.FLASH_BKV
+        assert s.smem_bytes == autotune.flash_smem_bytes(s.bq, s.bkv, d)
+    assert s.terms.bound_s > 0
+
+
+def test_flash_tensor_core_tiles_match_the_source():
+    """FLASH_TC_TILES is the (kBQ, kBKV) tile of tc::dispatch in
+    csrc/flash_attention.cu, and its head dims the ones it launches."""
+    import re
+    from pathlib import Path
+    text = (Path(autotune.__file__).resolve().parent.parent / "csrc" /
+            "flash_attention.cu").read_text()
+    tc = text[text.index("namespace tc {"):text.index("}  // namespace tc")]
+    tile = tuple(int(re.search(rf"constexpr int {name} = (\d+);", tc).group(1))
+                 for name in ("kBQ", "kBKV"))
+    assert (tile,) == autotune.FLASH_TC_TILES
+    body = tc[tc.index("cudaError_t dispatch(int d, int bq, int bkv"):]
+    assert "if (bq != kBQ || bkv != kBKV) return cudaErrorInvalidValue;" in body
+    dims = tuple(int(d) for d in re.findall(r"if \(d == (\d+)\) return launch<", body))
+    assert dims == autotune.FLASH_TC_DIMS
+    assert autotune.FLASH_TC_NAIVE in autotune.FLASH_TC_TILES
+    assert f"kStages = {autotune.FLASH_TC_STAGES};" in text
+
+
+@pytest.mark.parametrize("d", autotune.FLASH_TC_DIMS)
+def test_every_flash_tensor_core_tile_fits(d):
+    """Every tensor-core flash tile fits a block's shared memory at every
+    head dim it takes, its tiles on the 1024-byte swizzle period; at D 64
+    two blocks share an SM."""
+    for bq, bkv in autotune.FLASH_TC_TILES:
+        smem = autotune.flash_tc_smem_bytes(bq, bkv, d)
+        assert smem <= H100.smem_bytes
+        assert (bq * 128) % 1024 == 0 and (bkv * 128) % 1024 == 0
+        if d == 64:
+            assert 2 * (smem + 1024) <= autotune.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("op", ["matmul", "grouped_matmul", "jacobi2d", "attention"])
+def test_ops_take_transposed_and_misaligned_operands_on_the_cpu(op):
+    """A transposed view and a bf16 view 8 bytes off a 16-byte boundary
+    compute on the CPU and match the plain version (on the card the same
+    ops copy to contiguous and route the misaligned operand to the CUDA
+    cores)."""
+    g = torch.Generator().manual_seed(7)
+    buf = torch.randn(2 * 64 * 64 + 4, generator=g).bfloat16()
+    mis = buf[4:4 + 64 * 64].view(64, 64)
+    assert mis.data_ptr() % 16 == 8
+    if op == "matmul":
+        x = torch.randn(48, 64, generator=g)
+        torch.testing.assert_close(ops.matmul(x.t(), x), tref.matmul(x.t().contiguous(), x))
+        torch.testing.assert_close(ops.matmul(mis, mis), tref.matmul(mis.clone(), mis.clone()))
+    elif op == "grouped_matmul":
+        w = torch.randn(2, 40, 24, generator=g)
+        torch.testing.assert_close(ops.grouped_matmul(w.transpose(1, 2), w),
+                                   tref.grouped_matmul(w.transpose(1, 2).contiguous(), w))
+        xm = mis.view(2, 32, 64)
+        wm = buf[4 + 64 * 64:4 + 2 * 64 * 64].view(2, 64, 32)
+        torch.testing.assert_close(ops.grouped_matmul(xm, wm),
+                                   tref.grouped_matmul(xm.clone(), wm.clone()))
+    elif op == "jacobi2d":
+        x = torch.randn(40, 30, generator=g)
+        torch.testing.assert_close(ops.jacobi2d(x.t(), 3), tref.jacobi2d(x.t().contiguous(), 3))
+        torch.testing.assert_close(ops.jacobi2d(mis, 2), tref.jacobi2d(mis.clone(), 2))
+    else:
+        q = torch.randn(1, 16, 2, 64, generator=g).bfloat16().transpose(1, 2)   # (1, 2, 16, 64)
+        qm = mis.view(1, 2, 32, 64)
+        torch.testing.assert_close(ops.attention(q, q, q), tref.attention(*(q.contiguous(),) * 3))
+        torch.testing.assert_close(ops.attention(qm, qm, qm), tref.attention(*(qm.clone(),) * 3))
 
 # --------------------------------------------------------------------------
 # on the card: CUDA kernel vs its plain version
@@ -1000,3 +1147,151 @@ def test_gpu_library_wrappers_raise_on_unsupported_input():
         stencil_mod.jacobi2d(torch.zeros(8, 16, device=dev)[:, ::2])
     with pytest.raises(ValueError):
         stencil_mod.jacobi2d(x, -1)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal) in bf16 for the tensor-core flash route:
+# smollm_360m's forward, a ragged Sq, Sq < Skv, group 4, group 1,
+# non-causal, D 128, D 32 (which the route sends to the CUDA cores), and
+# zamba2_1_2b's and granite_moe_1b's forwards
+FLASH_TC_CASES = [
+    (4, 15, 5, 512, 512, 64, True),
+    (2, 4, 4, 130, 130, 64, True),
+    (1, 4, 1, 64, 200, 64, True),
+    (2, 8, 2, 130, 130, 64, True),
+    (1, 4, 4, 96, 96, 64, True),
+    (2, 4, 4, 100, 100, 64, False),
+    (2, 8, 2, 300, 300, 128, True),
+    (2, 4, 4, 130, 130, 32, True),
+    (2, 32, 32, 1024, 1024, 64, True),
+    (4, 16, 8, 512, 512, 64, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_TC_CASES)
+def test_gpu_flash_tensor_core_route_matches_plain(case):
+    """Every tensor-core tile against ref.attention (f32 math) within the
+    bf16 tolerance, and ops.attention on the route ``attention_route``
+    picks, counted in ``launches_tc``."""
+    dev = _cuda()
+    b, hq, hkv, sq, skv, d, causal = case
+    g = torch.Generator(device=dev).manual_seed(sq + skv + d)
+    q = torch.randn(b, hq, sq, d, generator=g, device=dev).bfloat16()
+    k = torch.randn(b, hkv, skv, d, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, hkv, skv, d, generator=g, device=dev).bfloat16()
+    want = tref.attention(q, k, v, causal=causal).float()
+    tc = autotune.attention_route(sq, skv, d, 2) == autotune.TENSOR_CORES
+    assert tc == (d != 32)
+    for bq, bkv in autotune.FLASH_TC_TILES if tc else ():
+        n0, ntc = flash_mod.launches, flash_mod.launches_tc
+        got = flash_mod.flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+        torch.cuda.synchronize()
+        assert (flash_mod.launches, flash_mod.launches_tc) == (n0 + 1, ntc + 1)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want, **_tol("bfloat16"))
+    for schedule in ("pom", "naive"):
+        ntc = flash_mod.launches_tc
+        got = ops.attention(q, k, v, causal=causal, schedule=schedule)
+        torch.cuda.synchronize()
+        assert flash_mod.launches_tc == ntc + tc
+        torch.testing.assert_close(got.float(), want, **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+def test_gpu_flash_tensor_core_row_without_keys_is_zero():
+    """Causal Sq 200 > Skv 64: the first 136 query rows see no key and
+    return exactly 0 on every tensor-core tile; the rest match the plain
+    version."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(1, 4, 200, 64, generator=g, device=dev).bfloat16()
+    k = torch.randn(1, 2, 64, 64, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, 2, 64, 64, generator=g, device=dev).bfloat16()
+    want = tref.attention(q, k, v, causal=True).float()
+    for bq, bkv in autotune.FLASH_TC_TILES:
+        got = flash_mod.flash_attention(q, k, v, causal=True, bq=bq, bkv=bkv)
+        torch.cuda.synchronize()
+        assert torch.all(got[:, :, :136] == 0)
+        torch.testing.assert_close(got.float(), want, **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+def test_gpu_flash_tensor_core_tile_raises_where_tma_cannot_describe():
+    """A tensor-core tile on f32, on D 32 or on a misaligned q raises; the
+    same inputs run on the CUDA cores through ops."""
+    dev = _cuda()
+    q = torch.zeros(1, 2, 64, 64, device=dev)
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention(q, q, q, bq=128, bkv=64)
+    q32 = torch.zeros(1, 2, 64, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention(q32, q32, q32, bq=128, bkv=64)
+    buf = torch.zeros(2 * 64 * 64 + 4, device=dev, dtype=torch.bfloat16)
+    qm = buf[4:4 + 2 * 64 * 64].view(1, 2, 64, 64)
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention(qm, qm, qm, bq=128, bkv=64)
+    for x in (q, q32, qm):
+        n0, ntc = flash_mod.launches, flash_mod.launches_tc
+        ops.attention(x, x, x)
+        assert (flash_mod.launches, flash_mod.launches_tc) == (n0 + 1, ntc)
+
+
+def _misaligned(g, dev, *shape):
+    """A bf16 tensor of ``shape``, contiguous, 8 bytes off a 16-byte boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = torch.randn(n + 4, generator=g, device=dev).bfloat16()
+    out = buf[4:].view(*shape)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["matmul", "grouped_matmul", "jacobi2d", "attention"])
+def test_gpu_ops_take_misaligned_and_transposed_operands(op):
+    """The library's public ops compute a misaligned bf16 operand (on the
+    CUDA cores: TMA cannot describe it) and a transposed one (copied to
+    contiguous) and match their plain versions on the card."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    if op == "matmul":
+        mod = matmul_mod
+        xm, ym = _misaligned(g, dev, 64, 64), _misaligned(g, dev, 64, 64)
+        xt = torch.randn(128, 96, generator=g, device=dev).bfloat16()
+        y = torch.randn(96, 64, generator=g, device=dev).bfloat16()
+        runs = [(lambda: ops.matmul(xm, ym), lambda: tref.matmul(xm, ym), 0),
+                (lambda: ops.matmul(xt.t(), xt), lambda: tref.matmul(xt.t(), xt), 1),
+                (lambda: ops.matmul(y.t().float(), y.float()),
+                 lambda: tref.matmul(y.t().float(), y.float()), 0)]
+    elif op == "grouped_matmul":
+        mod = gmm_mod
+        xm, wm = _misaligned(g, dev, 4, 32, 64), _misaligned(g, dev, 4, 64, 64)
+        w = torch.randn(4, 64, 128, generator=g, device=dev).bfloat16()
+        runs = [(lambda: ops.grouped_matmul(xm, wm), lambda: tref.grouped_matmul(xm, wm), 0),
+                (lambda: ops.grouped_matmul(w.transpose(1, 2), w),
+                 lambda: tref.grouped_matmul(w.transpose(1, 2), w), 1)]
+    elif op == "jacobi2d":
+        mod = stencil_mod
+        xm = _misaligned(g, dev, 100, 64)
+        x = torch.randn(64, 100, generator=g, device=dev)
+        runs = [(lambda: ops.jacobi2d(xm, 3), lambda: tref.jacobi2d(xm, 3), None),
+                (lambda: ops.jacobi2d(x.t(), 3), lambda: tref.jacobi2d(x.t(), 3), None)]
+    else:
+        mod = flash_mod
+        qm = _misaligned(g, dev, 1, 4, 96, 64)
+        qt = torch.randn(1, 96, 4, 64, generator=g, device=dev).bfloat16().transpose(1, 2)
+        runs = [(lambda: ops.attention(qm, qm, qm), lambda: tref.attention(qm, qm, qm), 0),
+                (lambda: ops.attention(qt, qt, qt), lambda: tref.attention(qt, qt, qt), 1)]
+    for run, plain, tc in runs:
+        n0, ntc = mod.launches, getattr(mod, "launches_tc", 0)
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        assert mod.launches > n0
+        if tc is not None:
+            assert mod.launches_tc == ntc + tc
+        scale = want.float().abs().max().item()
+        rel = 2e-2 if want.dtype == torch.bfloat16 else 1e-4
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert (got.float() - want.float()).abs().max().item() <= rel * max(scale, 1.0)
