@@ -11,10 +11,16 @@ without the final ok line):
                 parallel) and prints ptxas's summary; counts the wgmma
                 (HGMMA) and TMA-load (UTMALDG) instructions in the SASS of
                 matmul_pom, grouped_matmul and flash_attention and fails if
-                either is 0;
+                either is 0; prints the registers and spills of the f32 ring
+                (``strided_gemm_kernel``) in both libraries that include it
+                and of the decode kernels;
   3. kernels -- each LM kernel against its plain PyTorch version on the card:
-                the attention kernels at smollm's shapes and ragged ones
-                (flash in bf16 on every tensor-core tile too: a ragged Sq,
+                decode attention at smollm's decode shape (S 128, 1024 and
+                8192), granite's and zamba2's (S 1024), group 8 and ragged
+                ones, with rows at length 0 (must be 0), every split count
+                1-8 forced on three shapes, and a second run that must give
+                the same bits; flash attention at smollm's shapes and ragged ones
+                (in bf16 on every tensor-core tile too: a ragged Sq,
                 Sq < Skv, Sq > Skv with rows that see no key, group 4 and
                 1, non-causal, D 128, and D 32 on the CUDA cores),
                 grouped_matmul at granite_moe_1b's decode (cap 8) and forward
@@ -70,15 +76,19 @@ without the final ok line):
                 builders' default sizes (``default_cases()``: n 4096, the
                 stencils' 100 or 10 steps) through ``jitted()``, against the
                 same computations written directly in PyTorch on the card;
- 12. kernel library -- ``ops.matmul`` at 4096^3 (bf16 and f32), smollm's
-                FFN up-projection (2048 x 960 x 2560, bf16), a ragged
-                1000 x 520 x 3000 and once with ``schedule="naive"``;
-                ``ops.jacobi2d`` at 1024^2 and 4096^2 x 10 steps (f32),
-                1024^2 x 10 in bf16 and a ragged 1000 x 777 x 3; exactly one
-                launch a matmul (the four bf16 ones on the tensor cores, the
-                f32 one on the CUDA cores) and one a sweep; each result
-                against its plain version, every tensor-core tile against
-                it at the bf16 shapes, and ``ops.jacobi2d(A, 10)`` against the
+ 12. kernel library -- ``ops.matmul`` at 4096^3, smollm's FFN up-projection
+                (2048 x 960 x 2560) and a ragged 1000 x 520 x 3000, each in
+                bf16 and f32, 1000 x 520 x 3001 in f32, and once with
+                ``schedule="naive"``; ``ops.jacobi2d`` at 1024^2 and 4096^2
+                x 10 steps (f32), 1024^2 x 10 in bf16 and a ragged
+                1000 x 777 x 3; exactly one launch a matmul (the four bf16
+                ones on the tensor cores, the three f32 ones whose K and N
+                are multiples of 4 on the ring, N = 3001 on the CUDA-core
+                tiles) and one a sweep; each result against its plain
+                version, every tensor-core tile against it at the bf16
+                shapes, each ring result bit for bit against the CUDA-core
+                tile (128, 128, 16) and the contraction's strided kernel on
+                the same inputs, and ``ops.jacobi2d(A, 10)`` against the
                 compile path's jacobi2d program at 1024^2; then the
                 library's ops on a misaligned bf16 operand (CUDA cores) and
                 a transposed one (copied to contiguous), each against its
@@ -90,9 +100,13 @@ without the final ok line):
                 scan and the stencil; the port never calls them), with the
                 card's clocks, temperature and power draw sampled before and
                 after each group; the matmul, grouped-matmul and flash rows
-                name their route and tile (flash's CUDA-core route and the
-                contraction's table kernel timed beside them on the same
-                inputs).  One ``{"kernels": [...]}`` JSON line.
+                name their route and tile, read from the launch counts of
+                the timed calls (flash's CUDA-core route, the contraction's
+                table kernel and the f32 matmul's CUDA-core tile timed
+                beside them on the same inputs); decode at S 128 (the row),
+                1024 ragged and 8192, each split count 1-8 timed at S 128
+                and 8192, and the clusters the card holds at once.  One
+                ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
 the smollm forward, each family's serve and forward, the compile path as
 phases 8-11, the kernel library) and read just after; the counts in the
@@ -156,13 +170,17 @@ FAMILIES = {"granite_moe_1b": dict(serve=(8, 32, 32), forward=(4, 512), consiste
 KERNEL_MODULES = ("decode_attention", "flash_attention", "contraction", "probe",
                   "grouped_matmul", "ssm_scan", "matmul_pom", "stencil")
 # the kernels with a tensor-core and a CUDA-core route: their wrappers count
-# the tensor-core launches (launches_tc) beside all of them (launches)
+# the tensor-core launches (launches_tc) beside all of them (launches); the
+# matmul's f32 ring counts its own (launches_ring)
 ROUTED = ("grouped_matmul", "matmul_pom", "flash_attention")
 # the kernel library's matmul (M, K, N, dtype): the JAX autotune test's and
 # bench_kernels.py's 4096^3 in bf16 and f32, smollm_360m's FFN up-projection
 # at the forward (4 x 512 tokens, d_model 960 -> d_ff 2560) and a ragged one
+# in bf16 (the tensor cores) and f32 (the ring; N = 3001 the CUDA-core tiles)
 MATMUL_SHAPES = [(4096, 4096, 4096, torch.bfloat16), (4096, 4096, 4096, torch.float32),
-                 (FWD_B * FWD_S, 960, 2560, torch.bfloat16), (1000, 520, 3000, torch.bfloat16)]
+                 (FWD_B * FWD_S, 960, 2560, torch.bfloat16), (1000, 520, 3000, torch.bfloat16),
+                 (FWD_B * FWD_S, 960, 2560, torch.float32), (1000, 520, 3000, torch.float32),
+                 (1000, 520, 3001, torch.float32)]
 # the Jacobi-2D stencil (M, N, steps, dtype): the paper's Table VII size
 # (benchmarks/workloads.py, bench_stencils.py: 1024^2, 10 steps), 4096^2, the
 # same in bf16 and a ragged grid
@@ -197,6 +215,8 @@ def zero_counts() -> None:
         m.launches = 0
         if n in ROUTED:
             m.launches_tc = 0
+        if n == "matmul_pom":
+            m.launches_ring = 0
         if n == "contraction":
             m.launches_strided = 0
 
@@ -206,20 +226,30 @@ def read_counts() -> dict:
 
 
 def read_routes() -> dict:
-    """name -> {route: launches} of the ROUTED kernels."""
-    mods = _kernel_modules()
-    return {n: {"tensor_cores": mods[n].launches_tc,
-                "cuda_cores": mods[n].launches - mods[n].launches_tc} for n in ROUTED}
+    """name -> {route: launches} of the ROUTED kernels (the matmul's ring
+    apart from its CUDA-core tiles)."""
+    out = {}
+    for n, m in _kernel_modules().items():
+        if n in ROUTED:
+            ring = getattr(m, "launches_ring", 0)
+            out[n] = {"tensor_cores": m.launches_tc,
+                      "cuda_cores": m.launches - m.launches_tc - ring}
+            if n == "matmul_pom":
+                out[n]["ring"] = ring
+    return out
 
 
-def check_routes(label: str, name: str, tensor_cores: int, cuda_cores: int = 0) -> None:
+def check_routes(label: str, name: str, tensor_cores: int, cuda_cores: int = 0,
+                 ring: int = 0) -> None:
     """``name`` ran exactly so often on each route since the counts were
     last set to 0."""
     got = read_routes()[name]
+    want = {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores}
+    if name == "matmul_pom":
+        want["ring"] = ring
     print(f"{label}: {name} routes {got}")
-    if got != {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores}:
-        fail(f"{label}: {name} took routes {got}, expected {tensor_cores} on the tensor "
-             f"cores and {cuda_cores} on the CUDA cores")
+    if got != want:
+        fail(f"{label}: {name} took routes {got}, expected {want}")
 
 
 # --------------------------------------------------------------------------
@@ -265,6 +295,39 @@ def build_phase() -> None:
         print(f"sass {name}: {counts}")
         if not all(counts.values()):
             fail(f"{name}: the tensor-core route compiled without wgmma or TMA: {counts}")
+    # the f32 ring in both libraries that include it, and the decode kernels
+    ring = "strided_gemm_kernel"
+    for lib, entry in (("contraction", ring), ("matmul_pom", ring),
+                       ("decode_attention", "decode_kernel")):
+        found = ptxas_entries(_build.log_path(lib).read_text(), entry)
+        if not found:
+            fail(f"{lib}: ptxas compiled no {entry}")
+        regs = sorted({r for r, _ in found.values()})
+        spills = {n: sp for n, (_, sp) in found.items() if sp}
+        print(f"ptxas {lib} {entry}: {len(found)} kernels, registers {regs}, spill bytes "
+              + (", ".join(f"{n}: {sp}" for n, sp in spills.items()) if spills else "none"))
+        if len(found) <= 2:
+            for n, (r, sp) in found.items():
+                print(f"  {n}: {r} registers, {sp} bytes spilled")
+
+
+def ptxas_entries(log: str, entry: str) -> dict:
+    """mangled kernel name -> (registers, spill store + load bytes) of the
+    kernels of an nvcc ``-Xptxas -v`` log whose name holds ``entry``."""
+    import re
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None and entry in name:
+            out[name] = (int(m.group(1)), spill)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -284,30 +347,55 @@ def kernel_phase() -> dict:
     errs = {"decode_attention": 0.0, "flash_attention": 0.0}
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    # (B, Hq, Hkv, S, D, dtype): full-width smollm shapes first
-    decode_cases = [(8, 15, 5, 1024, 64, torch.bfloat16),
-                    (SERVE_B, 15, 5, SERVE_PROMPT + SERVE_GEN, 64, torch.bfloat16),
-                    (2, 4, 4, 200, 64, torch.float32),      # group 1, ragged S
-                    (2, 8, 2, 77, 32, torch.float32),       # group 4
-                    (3, 4, 1, 300, 128, torch.float32)]
-    for b, hq, hkv, s, d, dt in decode_cases:
+    # (B, Hq, Hkv, S, D, dtype, ragged length, a row at length 0, every
+    # split count 1-8): full-width smollm, granite and zamba2 shapes first
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import decode_attention as decode_mod
+    bf16 = torch.bfloat16
+    decode_cases = [(8, 15, 5, 1024, 64, bf16, True, False, False),
+                    (SERVE_B, 15, 5, SERVE_PROMPT + SERVE_GEN, 64, bf16, True, False, True),
+                    (8, 15, 5, 8192, 64, bf16, False, False, False),   # smollm, S 8192 full
+                    (8, 16, 8, 1024, 64, bf16, True, True, False),     # granite_moe_1b
+                    (8, 32, 32, 1024, 64, bf16, True, True, False),    # zamba2_1_2b
+                    (2, 16, 2, 1000, 64, bf16, True, True, True),      # group 8
+                    (2, 4, 4, 200, 64, torch.float32, True, False, False),   # group 1, ragged S
+                    (2, 8, 2, 77, 32, torch.float32, True, True, True),      # group 4
+                    (3, 4, 1, 300, 128, torch.float32, True, False, False)]
+    for b, hq, hkv, s, d, dt, ragged, zero, forced in decode_cases:
         q = _randn(g, b, hq, d, dtype=dt)
         k, v = _randn(g, b, hkv, s, d, dtype=dt), _randn(g, b, hkv, s, d, dtype=dt)
-        length = torch.randint(1, s + 1, (b,), generator=g, device="cuda", dtype=torch.int32)
+        length = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        if ragged:
+            length = torch.randint(1, s + 1, (b,), generator=g, device="cuda",
+                                   dtype=torch.int32)
+        if zero:
+            length[0] = 0
         want = ref.decode_attention(q, k, v, length=length)
-        for schedule in ("pom", "naive"):
-            got = ops.decode_attention(q, k, v, length=length, schedule=schedule)
+        sch = autotune.pom_decode_schedule(b * hkv, s, hq // hkv, d, q.element_size())
+        runs = [(f"{sc} (splits {sch.splits if sc == 'pom' else 1})", lambda sc=sc:
+                 ops.decode_attention(q, k, v, length=length, schedule=sc))
+                for sc in ("pom", "naive")]
+        if forced:
+            runs += [(f"splits {n}", lambda n=n: decode_mod.decode_attention(
+                q, k, v, length=length, splits=n)) for n in range(1, 9)]
+        for how, run in runs:
+            got = run()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            print(f"decode B{b} Hq{hq} Hkv{hkv} S{s} D{d} {str(dt)[6:]} {schedule}: "
+            print(f"decode B{b} Hq{hq} Hkv{hkv} S{s} D{d} {str(dt)[6:]} "
+                  f"{'ragged' if ragged else 'full'}{' +zero row' if zero else ''} {how}: "
                   f"max abs err {err:.3g}")
             if not err <= _tol(dt):
                 fail(f"decode_attention disagrees with its plain version: {err}")
+            if zero and not bool((got[0] == 0).all()):
+                fail("decode_attention: a row at length 0 is not 0")
             errs["decode_attention"] = max(errs["decode_attention"], err)
+            # the split merge runs in a fixed order: a second run, same bits
+            if how.startswith("pom") and not torch.equal(run(), got):
+                fail(f"decode_attention {how}: a second run on the same inputs gave other bits")
 
     # (B, Hq, Hkv, Sq, Skv, D, causal, dtype); bf16 at D 64 and 128 takes the
     # tensor cores (its tile is run directly too), D 32 and f32 the CUDA cores
-    bf16 = torch.bfloat16
     flash_cases = [(FWD_B, 15, 5, FWD_S, FWD_S, 64, True, bf16),       # smollm_360m's forward
                    (2, 32, 32, 1024, 1024, 64, True, bf16),         # zamba2_1_2b's forward
                    (4, 16, 8, 512, 512, 64, True, bf16),            # granite_moe_1b's forward
@@ -323,7 +411,6 @@ def kernel_phase() -> dict:
                    (1, 4, 1, 64, 200, 64, True, torch.float32),     # Sq < Skv suffix
                    (2, 8, 2, 130, 130, 32, True, torch.float32),    # group 4, ragged
                    (1, 4, 4, 96, 96, 128, True, torch.float32)]     # group 1
-    from repro_torch.kernels import autotune
     from repro_torch.kernels import flash_attention as flash_mod
     for b, hq, hkv, sq, skv, d, causal, dt in flash_cases:
         q = _randn(g, b, hq, sq, d, dtype=dt)
@@ -500,11 +587,13 @@ def serve_phase(model) -> dict:
     return {"serve": out, "launches": launches}
 
 
-def busy_share(fn, per: int, label: str, kernel: str) -> dict:
+def busy_share(fn, per: int, label: str, kernels) -> dict:
     """Wall time of ``fn`` (unprofiled) and the card's busy time over the
     same work (``torch.profiler``), both divided by ``per`` units: how far
-    the host holds the card back, and the device time of the port's
-    ``kernel``.  Returns {} when the profiler records no device activity."""
+    the host holds the card back, and the device time of each of the port's
+    ``kernels`` (names matched as substrings; one name or a tuple).  Returns
+    {} when the profiler records no device activity."""
+    kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -518,23 +607,23 @@ def busy_share(fn, per: int, label: str, kernel: str) -> dict:
     wall_ms = 1e3 * (time.perf_counter() - t0) / per
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
         print(f"{label} device busy time: not measured (the profiler saw no kernels)")
         return {}
     by_name = {}
-    for e in kernels:
+    for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + 1e-3 * e.time_range.elapsed_us() / per
     busy_ms = sum(by_name.values())
-    kernel_ms = sum(ms for name, ms in by_name.items() if kernel in name)
+    kernel_ms = {k: sum(ms for name, ms in by_name.items() if k in name) for k in kernels}
     print(f"{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"(share {busy_ms / wall_ms:.3f}), {len(kernels) / per:.0f} kernels; "
-          f"the port's {kernel} {kernel_ms:.4f} ms")
+          f"(share {busy_ms / wall_ms:.3f}), {len(events) / per:.0f} kernels; the port's "
+          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in kernel_ms.items()))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {ms:.4f} ms  {name[:100]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms, "kernels": len(kernels) / per,
-            f"{kernel}_ms": kernel_ms}
+            "device_busy_share": busy_ms / wall_ms, "kernels": len(events) / per,
+            **{f"{k}_ms": ms for k, ms in kernel_ms.items()}}
 
 
 # --------------------------------------------------------------------------
@@ -756,8 +845,10 @@ def family_phase(arch: str) -> dict:
     print(f"model {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"params {n_params}, {cfg.param_dtype}; init {time.perf_counter() - t0:.1f}s")
     fwd_per, dec_per = expected_launches(cfg)
-    # granite's grouped matmuls all take the tensor-core route (checked below)
+    # granite's grouped matmuls all take the tensor-core route (checked below);
+    # the decode step's profile also reads the decode attention kernel
     kernel = "gemm_kernel" if cfg.family == "moe" else "ssm_scan_kernel"
+    decode_kernels = (kernel, "decode_kernel") if dec_per.get("decode_attention") else kernel
     moe = cfg.family == "moe"
     v = cfg.vocab_size
     launches = {}
@@ -879,7 +970,7 @@ def family_phase(arch: str) -> dict:
         for t in range(n):
             decode_step(model, c, forced[:, t], torch.full((b,), t, dtype=torch.long,
                                                           device="cuda"))
-    out["decode_busy"] = busy_share(eight_steps, n, f"{arch} decode step", kernel)
+    out["decode_busy"] = busy_share(eight_steps, n, f"{arch} decode step", decode_kernels)
     out["forward_busy"] = busy_share(lambda: forward(model, tokens=tokens), 1,
                                      f"{arch} forward", kernel)
     del model, tokens, forced
@@ -1298,16 +1389,18 @@ def library_phase() -> dict:
     check_counts("kernel library", launches,
                  {"matmul_pom": len(mm_in),
                   "stencil": sum(steps for _, steps in jac_in) + 10})
-    bf16 = sum(x.dtype == torch.bfloat16 for x, _, _ in mm_in)
-    check_routes("kernel library", "matmul_pom", bf16, len(mm_in) - bf16)
+    routes = [autotune.matmul_route(x.shape[0], y.shape[1], x.shape[1], x.element_size())
+              for x, y, _ in mm_in]
+    check_routes("kernel library", "matmul_pom", routes.count(autotune.TENSOR_CORES),
+                 routes.count(autotune.CUDA_CORES), routes.count(autotune.RING))
 
     errs = {"matmul_pom": 0.0, "stencil": 0.0}
-    for (x, y, sch), got in zip(mm_in, mm_out):
+    for (x, y, sch), got, route in zip(mm_in, mm_out, routes):
         (m, k), n = x.shape, y.shape[1]
-        route = autotune.matmul_route(m, n, k, x.element_size())
         tc = route == autotune.TENSOR_CORES
         s = autotune.pom_matmul_schedule(m, n, k, x.element_size())
-        naive = autotune.MATMUL_TC_NAIVE if tc else autotune.MATMUL_NAIVE
+        naive = {autotune.TENSOR_CORES: autotune.MATMUL_TC_NAIVE,
+                 autotune.RING: autotune.MATMUL_RING_TILE}.get(route, autotune.MATMUL_NAIVE)
         tile = (s.bm, s.bn, s.bk) if sch == "pom" else naive
         want = ref.matmul(x, y).float()
         tol = MATMUL_RTOL[x.dtype] * want.abs().max().item()
@@ -1324,6 +1417,8 @@ def library_phase() -> dict:
             if out.shape != (m, n) or out.dtype != x.dtype or not err <= tol:
                 fail(f"matmul {m}x{k}x{n} disagrees with its plain version: {err}")
             errs["matmul_pom"] = max(errs["matmul_pom"], err)
+        if route == autotune.RING:
+            same_bits(f"matmul {m}x{k}x{n} f32", got, x, y)
         del runs
     for (x, steps), got in zip(jac_in, jac_out):
         want = ref.jacobi2d(x, steps)
@@ -1346,6 +1441,30 @@ def library_phase() -> dict:
     errs["misaligned_or_transposed"] = odd_operands(g)
     return {"errs": errs, "launches": launches, "wall_ms": wall * 1e3,
             "vs_compile_path_max_abs_err": err}
+
+
+def same_bits(label: str, ring: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> None:
+    """The ring's f32 product ``ring`` of x @ y has the bits of the CUDA-core
+    tile (128, 128, 16) and of the contraction's strided kernel (which adds
+    it to zeros) on the same inputs: each sums every output in k order in
+    one f32 FMA chain from 0."""
+    from repro_torch.kernels import contraction as cmod
+    from repro_torch.kernels import matmul_pom as mm_mod
+    from repro_torch.kernels.contraction import ContractionDesc
+    (m, k), n = x.shape, y.shape[1]
+    old = mm_mod.matmul(x, y, bm=128, bn=128, bk=16)
+    d = ContractionDesc((m, n), (k, 0), (0, 1), (n, 1), (k,), (1,), (n,), 0, 0, 0, m * k, k * n,
+                        m * n)
+    s0 = cmod.launches_strided
+    con = cmod.contraction(d, x.reshape(-1), y.reshape(-1), torch.zeros(m * n, device="cuda"))
+    torch.cuda.synchronize()
+    if cmod.launches_strided != s0 + 1:
+        fail(f"{label}: the contraction did not take its strided kernel")
+    eq_old, eq_con = torch.equal(ring, old), torch.equal(ring, con.view(m, n))
+    print(f"{label} ring: bit-equal to the CUDA-core tile (128, 128, 16) {eq_old}, to the "
+          f"contraction's strided kernel {eq_con}")
+    if not (eq_old and eq_con):
+        fail(f"{label}: the ring's bits differ from the CUDA-core tile or the contraction")
 
 
 def _misaligned(g, *shape):
@@ -1438,12 +1557,13 @@ def timed_route(mod, fn, **kw) -> tuple:
     """(``time_ms(fn)``, the route every launch of ``mod``'s kernel took in
     that run), read from the wrapper's counts."""
     from repro_torch.kernels import autotune
-    n0, ntc = mod.launches, mod.launches_tc
+    n0, ntc, nr = mod.launches, mod.launches_tc, getattr(mod, "launches_ring", 0)
     ms = time_ms(fn, **kw)
-    n, tc = mod.launches - n0, mod.launches_tc - ntc
-    if n == 0 or tc not in (0, n):
-        fail(f"{mod.__name__}: {tc} of {n} timed launches on the tensor cores")
-    return ms, (autotune.TENSOR_CORES if tc else autotune.CUDA_CORES)
+    n, tc, ring = mod.launches - n0, mod.launches_tc - ntc, getattr(mod, "launches_ring", 0) - nr
+    if n == 0 or tc not in (0, n) or ring not in (0, n):
+        fail(f"{mod.__name__}: of {n} timed launches {tc} on the tensor cores, {ring} on the "
+             "ring")
+    return ms, (autotune.TENSOR_CORES if tc else autotune.RING if ring else autotune.CUDA_CORES)
 
 
 def bound(byts: float, flops: float, dtype) -> tuple:
@@ -1465,36 +1585,57 @@ def numbers_phase(errs: dict, launches: dict) -> list:
     dt = torch.bfloat16
     rows = []
 
-    # decode at the serve's last step: cache S = prompt + gen, every row full
+    # decode at the serve's last step (cache S = prompt + gen, every row
+    # full: the row), at S 1024 with ragged lengths and at S 8192 full; each
+    # split count 1-8 timed beside the schedule's at S 128 and 8192
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import decode_attention as decode_mod
     b, hq, hkv, d = SERVE_B, 15, 5, 64
-    for s, tag in ((SERVE_PROMPT + SERVE_GEN, "main"), (1024, "S1024-ragged")):
+    dec = {}
+    for s, tag in ((SERVE_PROMPT + SERVE_GEN, "main"), (1024, "S1024-ragged"),
+                   (8192, "S8192")):
         q = _randn(g, b, hq, d, dtype=dt)
         k, v = _randn(g, b, hkv, s, d, dtype=dt), _randn(g, b, hkv, s, d, dtype=dt)
-        if tag == "main":
-            length = torch.full((b,), s, dtype=torch.int32, device="cuda")
-        else:
+        if tag == "S1024-ragged":
             length = torch.randint(1, s + 1, (b,), generator=g, device="cuda",
                                    dtype=torch.int32)
+        else:
+            length = torch.full((b,), s, dtype=torch.int32, device="cuda")
         mask = (torch.arange(s, device="cuda")[None, :] < length[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
         n_valid = int(length.sum())
         byts = 2 * n_valid * hkv * d * 2 + 2 * b * hq * d * 2 + 4 * b
         flops = 4.0 * n_valid * hq * d
         bms, by = bound(byts, flops, dt)
+        sch = autotune.pom_decode_schedule(b * hkv, s, hq // hkv, d, 2)
         ms = time_ms(lambda: ops.decode_attention(q, k, v, length=length))
-        plain_ms = time_ms(lambda: ref.decode_attention(q, k, v, length=length))
+        plain_ms = time_ms(lambda: ref.decode_attention(q, k, v, length=length), iters=20)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
                                                                 enable_gqa=True))
-        print(f"decode_attention {tag} B{b} S{s}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
-        if tag == "main":
-            rows.append({"name": "decode_attention", "route": "cuda",
-                         "source": "src/repro_torch/csrc/decode_attention.cu",
-                         "replaces": "src/repro/kernels/decode_attention.py:24",
-                         "launches": launches["decode_attention"],
-                         "max_abs_err": errs["decode_attention"], "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                         "library_ms": lib_ms})
+        print(f"decode_attention {tag} B{b} S{s} (splits {sch.splits}): {ms:.4f} ms "
+              f"({bms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+              f"bound {bms:.5f} ms ({by})")
+        dec[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib_ms, "splits": sch.splits,
+                    "shape": f"B {b}, Hq {hq}, Hkv {hkv}, S {s}, D {d}, bf16"}
+        if tag != "S1024-ragged":
+            forced = {n: time_ms(lambda n=n: decode_mod.decode_attention(
+                q, k, v, length=length, splits=n), iters=50) for n in range(1, 9)}
+            dec[tag]["splits_ms"] = forced
+            print(f"decode_attention {tag} by splits: "
+                  + ", ".join(f"{n}: {t:.4f} ms" for n, t in forced.items()))
+        del q, k, v, mask, q4
+    clusters = {n: decode_mod.max_active_clusters(d, hq // hkv, n, dt) for n in range(1, 9)}
+    print(f"decode_attention (bf16, D {d}, 3 heads a CTA): clusters the card holds at once, "
+          "by splits: " + ", ".join(f"{n}: {c}" for n, c in clusters.items()))
+    rows.append({"name": "decode_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/decode_attention.cu",
+                 "replaces": "src/repro/kernels/decode_attention.py:24",
+                 "launches": launches["decode_attention"],
+                 "max_abs_err": errs["decode_attention"], **dec["main"],
+                 "library": "scaled_dot_product_attention",
+                 "at_S1024_ragged": dec["S1024-ragged"], "at_S8192": dec["S8192"],
+                 "max_active_clusters": clusters})
 
     # flash at the forward's shape
     b, s = FWD_B, FWD_S
@@ -1503,7 +1644,6 @@ def numbers_phase(errs: dict, launches: dict) -> list:
     byts = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
     flops = 4.0 * d * b * hq * (s * (s + 1) // 2)
     bms, by = bound(byts, flops, dt)
-    from repro_torch.kernels import autotune
     from repro_torch.kernels import flash_attention as flash_mod
     sch = autotune.pom_attention_schedule(s, s, d, 2, True)
     ms, route = timed_route(flash_mod, lambda: ops.attention(q, k, v, causal=True))
@@ -1669,6 +1809,9 @@ def library_numbers_phase(errs: dict, launches: dict) -> list:
         s = autotune.pom_matmul_schedule(n, n, n, x.element_size())
         bms, by = bound(3 * n * n * x.element_size(), 2.0 * n ** 3, dt)
         ms, route = timed_route(mm_mod, lambda: ops.matmul(x, y), iters=20, warmup=2)
+        if route != s.route:
+            fail(f"matmul_pom {n}^3 {str(dt)[6:]}: ops.matmul took the {route} route, its "
+                 f"schedule {s.route}")
         plain_ms = time_ms(lambda: ref.matmul(x, y), iters=20, warmup=2)
         lib_ms = time_ms(lambda: torch.matmul(x, y), iters=20, warmup=2)
         print(f"matmul_pom {n}^3 {str(dt)[6:]} ({route}, tile {(s.bm, s.bn, s.bk)}): "
@@ -1677,6 +1820,11 @@ def library_numbers_phase(errs: dict, launches: dict) -> list:
         mm[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                   "library_ms": lib_ms, "shape": f"{n}^3 {str(dt)[6:]}",
                   "kernel_route": route, "tile": [s.bm, s.bn, s.bk]}
+        if route == autotune.RING:     # the CUDA-core tile it replaced, same inputs
+            old_ms = time_ms(lambda: mm_mod.matmul(x, y, bm=128, bn=128, bk=16), iters=20,
+                             warmup=2)
+            mm[dt]["cuda_core_tile_ms"] = old_ms
+            print(f"matmul_pom {n}^3 f32 on the CUDA-core tile (128, 128, 16): {old_ms:.4f} ms")
         del x, y
     rows = [{"name": "matmul_pom", "route": "cuda",
              "source": "src/repro_torch/csrc/matmul_pom.cu",

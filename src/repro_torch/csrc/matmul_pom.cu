@@ -11,8 +11,9 @@
 //
 // Bound: at the sizes it is called with (4096^3, smollm_360m's FFN
 // up-projection 2048 x 960 x 2560, a ragged 1000 x 520 x 3000) operations:
-// 2 M N K against M K + K N + M N elements moved.  Two routes, chosen by
-// shape (autotune.matmul_route), each with its own tiles:
+// 2 M N K against M K + K N + M N elements moved.  Three routes, chosen by
+// shape, dtype and alignment (autotune.matmul_route), each with its own
+// tiles:
 //
 // * tensor cores (`matmul_pom_tc_launch`): bf16 with K and N multiples of
 //   8, so that TMA can describe both operands.  The mainloop of
@@ -20,19 +21,29 @@
 //   f32 sums in registers, one rounding to bf16; the m, n and k tails are
 //   zero-filled by TMA.  Its tiles, (bm, bn, 64), are
 //   autotune.MATMUL_TC_TILES.
-// * CUDA cores (`matmul_pom_launch`): f32 (TF32 would break its 1e-4
-//   tolerance) and bf16 shapes TMA cannot describe (k = 70).  Every edge is
-//   masked, so any shape runs.  Each of the 256 threads (a 16 x 16 grid)
-//   owns a (bm/16) x (bn/16) block of sums in registers, read from
-//   shared-memory tiles staged bk deep, so a k step costs bm/16 + bn/64
-//   shared loads (x scalars, y as float4 in runs of 256 bytes a half-warp)
-//   per (bm/16)(bn/16) fused multiply-adds, and the next step's x and y
-//   elements are loaded from device memory into registers while the
-//   current step computes.  The x tile is kept row-major with its k rows
-//   padded by one, so both the coalesced stores (consecutive threads walk k
-//   along a row of x) and the reads (two rows per warp) are free of bank
-//   conflicts.  The tiles the schedule may pick are autotune.MATMUL_TILES;
-//   the wrapper rejects any other.
+// * the f32 ring (`matmul_pom_ring_launch`): f32 with K and N multiples of
+//   4 and 16-byte aligned x and y.  The mainloop of strided_gemm.cuh, which
+//   the contraction's affine GEMM statements run too: a four-stage
+//   shared-memory ring of 16-deep tiles (Y by 16-byte cp.async copies, X by
+//   16-byte register loads stored transposed), one barrier a k step, one
+//   tile (128, 128, 16) (autotune.MATMUL_RING_TILE).  TF32 would break the
+//   1e-4 tolerance, so the tensor cores stay out.
+// * CUDA cores (`matmul_pom_launch`): every other f32 shape or pointer and
+//   the bf16 shapes TMA cannot describe (k = 70).  Every edge is masked, so
+//   any shape runs.  Each of the 256 threads (a 16 x 16 grid) owns a
+//   (bm/16) x (bn/16) block of sums in registers, read from shared-memory
+//   tiles staged bk deep, so a k step costs bm/16 + bn/64 shared loads (x
+//   scalars, y as float4 in runs of 256 bytes a half-warp) per (bm/16)(bn/16)
+//   fused multiply-adds, and the next step's x and y elements are loaded
+//   from device memory into registers while the current step computes.  The
+//   x tile is kept row-major with its k rows padded by one, so both the
+//   coalesced stores (consecutive threads walk k along a row of x) and the
+//   reads (two rows per warp) are free of bank conflicts.  The tiles the
+//   schedule may pick are autotune.MATMUL_TILES; the wrapper rejects any
+//   other.
+//
+// The ring and the CUDA-core tiles sum each output in k order into one f32
+// register (fmaf) from 0, so on a shape both take they give the same bits.
 //
 // Layouts (all contiguous, row-major): x (M, K), y (K, N), out (M, N) in
 // x's dtype (float32 or bfloat16; y of the same dtype).
@@ -40,6 +51,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper_gemm.cuh"
+#include "strided_gemm.cuh"
 
 namespace {
 
@@ -221,4 +233,24 @@ extern "C" int matmul_pom_launch(const void* x, const void* y, void* out, int m,
 extern "C" int matmul_pom_tc_launch(const void* x, const void* y, void* out, int m, int n, int k,
                                     int bm, int bn, int bk, void* stream) {
   return (int)dispatch_tc(x, y, out, m, n, k, bm, bn, bk, static_cast<cudaStream_t>(stream));
+}
+
+// f32 on the ring of strided_gemm.cuh: k % 4 == 0, n % 4 == 0, x and y
+// 16-byte aligned.  Returns cudaGetLastError() after the launch (0 on
+// success); cudaErrorInvalidValue for a shape or pointer the route does not
+// take.
+extern "C" int matmul_pom_ring_launch(const void* x, const void* y, void* out, int m, int n,
+                                      int k, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  sgemm::StridedGemm g{};
+  g.M = m;
+  g.N = n;
+  g.K = k;
+  g.sxm = k;
+  g.sxk = 1;
+  g.syk = n;
+  g.syn = 1;
+  g.som = n;
+  g.son = 1;
+  return (int)sgemm::launch<false>(x, y, out, g, 1, static_cast<cudaStream_t>(stream));
 }

@@ -9,15 +9,21 @@ are compiled for.  Each schedule's docstring says how it breaks ties in the
 bound (fewer bytes or fewer sequential steps first, the smaller footprint
 last).
 
-The matmul, the grouped matmul and flash attention have two routes each,
-and a pure function of the shape, the dtype and the operands' alignment
-picks one before any tile is scored (``matmul_route``, ``gmm_route``,
-``attention_route``): the tensor cores (TMA-fed stages and wgmma:
-``csrc/hopper_gemm.cuh``, the tensor-core kernel of
+The grouped matmul and flash attention have two routes each, the matmul
+three, and a pure function of the shape, the dtype and the operands'
+alignment picks one before any tile is scored (``matmul_route``,
+``gmm_route``, ``attention_route``): the tensor cores (TMA-fed stages and
+wgmma: ``csrc/hopper_gemm.cuh``, the tensor-core kernel of
 ``csrc/flash_attention.cu``) where TMA can describe the operands (bf16,
-16-byte row strides, 16-byte aligned base pointers), the CUDA-core kernels
-otherwise.  Each schedule takes the same ``aligned`` flag, so the tile it
-returns always belongs to the route that will run.
+16-byte row strides, 16-byte aligned base pointers); for the f32 matmul the
+contraction's shared-memory ring (``csrc/strided_gemm.cuh``) where its
+16-byte copies can stage both operands; the CUDA-core kernels otherwise.
+Each schedule takes the same ``aligned`` flag, so the tile it returns always
+belongs to the route that will run.
+
+Decode attention has no tile to choose: ``pom_decode_schedule`` picks how
+many CTAs split each (batch, kv head)'s cache and how many query heads a
+CTA serves.
 """
 from __future__ import annotations
 
@@ -26,11 +32,19 @@ from dataclasses import dataclass
 
 from repro_torch.core.cost_model import H100, HopperModel, HopperSpec, RooflineTerms
 
-# block sizes compiled into csrc/flash_attention.cu and csrc/decode_attention.cu
+# block sizes compiled into csrc/flash_attention.cu; the head dims both
+# attention kernels are compiled for
 FLASH_BQ = (32, 64)
 FLASH_BKV = (32, 64, 128)
-DECODE_BKV = (32, 64, 128, 256)
 HEAD_DIMS = (32, 64, 128)
+# csrc/decode_attention.cu: threads a CTA, the most CTAs that split one
+# (batch, kv head) (a cluster: 8 is the portable cluster size), the most
+# query heads a CTA serves (a template parameter), and the row steps of a
+# warp's pass for up to 3 heads (2 above)
+DECODE_THREADS = 256
+DECODE_MAX_SPLITS = 8
+DECODE_MAX_HEADS = 8
+DECODE_UNROLL = 4
 # tile heights compiled into csrc/grouped_matmul.cu; every tile is GMM_BN wide
 GMM_BM = (8, 32, 64, 128)
 GMM_BN = 64
@@ -43,8 +57,11 @@ SCAN_NT = 32
 # without spilling registers), and the fixed tile of ``schedule="naive"``
 MATMUL_TILES = ((64, 64, 32), (64, 128, 32), (128, 64, 32), (128, 128, 16))
 MATMUL_NAIVE = (128, 128, 16)
-# the two routes of the matmul and the grouped matmul
-TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+# the routes of the matmul and the grouped matmul (the ring: the matmul's f32
+# route on csrc/strided_gemm.cuh, with its one tile)
+TENSOR_CORES, CUDA_CORES, RING = "tensor_cores", "cuda_cores", "ring"
+MATMUL_RING_TILE = (128, 128, 16)
+RING_STAGES = 4
 # (bm, bn, bk) tiles of the tensor-core route (csrc/hopper_gemm.cuh: bm/64
 # consumer warpgroups, bk the 64-deep stage), as instantiated by the TILE(...)
 # lines of csrc/matmul_pom.cu and csrc/grouped_matmul.cu, and the fixed tiles
@@ -84,20 +101,35 @@ def flash_tc_smem_bytes(bq: int, bkv: int, d: int) -> int:
     return 1024 + bq * d * 2 + FLASH_TC_STAGES * 2 * bkv * d * 2 + 8 * (2 * FLASH_TC_STAGES + 1)
 
 
-def decode_smem_bytes(group: int, d: int, bkv: int) -> int:
-    """Dynamic shared memory of one decode-attention block (f32): q, acc,
-    p, the softmax state and the staged K (padded) and V tiles."""
-    return 4 * (2 * group * d + group * bkv + 3 * group + bkv * (d + 1) + bkv * d)
+def decode_smem_bytes(heads: int, d: int) -> int:
+    """Static shared memory of one decode-attention CTA serving ``heads``
+    query heads (f32): each warp's partial acc, max and sum per head, and
+    the CTA's merged max and sum per head (its merged acc reuses warp 0's)."""
+    warps = DECODE_THREADS // 32
+    return 4 * (warps * heads * d + 2 * warps * heads + 2 * heads)
+
+
+def ring_smem_bytes() -> int:
+    """Dynamic shared memory of one block of the f32 ring
+    (``csrc/strided_gemm.cuh``): every stage's X and Y tile, 16 k rows of
+    128 floats padded to 132."""
+    bm, _, bk = MATMUL_RING_TILE
+    return RING_STAGES * 2 * bk * (bm + 4) * 4
 
 
 def matmul_route(m: int, n: int, k: int, dtype_bytes: int, aligned: bool = True) -> str:
-    """The route of an (m, k) @ (k, n) matmul: the tensor cores where TMA
-    can describe both operands (bf16, every row stride a multiple of 16
-    bytes: k and n multiples of 8, nothing empty, and both base pointers
-    16-byte ``aligned``), the CUDA cores for every other shape or pointer and
-    for f32 (TF32 would break its 1e-4 tolerance)."""
-    if aligned and dtype_bytes == 2 and min(m, n, k) > 0 and k % 8 == 0 and n % 8 == 0:
-        return TENSOR_CORES
+    """The route of an (m, k) @ (k, n) matmul, nothing empty and both base
+    pointers 16-byte ``aligned``: the tensor cores where TMA can describe
+    both operands (bf16, every row stride a multiple of 16 bytes: k and n
+    multiples of 8); the ring for f32 whose rows its 16-byte copies can
+    stage (k and n multiples of 4); the CUDA cores for every other shape or
+    pointer (TF32 would break the f32 tolerance of 1e-4, so f32 never takes
+    the tensor cores)."""
+    if aligned and min(m, n, k) > 0:
+        if dtype_bytes == 2 and k % 8 == 0 and n % 8 == 0:
+            return TENSOR_CORES
+        if dtype_bytes == 4 and k % 4 == 0 and n % 4 == 0:
+            return RING
     return CUDA_CORES
 
 
@@ -167,8 +199,8 @@ def pom_matmul_schedule(m: int, n: int, k: int, dtype_bytes: int = 2,
                         spec: HopperSpec = H100, *, aligned: bool = True) -> MatmulSchedule:
     """Tile (bm, bn, bk) for ``csrc/matmul_pom.cu`` (one block per (bm, bn)
     tile of the output, a k loop of bk-deep steps), from the tiles of the
-    route ``matmul_route`` picks (with ``aligned``): ``MATMUL_TC_TILES`` or
-    ``MATMUL_TILES``.
+    route ``matmul_route`` picks (with ``aligned``): ``MATMUL_TC_TILES``,
+    the ring's one ``MATMUL_RING_TILE`` or ``MATMUL_TILES``.
 
     Device-memory traffic: reads = m*k*ceil(n/bn) + k*n*ceil(m/bm), write
     m*n.  The 2*m*n*k operations (padded to whole tiles on the tensor
@@ -181,9 +213,11 @@ def pom_matmul_schedule(m: int, n: int, k: int, dtype_bytes: int = 2,
     model = HopperModel(spec)
     route = matmul_route(m, n, k, dtype_bytes, aligned)
     tc = route == TENSOR_CORES
+    tiles = {TENSOR_CORES: MATMUL_TC_TILES, RING: (MATMUL_RING_TILE,)}.get(route, MATMUL_TILES)
     best, best_key = None, None
-    for bm, bn, bk in MATMUL_TC_TILES if tc else MATMUL_TILES:
-        smem = tc_smem_bytes(bm, bn, bk) if tc else matmul_smem_bytes(bm, bn, bk)
+    for bm, bn, bk in tiles:
+        smem = (tc_smem_bytes(bm, bn, bk) if tc else
+                ring_smem_bytes() if route == RING else matmul_smem_bytes(bm, bn, bk))
         if smem > spec.smem_bytes:
             continue
         mt, nt = -(-m // bm), -(-n // bn)
@@ -258,34 +292,51 @@ def pom_attention_schedule(sq: int, skv: int, d: int, dtype_bytes: int = 2,
 
 @dataclass(frozen=True)
 class DecodeSchedule:
-    bkv: int
+    splits: int
+    heads: int
     terms: RooflineTerms
     smem_bytes: int
 
 
+def decode_heads_per_cta(group: int) -> int:
+    """Query heads a decode CTA serves: the largest divisor of ``group`` up
+    to ``DECODE_MAX_HEADS`` (the whole group for the models' groups 1-8; a
+    group of 9 is served 3 heads at a time, each CTA reading its kv head's
+    cache)."""
+    return max(h for h in range(1, min(group, DECODE_MAX_HEADS) + 1) if group % h == 0)
+
+
+def decode_rows_per_pass(d: int, dtype_bytes: int, heads: int) -> int:
+    """Cache rows one decode CTA reads in one pass of its loop: every warp
+    takes ``DECODE_UNROLL`` row steps (2 above 3 heads), and a row step of
+    a warp covers 32 lanes x 16 bytes of rows."""
+    unroll = DECODE_UNROLL if heads <= 3 else 2
+    return DECODE_THREADS // 32 * (512 // (d * dtype_bytes)) * unroll
+
+
 @functools.lru_cache(maxsize=4096)
-def pom_decode_schedule(skv: int, d: int, group: int, dtype_bytes: int = 2,
+def pom_decode_schedule(bh: int, s: int, group: int, d: int, dtype_bytes: int = 2,
                         spec: HopperSpec = H100) -> DecodeSchedule:
-    """KV tile length for ``csrc/decode_attention.cu`` (one block per
-    (batch, kv head), serving ``group`` query heads).  Every tile length
-    moves the same bytes, so the search settles on the fewest tile steps
-    whose footprint fits."""
-    model = HopperModel(spec)
-    best, best_key = None, None
-    for bkv in DECODE_BKV:
-        smem = decode_smem_bytes(group, d, bkv)
-        if smem > spec.smem_bytes:
-            continue
-        flops = 4.0 * group * skv * d
-        byts = (2 * skv * d + 2 * group * d) * dtype_bytes
-        terms = model.kernel_terms(flops, byts, tensor_cores=False)
-        key = (terms.bound_s, -(-skv // bkv), smem)
-        if best is None or key < best_key:
-            best, best_key = DecodeSchedule(bkv, terms, smem), key
-    if best is None:
-        raise ValueError(f"decode_attention: group {group} x head_dim {d} does not fit "
-                         f"in {spec.smem_bytes} bytes of shared memory")
-    return best
+    """How ``csrc/decode_attention.cu`` splits the work of ``bh`` = B x Hkv
+    kv heads with a cache of ``s`` positions and ``group`` query heads each.
+
+    Each (batch, kv head, head chunk) gets ``splits`` CTAs, one cluster,
+    that share its valid prefix.  Every CTA count moves the same bytes, so
+    the choice is parallelism: the fewest splits that put a CTA on every SM
+    (one wave), at most ``DECODE_MAX_SPLITS`` (the portable cluster size)
+    and at most one split per pass of rows at full length (so every split
+    has rows when the cache is full).  The grid depends on shapes only,
+    never on the lengths."""
+    heads = decode_heads_per_cta(group)
+    chunks = group // heads
+    units = bh * chunks
+    useful = -(-s // decode_rows_per_pass(d, dtype_bytes, heads))
+    want = -(-spec.num_sms // max(units, 1))
+    splits = max(1, min(DECODE_MAX_SPLITS, useful, want))
+    flops = 4.0 * bh * group * s * d
+    byts = bh * (2 * s * d * chunks + 2 * group * d) * dtype_bytes
+    terms = _terms(HopperModel(spec), flops, byts, units * splits, False)
+    return DecodeSchedule(splits, heads, terms, decode_smem_bytes(heads, d))
 
 
 @dataclass(frozen=True)

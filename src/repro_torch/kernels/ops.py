@@ -4,19 +4,21 @@ Every op but ``jacobi2d`` (which has no schedule, as in the JAX package)
 takes ``schedule='pom' | 'naive'`` (POM-DSE block sizes from ``autotune``
 vs fixed defaults).  There is no ``impl`` and no ``interpret``:
 the device of the tensors decides.  A CUDA tensor goes to the hand-written
-kernel, a CPU tensor to its plain PyTorch version.  ``matmul``,
-``grouped_matmul`` and ``attention`` have two kernels each; the pure
-functions ``autotune.matmul_route`` / ``gmm_route`` / ``attention_route``
-pick one from the shape, the dtype and whether every operand is 16-byte
-aligned (the tensor cores for bf16 that TMA can describe, the CUDA cores
-otherwise), and the schedule, given the same flag, then picks a tile of
-that route.
+kernel, a CPU tensor to its plain PyTorch version.  ``grouped_matmul`` and
+``attention`` have two kernels each, ``matmul`` three; the pure functions
+``autotune.matmul_route`` / ``gmm_route`` / ``attention_route`` pick one
+from the shape, the dtype and whether every operand is 16-byte aligned (the
+tensor cores for bf16 that TMA can describe, the f32 ring for f32 matmuls
+its 16-byte copies can stage, the CUDA cores otherwise), and the schedule,
+given the same flag, then picks a tile of that route.
 
 Every op passes ``.contiguous()`` of its operands to the kernel wrappers
 (a copy only for a non-contiguous view, e.g. ``matmul(x.t(), y)``), since
 the kernels take row-major contiguous tensors; the wrappers themselves
 still raise on a non-contiguous tensor, and on a tensor-core tile for an
-operand TMA cannot describe.  So an op computes every input its plain
+operand TMA cannot describe.  ``decode_attention`` copies an operand that is
+not 16-byte aligned (its kernel loads 16 bytes a lane; the models' caches
+always are).  So an op computes every input its plain
 version computes.  Inside ``plain_versions()`` every op takes the plain
 version on any device: that is how a model is run on the card as the
 reference its kernels are held to.
@@ -24,6 +26,8 @@ reference its kernels are held to.
 from __future__ import annotations
 
 import contextlib
+
+import torch
 
 from . import ref
 from .autotune import (TENSOR_CORES, pom_attention_schedule, pom_decode_schedule,
@@ -70,7 +74,7 @@ def matmul(x, y, *, schedule: str = "pom"):
         return _matmul_cuda(x, y)          # the fixed tile of the route
     s = pom_matmul_schedule(x.shape[0], y.shape[1], x.shape[1], x.element_size(),
                             aligned=_aligned(x, y))
-    return _matmul_cuda(x, y, bm=s.bm, bn=s.bn, bk=s.bk)
+    return _matmul_cuda(x, y, bm=s.bm, bn=s.bn, bk=s.bk, route=s.route)
 
 
 def jacobi2d(x, steps: int = 1):
@@ -98,13 +102,13 @@ def decode_attention(q, k, v, *, length=None, schedule: str = "pom"):
     _check(schedule)
     if _plain:
         return ref.decode_attention(q, k, v, length=length)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
+    (b, hq, d), (hkv, s) = q.shape, k.shape[1:3]
+    splits = 1
     if schedule == "pom":
-        bkv = pom_decode_schedule(k.shape[2], q.shape[2], q.shape[1] // k.shape[1],
-                                  q.element_size()).bkv
-    else:
-        bkv = 64
-    return _decode_cuda(q, k, v, length=length, bkv=bkv)
+        splits = pom_decode_schedule(b * hkv, s, hq // hkv, d, q.element_size()).splits
+    return _decode_cuda(q, k, v, length=length, splits=splits)
 
 
 def grouped_matmul(x, w, *, schedule: str = "pom"):

@@ -136,6 +136,71 @@ def test_decode_length_zero_is_zero():
     assert torch.all(out[0] == 0) and torch.isfinite(out).all()
 
 
+def _split_decode(q, k, v, length, splits):
+    """The split-KV kernel's algebra in plain PyTorch (f32): for each batch
+    row, CTA r of ``splits`` takes [r c, min((r + 1) c, length)) of the valid
+    prefix (c = ceil(length / splits)) and keeps (m, l, acc) of its slice
+    (m = -inf, l = 0, acc = 0 when the slice is empty); the partials merge
+    in split order, each weighted by exp(m_r - max m).  A row with no valid
+    key gives 0."""
+    import math
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    kr = k.float().repeat_interleave(hq // hkv, dim=1)
+    vr = v.float().repeat_interleave(hq // hkv, dim=1)
+    scores = torch.einsum("bhd,bhkd->bhk", q.float(), kr) / math.sqrt(d)
+    out = torch.zeros(b, hq, d)
+    for bi in range(b):
+        n = min(max(int(length[bi]), 0), s)
+        c = -(-n // splits)
+        ms, ls, accs = [], [], []
+        for r in range(splits):
+            lo = min(r * c, n)
+            hi = min(lo + c, n)
+            sc = scores[bi, :, lo:hi]
+            if hi > lo:
+                m = sc.max(-1).values
+                p = torch.exp(sc - m[:, None])
+                ms.append(m)
+                ls.append(p.sum(-1))
+                accs.append(torch.einsum("hk,hkd->hd", p, vr[bi, :, lo:hi]))
+            else:
+                ms.append(torch.full((hq,), -math.inf))
+                ls.append(torch.zeros(hq))
+                accs.append(torch.zeros(hq, d))
+        mx = torch.stack(ms).max(0).values
+        a, tot = torch.zeros(hq, d), torch.zeros(hq)
+        for m, l, acc in zip(ms, ls, accs):          # in split order
+            w = torch.where(m == -math.inf, torch.zeros(hq), torch.exp(m - mx))
+            a = a + acc * w[:, None]
+            tot = tot + l * w
+        out[bi] = torch.where(tot[:, None] > 0, a / tot.clamp_min(1e-30)[:, None], 0.0)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_split_decode_combine_matches_pallas(splits, dtype):
+    """Merging per-split (max, sum, acc) partials in split order gives the
+    TPU kernel's result for every split count, with ragged lengths whose
+    short rows leave splits empty (length 3 at 8 splits fills 3); at length
+    0 the port's 0 (the Pallas kernel returns the mean of V there)."""
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention import decode_attention
+    rng = np.random.default_rng(100 + splits)
+    b, hq, hkv, s, d = 4, 6, 2, 128, 32
+    q, tq = _pair(rng.normal(size=(b, hq, d)).astype(np.float32), dtype)
+    k, tk = _pair(rng.normal(size=(b, hkv, s, d)).astype(np.float32), dtype)
+    v, tv = _pair(rng.normal(size=(b, hkv, s, d)).astype(np.float32), dtype)
+    length = np.array([0, 3, 77, 128], np.int32)
+    want = decode_attention(q, k, v, length=jnp.asarray(length), bkv=64, interpret=True)
+    got = _split_decode(tq, tk, tv, torch.from_numpy(length), splits)
+    assert got.dtype == tq.dtype
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(got)[1:], _np(want)[1:], **tol)
+    assert torch.all(got[0] == 0)
+
+
 def test_cpu_path_does_not_count_launches():
     before = (decode_mod.launches, flash_mod.launches)
     q = torch.zeros(1, 2, 32)
@@ -409,6 +474,9 @@ def test_pom_matmul_schedule_returns_kernel_tiles(m, n, k, xb):
     if s.route == autotune.TENSOR_CORES:
         assert (s.bm, s.bn, s.bk) in autotune.MATMUL_TC_TILES
         assert s.smem_bytes == autotune.tc_smem_bytes(s.bm, s.bn, s.bk) <= H100.smem_bytes
+    elif s.route == autotune.RING:
+        assert (s.bm, s.bn, s.bk) == autotune.MATMUL_RING_TILE
+        assert s.smem_bytes == autotune.ring_smem_bytes() == 4 * 2 * 16 * 132 * 4
     else:
         assert (s.bm, s.bn, s.bk) in autotune.MATMUL_TILES
         assert s.smem_bytes == autotune.matmul_smem_bytes(s.bm, s.bn, s.bk) <= H100.smem_bytes
@@ -450,19 +518,56 @@ def test_every_flash_block_size_fits(d):
 
 
 def test_decode_block_sizes_that_fit():
-    """Every head_dim has a decode tile that fits; the largest tile at
-    head_dim 128 does not, and the search never picks it."""
+    """Every head_dim and every number of heads a CTA serves (1-8) fits the
+    48 KB of static shared memory; a group above 8 is served in chunks of a
+    divisor of it (starcoder2_7b's 9 in threes), never more than 8 a CTA."""
     for d in autotune.HEAD_DIMS:
-        assert autotune.decode_smem_bytes(8, d, autotune.DECODE_BKV[0]) <= H100.smem_bytes
-    assert autotune.decode_smem_bytes(1, 128, 256) > H100.smem_bytes
-    assert autotune.pom_decode_schedule(4096, 128, 1).bkv < 256
+        for heads in range(1, autotune.DECODE_MAX_HEADS + 1):
+            assert autotune.decode_smem_bytes(heads, d) <= 48 * 1024
+    assert autotune.decode_smem_bytes(8, 128) == 4 * (8 * 8 * 128 + 2 * 8 * 8 + 2 * 8)
+    for group in range(1, 17):
+        heads = autotune.decode_heads_per_cta(group)
+        assert 1 <= heads <= autotune.DECODE_MAX_HEADS and group % heads == 0
+        assert heads == group or group > autotune.DECODE_MAX_HEADS
+    assert autotune.decode_heads_per_cta(9) == 3
+    assert autotune.pom_decode_schedule(8 * 4, 4096, 9, 128, 2).heads == 3
 
 
 def test_pom_decode_schedule_smollm_shape():
-    s = autotune.pom_decode_schedule(1024, 64, 3, 2)
-    assert s.bkv in autotune.DECODE_BKV
-    assert s.smem_bytes == autotune.decode_smem_bytes(3, 64, s.bkv) <= H100.smem_bytes
+    """smollm_360m's decode at S 1024 (B 8, Hkv 5, group 3, D 64, bf16):
+    the 40 (batch, kv head) pairs split four ways fill the 132 SMs; bytes
+    bound the kernel."""
+    s = autotune.pom_decode_schedule(8 * 5, 1024, 3, 64, 2)
+    assert (s.splits, s.heads) == (4, 3)
+    assert s.smem_bytes == autotune.decode_smem_bytes(3, 64) <= 48 * 1024
     assert s.terms.dominant == "memory"
+
+
+# (B x Hkv, group, D, dtype bytes): smollm_360m's, granite_moe_1b's and
+# zamba2_1_2b's decode at batch 8, group 8, starcoder2_7b's group 9 (in
+# threes), f32 at D 32
+DECODE_SHAPES = [(8 * 5, 3, 64, 2), (8 * 8, 2, 64, 2), (8 * 32, 1, 64, 2), (2 * 1, 8, 128, 2),
+                 (8 * 4, 9, 128, 2), (3 * 2, 2, 32, 4)]
+
+
+@pytest.mark.parametrize("s", [1, 7, 33, 128, 1024, 8192])
+@pytest.mark.parametrize("bh,group,d,xb", DECODE_SHAPES)
+def test_decode_splits_schedule(bh, group, d, xb, s):
+    """1 <= splits <= 8; at full length every split of the prefix has rows
+    (CTA r of n takes [r c, min((r + 1) c, S)), c = ceil(S / n)); a split
+    is never shorter than one pass of the CTA's rows; and wherever a pass a
+    split allows, the splits put a CTA on every one of the 132 SMs."""
+    sc = autotune.pom_decode_schedule(bh, s, group, d, xb)
+    assert 1 <= sc.splits <= autotune.DECODE_MAX_SPLITS
+    assert sc.heads == autotune.decode_heads_per_cta(group)
+    c = -(-s // sc.splits)
+    assert all(r * c < s for r in range(sc.splits))
+    rows = autotune.decode_rows_per_pass(d, xb, sc.heads)
+    assert sc.splits == 1 or s > (sc.splits - 1) * rows
+    ctas = bh * (group // sc.heads) * sc.splits
+    if s >= autotune.DECODE_MAX_SPLITS * rows:
+        assert ctas >= H100.num_sms or sc.splits == autotune.DECODE_MAX_SPLITS
+        assert ctas < H100.num_sms + bh * (group // sc.heads) or sc.splits == 1
 
 
 def test_cpu_path_takes_any_head_dim():
@@ -522,16 +627,26 @@ def test_pom_gmm_schedule_follows_cap():
 
 # (M, N, K, bytes, route): 4096^3, smollm's FFN and the ragged library shape
 # in bf16 on the tensor cores; K = 70, N = 1, f32 and empty on the CUDA cores
+# in bf16 on the tensor cores; f32 with K and N multiples of 4 (4096^3,
+# smollm's FFN, the ragged library shape, one row) on the ring; K = 70, N = 1,
+# f32 with K or N off a multiple of 4 and empty shapes on the CUDA cores
 MATMUL_ROUTES = [(4096, 4096, 4096, 2, "tensor_cores"), (2048, 2560, 960, 2, "tensor_cores"),
                  (1000, 3000, 520, 2, "tensor_cores"), (1, 8, 8, 2, "tensor_cores"),
                  (130, 200, 70, 2, "cuda_cores"), (7, 300, 1, 2, "cuda_cores"),
-                 (64, 1, 64, 2, "cuda_cores"), (4096, 4096, 4096, 4, "cuda_cores"),
-                 (0, 8, 8, 2, "cuda_cores"), (8, 8, 0, 2, "cuda_cores")]
+                 (64, 1, 64, 2, "cuda_cores"), (4096, 4096, 4096, 4, "ring"),
+                 (2048, 2560, 960, 4, "ring"), (1000, 3000, 520, 4, "ring"), (1, 4, 4, 4, "ring"),
+                 (1000, 3001, 520, 4, "cuda_cores"), (4096, 4096, 4095, 4, "cuda_cores"),
+                 (4096, 4097, 4096, 4, "cuda_cores"), (130, 200, 70, 4, "cuda_cores"),
+                 (0, 8, 8, 2, "cuda_cores"), (8, 8, 0, 2, "cuda_cores"), (8, 8, 0, 4, "cuda_cores")]
 
 
 @pytest.mark.parametrize("m,n,k,xb,route", MATMUL_ROUTES)
 def test_matmul_route(m, n, k, xb, route):
+    """The route of a shape with aligned operands; a misaligned x or y
+    takes the CUDA cores (neither TMA nor the ring's 16-byte copies can
+    stage it)."""
     assert autotune.matmul_route(m, n, k, xb) == route
+    assert autotune.matmul_route(m, n, k, xb, aligned=False) == autotune.CUDA_CORES
 
 
 # (E, cap, d, f, bytes, route): granite's decode (wi/wg, wo) and forward
@@ -619,13 +734,14 @@ def test_cpu_path_takes_any_tile_or_route():
     """On the CPU the wrappers return the plain version whatever the tile,
     and count nothing."""
     x, y = torch.randn(16, 8), torch.randn(8, 24)
-    before = (matmul_mod.launches_tc, gmm_mod.launches_tc)
+    before = (matmul_mod.launches_tc, matmul_mod.launches_ring, gmm_mod.launches_tc)
     torch.testing.assert_close(matmul_mod.matmul(x.bfloat16(), y.bfloat16(), bm=128, bn=128,
                                                  bk=64), tref.matmul(x.bfloat16(), y.bfloat16()))
+    torch.testing.assert_close(matmul_mod.matmul(x, y, route=autotune.RING), tref.matmul(x, y))
     xe, we = x[None], y[None]
     torch.testing.assert_close(gmm_mod.grouped_matmul(xe, we, tile=(64, 64, 64)),
                                tref.grouped_matmul(xe, we))
-    assert (matmul_mod.launches_tc, gmm_mod.launches_tc) == before
+    assert (matmul_mod.launches_tc, matmul_mod.launches_ring, gmm_mod.launches_tc) == before
 
 
 # --------------------------------------------------------------------------
@@ -667,12 +783,21 @@ def _route_tiles(route, tc_tiles, cc_tiles):
 
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("m,n,k,xb", [(4096, 4096, 4096, 2), (2048, 2560, 960, 2),
-                                      (64, 64, 64, 2), (130, 200, 70, 2), (4096, 4096, 4096, 4)])
+                                      (64, 64, 64, 2), (130, 200, 70, 2), (4096, 4096, 4096, 4),
+                                      (2048, 2560, 960, 4), (1000, 3000, 520, 4),
+                                      (1000, 3001, 520, 4), (4096, 4096, 4095, 4)])
 def test_matmul_schedule_tile_belongs_to_its_route(m, n, k, xb, aligned):
+    """The ring's one tile where its route runs (f32, K and N multiples of
+    4, aligned); a CUDA-core tile for the f32 shapes off by one or
+    misaligned."""
     s = autotune.pom_matmul_schedule(m, n, k, xb, aligned=aligned)
     assert s.route == autotune.matmul_route(m, n, k, xb, aligned)
-    assert (s.bm, s.bn, s.bk) in _route_tiles(s.route, autotune.MATMUL_TC_TILES,
-                                              autotune.MATMUL_TILES)
+    if s.route == autotune.RING:
+        assert (s.bm, s.bn, s.bk) == autotune.MATMUL_RING_TILE
+        assert xb == 4 and aligned and k % 4 == 0 and n % 4 == 0
+    else:
+        assert (s.bm, s.bn, s.bk) in _route_tiles(s.route, autotune.MATMUL_TC_TILES,
+                                                  autotune.MATMUL_TILES)
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -734,7 +859,8 @@ def test_every_flash_tensor_core_tile_fits(d):
             assert 2 * (smem + 1024) <= autotune.SMEM_PER_SM
 
 
-@pytest.mark.parametrize("op", ["matmul", "grouped_matmul", "jacobi2d", "attention"])
+@pytest.mark.parametrize("op", ["matmul", "grouped_matmul", "jacobi2d", "attention",
+                                "decode_attention"])
 def test_ops_take_transposed_and_misaligned_operands_on_the_cpu(op):
     """A transposed view and a bf16 view 8 bytes off a 16-byte boundary
     compute on the CPU and match the plain version (on the card the same
@@ -760,11 +886,21 @@ def test_ops_take_transposed_and_misaligned_operands_on_the_cpu(op):
         x = torch.randn(40, 30, generator=g)
         torch.testing.assert_close(ops.jacobi2d(x.t(), 3), tref.jacobi2d(x.t().contiguous(), 3))
         torch.testing.assert_close(ops.jacobi2d(mis, 2), tref.jacobi2d(mis.clone(), 2))
-    else:
+    elif op == "attention":
         q = torch.randn(1, 16, 2, 64, generator=g).bfloat16().transpose(1, 2)   # (1, 2, 16, 64)
         qm = mis.view(1, 2, 32, 64)
         torch.testing.assert_close(ops.attention(q, q, q), tref.attention(*(q.contiguous(),) * 3))
         torch.testing.assert_close(ops.attention(qm, qm, qm), tref.attention(*(qm.clone(),) * 3))
+    else:
+        kv = torch.randn(1, 16, 2, 64, generator=g).bfloat16().transpose(1, 2)  # (1, 2, 16, 64)
+        q, km = mis[:4].view(1, 4, 64), mis.view(1, 2, 32, 64)
+        n = torch.tensor([9], dtype=torch.int32)
+        torch.testing.assert_close(ops.decode_attention(q, kv, kv, length=n),
+                                   tref.decode_attention(q.clone(), *(kv.contiguous(),) * 2,
+                                                         length=n))
+        torch.testing.assert_close(ops.decode_attention(q, km, km, length=n),
+                                   tref.decode_attention(q.clone(), km.clone(), km.clone(),
+                                                         length=n))
 
 # --------------------------------------------------------------------------
 # on the card: CUDA kernel vs its plain version
@@ -803,18 +939,28 @@ def test_gpu_flash_matches_plain(case):
             torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
-# (B, Hq, Hkv, S, D, dtype); the first row is smollm_360m's
-DECODE_CASES = [
-    (8, 15, 5, 1024, 64, "bfloat16"),
+# (B, Hq, Hkv, S, D, dtype): smollm_360m's, granite_moe_1b's and
+# zamba2_1_2b's decode at batch 8 and S 128, 1024 and 8192, then ragged
+# shapes, group 4, 8 and 9 (starcoder2_7b's, in chunks of 3 heads), D 32
+# and 128, f32
+DECODE_CASES = [(8, hq, hkv, s, 64, "bfloat16") for hq, hkv in ((15, 5), (16, 8), (32, 32))
+                for s in (128, 1024, 8192)] + [
     (3, 4, 4, 200, 32, "float32"),
     (2, 8, 2, 77, 128, "float32"),
     (2, 4, 1, 300, 64, "float32"),
+    (2, 8, 1, 1000, 64, "bfloat16"),
+    (2, 36, 4, 300, 128, "bfloat16"),
+    (3, 8, 8, 517, 32, "bfloat16"),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", DECODE_CASES)
 def test_gpu_decode_matches_plain(case):
+    """Every split count 1-8 and the schedule's, with ragged lengths (one
+    row at length 0, one full), within the bf16 / f32 tolerance of the
+    plain version; a second run of each gives the same bits; one launch a
+    call."""
     dev = _cuda()
     b, hq, hkv, s, d, dtype = case
     g = torch.Generator(device=dev).manual_seed(s)
@@ -824,13 +970,17 @@ def test_gpu_decode_matches_plain(case):
     v = torch.randn(b, hkv, s, d, generator=g, device=dev).to(dt)
     length = torch.randint(1, s + 1, (b,), generator=g, device=dev, dtype=torch.int32)
     length[0] = 0
+    length[-1] = s
     want = tref.decode_attention(q, k, v, length=length)
-    for bkv in autotune.DECODE_BKV:
-        if autotune.decode_smem_bytes(hq // hkv, d, bkv) > H100.smem_bytes:
-            continue
-        got = decode_mod.decode_attention(q, k, v, length=length, bkv=bkv)
+    for splits in [None, *range(1, autotune.DECODE_MAX_SPLITS + 1)]:
+        n0 = decode_mod.launches
+        got = decode_mod.decode_attention(q, k, v, length=length, splits=splits)
+        again = decode_mod.decode_attention(q, k, v, length=length, splits=splits)
         torch.cuda.synchronize()
+        assert decode_mod.launches == n0 + 2
+        assert torch.all(got[0] == 0), splits
         torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        assert torch.equal(got, again), splits
 
 
 @pytest.mark.gpu
@@ -840,6 +990,13 @@ def test_gpu_wrappers_raise_on_unsupported_input():
     kv = torch.zeros(1, 2, 8, 48, device=dev)
     with pytest.raises(ValueError):
         decode_mod.decode_attention(q, kv, kv)
+    q, kv = torch.zeros(1, 4, 64, device=dev), torch.zeros(1, 2, 8, 64, device=dev)
+    for splits in (0, 9):
+        with pytest.raises(ValueError):
+            decode_mod.decode_attention(q, kv, kv, splits=splits)
+    buf = torch.zeros(2 * 8 * 64 + 1, device=dev)
+    with pytest.raises(ValueError):                # contiguous, 4 bytes off 16
+        decode_mod.decode_attention(q, buf[1:].view(1, 2, 8, 64), kv)
     q = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_mod.flash_attention(q, q, q)
@@ -987,15 +1144,93 @@ def test_gpu_matmul_matches_plain(case):
     y = torch.randn(k, n, generator=g, device=dev).to(dt)
     want = tref.matmul(x, y).float()
     tol = (2e-2 if dtype == "bfloat16" else 1e-4) * want.abs().max().item()
-    tc = autotune.matmul_route(m, n, k, x.element_size()) == autotune.TENSOR_CORES
-    for bm, bn, bk in (autotune.MATMUL_TC_TILES if tc else ()) + autotune.MATMUL_TILES:
-        n0, ntc = matmul_mod.launches, matmul_mod.launches_tc
-        got = matmul_mod.matmul(x, y, bm=bm, bn=bn, bk=bk)
+    route = autotune.matmul_route(m, n, k, x.element_size())
+    tc = route == autotune.TENSOR_CORES
+    runs = [(t, None) for t in (autotune.MATMUL_TC_TILES if tc else ()) + autotune.MATMUL_TILES]
+    if route == autotune.RING:
+        runs.append((autotune.MATMUL_RING_TILE, autotune.RING))
+    for (bm, bn, bk), r in runs:
+        n0, ntc, nr = matmul_mod.launches, matmul_mod.launches_tc, matmul_mod.launches_ring
+        got = matmul_mod.matmul(x, y, bm=bm, bn=bn, bk=bk, route=r)
         torch.cuda.synchronize()
         assert matmul_mod.launches == n0 + 1
         assert matmul_mod.launches_tc == ntc + ((bm, bn, bk) in autotune.MATMUL_TC_TILES)
+        assert matmul_mod.launches_ring == nr + (r == autotune.RING)
         assert got.dtype == dt and got.shape == (m, n)
-        assert (got.float() - want).abs().max().item() <= tol, (bm, bn, bk)
+        assert (got.float() - want).abs().max().item() <= tol, (bm, bn, bk, r)
+
+
+# (M, K, N) in f32 on the ring: 4096^3, smollm_360m's FFN up-projection, the
+# ragged library shape, a K tail (36 = 2 x 16 + 4) with M and N tails, one row
+MATMUL_RING_CASES = [(4096, 4096, 4096), (2048, 960, 2560), (1000, 520, 3000), (130, 36, 200),
+                     (1, 4, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MATMUL_RING_CASES)
+def test_gpu_matmul_ring_equals_old_tile_and_contraction(case):
+    """ops.matmul takes the ring for f32 with K and N multiples of 4 (one
+    launch, counted on the ring).  The ring sums each output in k order in
+    one FMA chain from 0, as the CUDA-core tile (128, 128, 16) and the
+    contraction's kernels do: the same bits as both (the contraction on the
+    same ring where M and N are at least 128), within 1e-4 of the plain
+    version."""
+    from repro_torch.kernels import contraction as cmod
+    from repro_torch.kernels.contraction import ContractionDesc
+    dev = _cuda()
+    m, k, n = case
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=dev)
+    y = torch.randn(k, n, generator=g, device=dev)
+    assert autotune.matmul_route(m, n, k, 4) == autotune.RING
+    n0, nr = matmul_mod.launches, matmul_mod.launches_ring
+    ring = ops.matmul(x, y)
+    torch.cuda.synchronize()
+    assert (matmul_mod.launches, matmul_mod.launches_ring) == (n0 + 1, nr + 1)
+    old = matmul_mod.matmul(x, y, bm=128, bn=128, bk=16)
+    torch.cuda.synchronize()
+    assert (matmul_mod.launches, matmul_mod.launches_ring) == (n0 + 2, nr + 1)
+    assert torch.equal(ring, old)
+    d = ContractionDesc((m, n), (k, 0), (0, 1), (n, 1), (k,), (1,), (n,), 0, 0, 0, m * k, k * n,
+                        m * n)
+    s0 = cmod.launches_strided
+    con = cmod.contraction(d, x.reshape(-1), y.reshape(-1), torch.zeros(m * n, device=dev))
+    torch.cuda.synchronize()
+    assert cmod.launches_strided == s0 + (min(m, n) >= 128)
+    assert torch.equal(ring, con.view(m, n))
+    want = tref.matmul(x, y)
+    assert (ring - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_f32_matmul_off_the_ring_takes_the_cuda_cores():
+    """An f32 operand 4 bytes off a 16-byte boundary, N = 3001 and K = 70
+    take the CUDA-core tiles through ops.matmul (within 1e-4 of the plain
+    version); the ring's route refuses them, and any tile but its own."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3001)
+    buf = torch.randn(512 * 512 + 1, generator=g, device=dev)
+    xm = buf[1:].view(512, 512)
+    assert xm.data_ptr() % 16 == 4
+    cases = [(xm, torch.randn(512, 256, generator=g, device=dev)),
+             (torch.randn(300, 64, generator=g, device=dev),
+              torch.randn(64, 3001, generator=g, device=dev)),
+             (torch.randn(200, 70, generator=g, device=dev),
+              torch.randn(70, 128, generator=g, device=dev))]
+    for x, y in cases:
+        n0, nr = matmul_mod.launches, matmul_mod.launches_ring
+        got = ops.matmul(x, y)
+        torch.cuda.synchronize()
+        assert (matmul_mod.launches, matmul_mod.launches_ring) == (n0 + 1, nr)
+        want = tref.matmul(x.clone(), y)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        with pytest.raises(ValueError):
+            matmul_mod.matmul(x, y, route=autotune.RING)
+    x, y = torch.zeros(256, 256, device=dev), torch.zeros(256, 256, device=dev)
+    with pytest.raises(ValueError):
+        matmul_mod.matmul(x, y, bm=64, bn=64, bk=32, route=autotune.RING)
+    with pytest.raises(ValueError):
+        matmul_mod.matmul(x, y, route="wgmma")
 
 
 # (M, K, N) in bf16 for the tensor-core tiles: aligned, an M tail (M 1000),
@@ -1248,7 +1483,8 @@ def _misaligned(g, dev, *shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", ["matmul", "grouped_matmul", "jacobi2d", "attention"])
+@pytest.mark.parametrize("op", ["matmul", "grouped_matmul", "jacobi2d", "attention",
+                                "decode_attention"])
 def test_gpu_ops_take_misaligned_and_transposed_operands(op):
     """The library's public ops compute a misaligned bf16 operand (on the
     CUDA cores: TMA cannot describe it) and a transposed one (copied to
@@ -1277,12 +1513,21 @@ def test_gpu_ops_take_misaligned_and_transposed_operands(op):
         x = torch.randn(64, 100, generator=g, device=dev)
         runs = [(lambda: ops.jacobi2d(xm, 3), lambda: tref.jacobi2d(xm, 3), None),
                 (lambda: ops.jacobi2d(x.t(), 3), lambda: tref.jacobi2d(x.t(), 3), None)]
-    else:
+    elif op == "attention":
         mod = flash_mod
         qm = _misaligned(g, dev, 1, 4, 96, 64)
         qt = torch.randn(1, 96, 4, 64, generator=g, device=dev).bfloat16().transpose(1, 2)
         runs = [(lambda: ops.attention(qm, qm, qm), lambda: tref.attention(qm, qm, qm), 0),
                 (lambda: ops.attention(qt, qt, qt), lambda: tref.attention(qt, qt, qt), 1)]
+    else:                     # copied to an aligned, contiguous tensor by ops
+        mod = decode_mod
+        qm, km = _misaligned(g, dev, 2, 4, 64), _misaligned(g, dev, 2, 2, 96, 64)
+        kt = torch.randn(2, 96, 2, 64, generator=g, device=dev).bfloat16().transpose(1, 2)
+        n = torch.tensor([50, 96], dtype=torch.int32, device=dev)
+        runs = [(lambda: ops.decode_attention(qm, km, km, length=n),
+                 lambda: tref.decode_attention(qm, km, km, length=n), None),
+                (lambda: ops.decode_attention(qm, kt, kt, length=n),
+                 lambda: tref.decode_attention(qm, kt, kt, length=n), None)]
     for run, plain, tc in runs:
         n0, ntc = mod.launches, getattr(mod, "launches_tc", 0)
         got = run()
