@@ -11,9 +11,13 @@ without the final ok line):
                 parallel) and prints ptxas's summary; counts the wgmma
                 (HGMMA) and TMA-load (UTMALDG) instructions in the SASS of
                 matmul_pom, grouped_matmul and flash_attention and fails if
-                either is 0; prints the registers and spills of the f32 ring
-                (``strided_gemm_kernel``) in both libraries that include it
-                and of the decode kernels;
+                either is 0; counts the tensor-core (HMMA) instructions of
+                the ssm_scan library and fails if there are none; prints the
+                registers and spills of the f32 ring
+                (``strided_gemm_kernel``) in both libraries that include it,
+                of the decode kernels, of the four scan kernels and of the
+                two stencil kernels, and fails if a scan or stencil kernel
+                spills;
   3. kernels -- each LM kernel against its plain PyTorch version on the card:
                 decode attention at smollm's decode shape (S 128, 1024 and
                 8192), granite's and zamba2's (S 1024), group 8 and ragged
@@ -26,7 +30,8 @@ without the final ok line):
                 grouped_matmul at granite_moe_1b's decode (cap 8) and forward
                 (cap 640) shapes and a ragged one, bf16 and f32, through both
                 schedules and every tensor-core tile, ssm_scan at
-                zamba2's and xlstm's shapes, P = 1 and a ragged S (y and h);
+                zamba2's and xlstm's shapes, P = 1 and a ragged S (y and h),
+                through both schedules, with the route of each call;
   4. contraction vs plain -- the contraction kernel against its plain
                 version in f32 and bf16 on the compile path's schedules
                 (tiled gemm at n 256 and at the path's n 4096, unscheduled
@@ -84,7 +89,10 @@ without the final ok line):
                 1000 x 777 x 3; exactly one launch a matmul (the four bf16
                 ones on the tensor cores, the three f32 ones whose K and N
                 are multiples of 4 on the ring, N = 3001 on the CUDA-core
-                tiles) and one a sweep; each result against its plain
+                tiles) and ceil(steps / T) a stencil call (T the sweeps a
+                launch of ``autotune.pom_jacobi_schedule``), the multi-sweep
+                results bit for bit against ``steps`` single-sweep launches;
+                each result against its plain
                 version, every tensor-core tile against it at the bf16
                 shapes, each ring result bit for bit against the CUDA-core
                 tile (128, 128, 16) and the contraction's strided kernel on
@@ -97,7 +105,11 @@ without the final ok line):
                 launch), each kernel's bound, the plain version's time and a
                 PyTorch yardstick on the same inputs (SDPA, ``torch.addmm``,
                 ``torch.add``, ``torch.bmm``, ``torch.matmul``; none for the
-                scan and the stencil; the port never calls them), with the
+                scan and the stencil; the port never calls them), the
+                scan's bound at the TF32 tensor-core rate its kernels use
+                (the f32 rate's beside it), the scan at the mLSTM
+                normaliser's shape, the stencil's row its 10-sweep call
+                against the bound of one pass (one sweep beside it), with the
                 card's clocks, temperature and power draw sampled before and
                 after each group; the matmul, grouped-matmul and flash rows
                 name their route and tile, read from the launch counts of
@@ -295,10 +307,15 @@ def build_phase() -> None:
         print(f"sass {name}: {counts}")
         if not all(counts.values()):
             fail(f"{name}: the tensor-core route compiled without wgmma or TMA: {counts}")
+    counts = _build.sass_counts("ssm_scan", ("HMMA",))
+    print(f"sass ssm_scan: {counts}")
+    if not counts["HMMA"]:
+        fail(f"ssm_scan: compiled without tensor-core (mma.sync) instructions: {counts}")
     # the f32 ring in both libraries that include it, and the decode kernels
     ring = "strided_gemm_kernel"
     for lib, entry in (("contraction", ring), ("matmul_pom", ring),
-                       ("decode_attention", "decode_kernel")):
+                       ("decode_attention", "decode_kernel"), ("ssm_scan", "ssm_scan_"),
+                       ("stencil", "jacobi")):
         found = ptxas_entries(_build.log_path(lib).read_text(), entry)
         if not found:
             fail(f"{lib}: ptxas compiled no {entry}")
@@ -309,6 +326,8 @@ def build_phase() -> None:
         if len(found) <= 2:
             for n, (r, sp) in found.items():
                 print(f"  {n}: {r} registers, {sp} bytes spilled")
+        if spills and lib in ("ssm_scan", "stencil"):
+            fail(f"{lib}: kernels spill registers: {spills}")
 
 
 def ptxas_entries(log: str, entry: str) -> dict:
@@ -500,12 +519,13 @@ def _scan_inputs(g, b, s, h, p, n, dt, broadcast):
 def scan_vs_plain(g) -> float:
     """ssm_scan against ref.ssm_scan (y and the final h): zamba2's shape
     (broadcast B/C), xlstm's, the mLSTM normaliser's P = 1 and a ragged
-    S = 200, both schedules."""
-    from repro_torch.kernels import ops, ref
+    S = 200, both schedules, each call's route (x's dtype names it) printed."""
+    from repro_torch.kernels import autotune, ops, ref
     worst = 0.0
     for label, (b, s, h, p, n, dt, bc) in SCAN_SHAPES.items():
         x, a, bm, cm = _scan_inputs(g, b, s, h, p, n, dt, bc)
         want_y, want_h = ref.ssm_scan(x, a, bm, cm)
+        route = autotune.SCAN_ROUTES[x.element_size()]
         for schedule in ("pom", "naive"):
             y, hl = ops.ssm_scan(x, a, bm, cm, schedule=schedule)
             torch.cuda.synchronize()
@@ -513,8 +533,8 @@ def scan_vs_plain(g) -> float:
             eh = (hl - want_h).abs().max().item()
             ty = _rel_tol(dt, 1e-3) * want_y.float().abs().max().item()
             th = 1e-3 * want_h.abs().max().item()
-            print(f"ssm_scan {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]} {schedule}: "
-                  f"max abs err y {ey:.3g} (tolerance {ty:.3g}), h {eh:.3g} "
+            print(f"ssm_scan {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]} {schedule} "
+                  f"({route}): max abs err y {ey:.3g} (tolerance {ty:.3g}), h {eh:.3g} "
                   f"(tolerance {th:.3g})")
             if not (ey <= ty and eh <= th):
                 fail(f"ssm_scan {label} disagrees with its plain version: {ey}, {eh}")
@@ -846,8 +866,10 @@ def family_phase(arch: str) -> dict:
           f"params {n_params}, {cfg.param_dtype}; init {time.perf_counter() - t0:.1f}s")
     fwd_per, dec_per = expected_launches(cfg)
     # granite's grouped matmuls all take the tensor-core route (checked below);
-    # the decode step's profile also reads the decode attention kernel
-    kernel = "gemm_kernel" if cfg.family == "moe" else "ssm_scan_kernel"
+    # the scan's four kernels (C B^T, chunk states, pass, readout) share the prefix
+    # "ssm_scan_"; the decode step's profile also reads the decode attention
+    # kernel
+    kernel = "gemm_kernel" if cfg.family == "moe" else "ssm_scan_"
     decode_kernels = (kernel, "decode_kernel") if dec_per.get("decode_attention") else kernel
     moe = cfg.family == "moe"
     v = cfg.vocab_size
@@ -1358,9 +1380,11 @@ def default_size_phase() -> dict:
 def library_phase() -> dict:
     """The main path: ``ops.matmul`` at MATMUL_SHAPES (and once with
     ``schedule="naive"``) and ``ops.jacobi2d`` at JACOBI_SHAPES, every count
-    set to 0 just before and read just after (one launch a matmul, one a
-    sweep, no other kernel).  Then each result against its plain version on
-    the same inputs, and ``ops.jacobi2d(A, 10)`` against the compile path's
+    set to 0 just before and read just after (one launch a matmul, the
+    stencil schedule's ceil(steps / T) a stencil call, no other kernel).
+    Then each result against its plain version on the same inputs, each
+    stencil result bit for bit against ``steps`` single-sweep launches, and
+    ``ops.jacobi2d(A, 10)`` against the compile path's
     jacobi2d program at 1024^2 (whose s2 copies the interior back each step,
     so both compute the same sweeps)."""
     phase("kernel library: ops.matmul and ops.jacobi2d")
@@ -1368,6 +1392,7 @@ def library_phase() -> dict:
     from repro_torch.core.pipeline import compile as pom_compile
     from repro_torch.kernels import autotune, ops, ref
     from repro_torch.kernels import matmul_pom as mm_mod
+    from repro_torch.kernels import stencil as st_mod
     g = torch.Generator(device="cuda").manual_seed(8)
     mm_in = [(_randn(g, m, k, dtype=dt), _randn(g, k, n, dtype=dt), "pom")
              for m, k, n, dt in MATMUL_SHAPES]
@@ -1386,9 +1411,10 @@ def library_phase() -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     print(f"launches in the kernel-library run ({wall * 1e3:.1f} ms): {launches}")
+    jac_sched = [autotune.pom_jacobi_schedule(*x.shape, steps, x.element_size())
+                 for x, steps in jac_in + [(pom_a, 10)]]
     check_counts("kernel library", launches,
-                 {"matmul_pom": len(mm_in),
-                  "stencil": sum(steps for _, steps in jac_in) + 10})
+                 {"matmul_pom": len(mm_in), "stencil": sum(sc.launches for sc in jac_sched)})
     routes = [autotune.matmul_route(x.shape[0], y.shape[1], x.shape[1], x.element_size())
               for x, y, _ in mm_in]
     check_routes("kernel library", "matmul_pom", routes.count(autotune.TENSOR_CORES),
@@ -1420,14 +1446,20 @@ def library_phase() -> dict:
         if route == autotune.RING:
             same_bits(f"matmul {m}x{k}x{n} f32", got, x, y)
         del runs
-    for (x, steps), got in zip(jac_in, jac_out):
+    for (x, steps), got, sc in zip(jac_in, jac_out, jac_sched):
         want = ref.jacobi2d(x, steps)
         err = (got.float() - want.float()).abs().max().item()
         tol = JACOBI_ATOL[x.dtype]
-        print(f"jacobi2d {tuple(x.shape)} x {steps} steps {str(x.dtype)[6:]}: max abs err "
-              f"{err:.3g} (tolerance {tol:.3g})")
+        single = st_mod.jacobi2d(x, steps, sweeps=1)
+        same = torch.equal(got, single)
+        print(f"jacobi2d {tuple(x.shape)} x {steps} steps {str(x.dtype)[6:]} ({sc.launches} "
+              f"launches of up to {sc.sweeps} sweeps, tile {sc.tile}): max abs err {err:.3g} "
+              f"(tolerance {tol:.3g}); bit-equal to {steps} single sweeps: {same}")
         if got.shape != x.shape or got.dtype != x.dtype or not err <= tol:
             fail(f"jacobi2d {tuple(x.shape)} disagrees with its plain version: {err}")
+        if not same:
+            fail(f"jacobi2d {tuple(x.shape)}: {sc.sweeps} sweeps a launch differ from single "
+                 "sweeps")
         errs["stencil"] = max(errs["stencil"], err)
     del mm_in, mm_out, jac_in, jac_out
 
@@ -1566,11 +1598,13 @@ def timed_route(mod, fn, **kw) -> tuple:
     return ms, (autotune.TENSOR_CORES if tc else autotune.RING if ring else autotune.CUDA_CORES)
 
 
-def bound(byts: float, flops: float, dtype) -> tuple:
+def bound(byts: float, flops: float, dtype, tf32: bool = False) -> tuple:
     """The least time the card could take: bytes at the HBM rate or
-    operations at the peak rate for ``dtype`` (H100 SXM data sheet)."""
+    operations at the peak rate for ``dtype`` (H100 SXM data sheet; with
+    ``tf32`` the TF32 tensor-core rate, the units the scan's products use)."""
     from repro_torch.core.cost_model import H100
-    peak = H100.peak_flops_bf16 if dtype == torch.bfloat16 else H100.peak_flops_f32
+    peak = (H100.peak_flops_tf32 if tf32 else
+            H100.peak_flops_bf16 if dtype == torch.bfloat16 else H100.peak_flops_f32)
     t_bytes = byts / H100.hbm_bw
     t_ops = flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1738,12 +1772,15 @@ def compile_numbers_phase(errs: dict, launches: dict) -> list:
 
 def lm_numbers_phase(errs: dict, launches: dict) -> list:
     """grouped_matmul at granite_moe_1b's decode shape (the row; its forward
-    shape beside it) and ssm_scan at zamba2's shape (the row; xlstm's beside
-    it)."""
+    shape beside it) and ssm_scan at zamba2's shape (the row; xlstm's and the
+    mLSTM normaliser's beside it), the scan with its bound at the TF32
+    tensor-core rate its kernels use (the row's) and at the f32 rate, and
+    its route (x's dtype names it)."""
     phase("numbers: MoE and SSM kernels")
     clocks("before")
     from repro_torch.kernels import autotune, ops, ref
     from repro_torch.kernels import grouped_matmul as gmm_mod
+    from repro_torch.kernels import ssm_scan as scan_mod
     g = torch.Generator(device="cuda").manual_seed(7)
     dt = torch.bfloat16
     gmm = {}
@@ -1769,19 +1806,29 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
              "launches": launches["grouped_matmul"], "max_abs_err": errs["grouped_matmul"],
              **gmm[8], "library": "torch.bmm", "at_forward_shape": gmm[640]}]
     scan = {}
-    for label in ("zamba2", "xlstm"):
+    for label in ("zamba2", "xlstm", "normaliser"):
         b, s, h, p, n, sdt, bc = SCAN_SHAPES[label]
         x, a, bm, cm = _scan_inputs(g, b, s, h, p, n, sdt, bc)
         hb = 1 if bc else h
         # each input read once (a broadcast B/C group once), y and h written
         byts = 2 * b * s * h * p * x.element_size() + 4 * b * s * h + 8 * b * s * hb * n \
             + 4 * b * h * n * p
-        bms, by = bound(byts, 4.0 * b * s * h * n * p, torch.float32)
+        flops = 4.0 * b * s * h * n * p
+        # the bound at the TF32 tensor-core rate, the units the products run
+        # on; the f32 CUDA-core rate's beside it
+        bms, by = bound(byts, flops, torch.float32, tf32=True)
+        f32_ms, f32_by = bound(byts, flops, torch.float32)
+        sc = autotune.pom_scan_schedule(s, p, n, x.element_size(), b * h,
+                                        bc_groups=b * scan_mod.bc_groups(bm, cm))
+        route = autotune.SCAN_ROUTES[x.element_size()]
         ms = time_ms(lambda: ops.ssm_scan(x, a, bm, cm), iters=20)
         plain_ms = time_ms(lambda: ref.ssm_scan(x, a, bm, cm), iters=3, warmup=1)
-        print(f"ssm_scan {label} B{b} S{s} H{h} P{p} N{n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bms:.5f} ms ({by})")
+        print(f"ssm_scan {label} B{b} S{s} H{h} P{p} N{n} ({route}, chunk {sc.chunk}, P tile "
+              f"{sc.p_tile}): {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}, "
+              f"TF32 rate), {f32_ms:.5f} ms ({f32_by}, f32 rate)")
         scan[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "bound_f32_ms": f32_ms, "bound_f32_by": f32_by, "kernel_route": route,
+                       "chunk": sc.chunk, "p_tile": sc.p_tile,
                        "shape": f"B {b}, S {s}, H {h}, P {p}, N {n}, x {str(sdt)[6:]}"}
         del x, a, bm, cm
     rows.append({"name": "ssm_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssm_scan.cu",
@@ -1789,18 +1836,22 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
                  "launches": launches["ssm_scan"], "max_abs_err": errs["ssm_scan"],
                  **scan["zamba2"], "library_ms": None,
                  "library": "none: no single PyTorch call computes the scan",
-                 "at_xlstm_shape": scan["xlstm"]})
+                 "at_xlstm_shape": scan["xlstm"], "at_normaliser_shape": scan["normaliser"]})
     clocks("after")
     return rows
 
 
 def library_numbers_phase(errs: dict, launches: dict) -> list:
-    """matmul_pom at 4096^3 bf16 (the row; f32 beside it) and one stencil
-    sweep at 1024^2 f32 (the row; 4096^2 and the 10-sweep calls beside it)."""
+    """matmul_pom at 4096^3 bf16 (the row; f32 beside it) and the library
+    phase's stencil call, 10 sweeps at 1024^2 f32 (the row; 4096^2 beside
+    it), each against the bound of one pass over the grid, with one sweep
+    on the single-sweep kernel and the same 10 sweeps as 10 single-sweep
+    launches beside it."""
     phase("numbers: kernel library")
     clocks("before")
     from repro_torch.kernels import autotune, ops, ref
     from repro_torch.kernels import matmul_pom as mm_mod
+    from repro_torch.kernels import stencil as st_mod
     g = torch.Generator(device="cuda").manual_seed(9)
     mm = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -1835,14 +1886,31 @@ def library_numbers_phase(errs: dict, launches: dict) -> list:
     sweep = {}
     for n in (1024, 4096):
         a = torch.randn(n, n, generator=g, device="cuda")
-        bms, by = bound(2 * n * n * 4, 5.0 * (n - 2) ** 2, torch.float32)
-        ms = time_ms(lambda: ops.jacobi2d(a, 1))
-        ten_ms = time_ms(lambda: ops.jacobi2d(a, 10), iters=20)
-        plain_ms = time_ms(lambda: ref.jacobi2d(a, 1), iters=20)
-        print(f"stencil {n}^2 f32: sweep {ms:.4f} ms, 10 sweeps (one call) {ten_ms:.4f} ms, "
-              f"plain sweep {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        # one read and one write of the grid; the 10 sweeps' operations
+        bms, by = bound(2 * n * n * 4, 10 * 5.0 * (n - 2) ** 2, torch.float32)
+        one_bms, one_by = bound(2 * n * n * 4, 5.0 * (n - 2) ** 2, torch.float32)
+        sc = autotune.pom_jacobi_schedule(n, n, 10, 4)
+        n0 = st_mod.launches
+        ops.jacobi2d(a, 10)
+        per_call = st_mod.launches - n0
+        ms = time_ms(lambda: ops.jacobi2d(a, 10), iters=20)
+        plain_ms = time_ms(lambda: ref.jacobi2d(a, 10), iters=5)
+        one_ms = time_ms(lambda: ops.jacobi2d(a, 1))
+        one_plain_ms = time_ms(lambda: ref.jacobi2d(a, 1), iters=20)
+        single_ms = time_ms(lambda: st_mod.jacobi2d(a, 10, sweeps=1), iters=20)
+        print(f"stencil {n}^2 f32 x 10 sweeps (one call: {per_call} launches of up to "
+              f"{sc.sweeps} sweeps, tile {sc.tile}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound of one pass {bms:.5f} ms ({by}); as 10 single sweeps {single_ms:.4f} ms; "
+              f"one sweep {one_ms:.4f} ms, plain {one_plain_ms:.4f} ms, bound {one_bms:.5f} ms "
+              f"({one_by})")
+        if per_call != sc.launches:
+            fail(f"stencil {n}^2 x 10: {per_call} launches a call, the schedule {sc.launches}")
         sweep[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                    "ten_sweeps_ms": ten_ms, "shape": f"{n}^2 f32, one sweep"}
+                    "launches_a_call": sc.launches, "sweeps_a_launch": sc.sweeps,
+                    "tile": list(sc.tile), "ten_single_sweeps_ms": single_ms,
+                    "one_sweep_ms": one_ms, "one_sweep_plain_ms": one_plain_ms,
+                    "one_sweep_bound_ms": one_bms, "one_sweep_bound_by": one_by,
+                    "shape": f"{n}^2 f32, 10 sweeps"}
         del a
     rows.append({"name": "stencil", "route": "cuda", "source": "src/repro_torch/csrc/stencil.cu",
                  "replaces": "src/repro/kernels/stencil.py:19",

@@ -1069,14 +1069,17 @@ def _fusion_groups(fn: Function) -> List[List[Statement]]:
 # NVIDIA H100 SXM roofline (per card)
 # --------------------------------------------------------------------------
 # NVIDIA's data-sheet numbers for the H100 SXM at its 700 W limit: 989e12
-# dense bf16 tensor-core FLOP/s, 67e12 f32 FLOP/s outside the tensor cores,
-# 3.35e12 B/s of HBM3, 232,448 B of shared memory a block can use, 132 SMs.
-# A card set below 700 W runs slower than these peaks.
+# dense bf16 tensor-core FLOP/s, 495e12 dense TF32, 67e12 f32 FLOP/s outside
+# the tensor cores, 80 GB of HBM3 at 3.35e12 B/s, 232,448 B of shared memory a
+# block can use, 132 SMs.  A card set below 700 W runs slower than these
+# peaks.
 @dataclass(frozen=True)
 class HopperSpec:
     peak_flops_bf16: float = 989e12    # dense tensor cores, bf16/fp16
+    peak_flops_tf32: float = 495e12    # dense tensor cores, TF32
     peak_flops_f32: float = 67e12      # CUDA cores, no tensor cores
     hbm_bw: float = 3.35e12            # bytes/s
+    hbm_bytes: int = 80 * 10 ** 9      # device memory
     smem_bytes: int = 232_448          # dynamic shared memory a block can use
     num_sms: int = 132
 

@@ -23,7 +23,8 @@ belongs to the route that will run.
 
 Decode attention has no tile to choose: ``pom_decode_schedule`` picks how
 many CTAs split each (batch, kv head)'s cache and how many query heads a
-CTA serves.
+CTA serves.  The stencil's schedule is a rule read off the card's timings,
+not a search (``pom_jacobi_schedule``).
 """
 from __future__ import annotations
 
@@ -48,11 +49,27 @@ DECODE_UNROLL = 4
 # tile heights compiled into csrc/grouped_matmul.cu; every tile is GMM_BN wide
 GMM_BM = (8, 32, 64, 128)
 GMM_BN = 64
-# chunk lengths and P tiles compiled into csrc/ssm_scan.cu; N is streamed in
-# tiles of SCAN_NT
-SCAN_CHUNKS = (32, 64)
-SCAN_PTILES = (16, 32, 64)
-SCAN_NT = 32
+# the (chunk length, P tile) pairs compiled into csrc/ssm_scan.cu: those the
+# paths' shapes select (the mLSTM normaliser's P = 1; zamba2's and xlstm's
+# serve prefills and 170-token checks; their forwards); the K step of C B^T,
+# the chunk states and the readout (N and the chunk streamed in steps of
+# SCAN_KT); the N rows of a chunk-state tile (SCAN_NT); the side of a C B^T
+# tile (SCAN_CT); every scan kernel runs SCAN_THREADS threads a block
+SCAN_TILES = ((64, 8), (64, 128), (128, 128))
+SCAN_NAIVE = (64, 128)
+SCAN_KT = 32
+SCAN_NT = 64
+SCAN_CT = 32
+SCAN_THREADS = 256
+# the scan's routes, by x's dtype: every product on the tensor cores in
+# split TF32 (three passes), the products with a bf16 x in two (exact in TF32)
+SCAN_ROUTES = {4: "tf32x3", 2: "tf32x3, x exact"}
+# csrc/stencil.cu: the single-sweep kernel's tile, the multi-sweep kernel's
+# tiles (rows, columns), and the most sweeps a launch
+JACOBI_TILE = (32, 32)
+JACOBI_TILES = ((32, 128), (64, 128))
+JACOBI_MAX_SWEEPS = 16
+JACOBI_MAX_WIDTH = 256     # tile columns + 2 T, at most (kMaxWidth in csrc/stencil.cu)
 # (bm, bn, bk) tiles compiled into csrc/matmul_pom.cu (those that compile
 # without spilling registers), and the fixed tile of ``schedule="naive"``
 MATMUL_TILES = ((64, 64, 32), (64, 128, 32), (128, 64, 32), (128, 128, 16))
@@ -345,62 +362,156 @@ class ScanSchedule:
     p_tile: int
     terms: RooflineTerms
     smem_bytes: int
+    state_bytes: int = 0
 
 
-def scan_smem_bytes(chunk: int, p_tile: int, n: int) -> int:
-    """Dynamic shared memory of one ``csrc/ssm_scan.cu`` block (f32): the
-    carried h (N rounded up to ``SCAN_NT`` rows x the P tile), the chunk of
-    X, the masked decay matrix (padded rows), the streamed B and C tiles
-    (padded rows) and the per-step cumsum, exp(cum) and carry weights."""
-    n_pad = -(-n // SCAN_NT) * SCAN_NT
-    return 4 * (n_pad * p_tile + chunk * p_tile + chunk * (chunk + 1)
-                + 2 * chunk * (SCAN_NT + 1) + 3 * chunk)
+def _pitch(c: int, r: int) -> int:
+    """The smallest row pitch >= c that is r modulo 32 banks (``pitch`` in
+    csrc/ssm_scan.cu)."""
+    return c + ((r - c % 32) + 32) % 32
 
 
-def _scan_cost(s: int, p: int, n: int, dtype_bytes: int, groups: int, chunk: int,
-               p_tile: int, model: HopperModel) -> RooflineTerms:
-    """The kernel's padded work and traffic: every (b, h, P tile) block
-    recomputes C B^T per chunk and streams B and C once; x, a and y move
-    once; the f32 CUDA-core rate is scaled down when the grid does not fill
-    the card's SMs."""
-    n_pad = -(-n // SCAN_NT) * SCAN_NT
-    p_tiles, chunks = -(-p // p_tile), -(-s // chunk)
-    blocks = groups * p_tiles
-    per_chunk = chunk * chunk * n_pad + chunk * chunk * p_tile + 2 * chunk * n_pad * p_tile
-    flops = 2.0 * blocks * chunks * per_chunk
-    byts = groups * (2 * s * p * dtype_bytes + 4 * s + 8 * s * n * p_tiles + 4 * n * p)
-    fill = min(1.0, blocks / model.spec.num_sms)
-    return model.kernel_terms(flops / fill, byts, tensor_cores=False)
+def scan_smem_bytes(chunk: int, p_tile: int) -> int:
+    """Dynamic shared memory of the largest ``csrc/ssm_scan.cu`` kernel: the
+    C B^T kernel (two stages of a C and a B tile, SCAN_CT x SCAN_KT), the
+    chunk-state kernel (two stages of B w's two TF32 parts, SCAN_KT x
+    SCAN_NT each, and the X tile, SCAN_KT x P tile, at most in f32; the
+    weights) or the readout (two stages of the masked decay or scaled C
+    tile's two TF32 parts, chunk x SCAN_KT each, and the X or state tile,
+    SCAN_KT x P tile; cum and exp(cum)), f32 words with bank-spreading
+    pitches.  N is streamed, so it does not enter."""
+    cbt = 2 * 2 * SCAN_CT * _pitch(SCAN_KT, 4)
+    states = 2 * (2 * SCAN_KT * _pitch(SCAN_NT, 8) + SCAN_KT * _pitch(p_tile, 8)) + chunk
+    out = 2 * (2 * chunk * _pitch(SCAN_KT, 4) + SCAN_KT * _pitch(p_tile, 8)) + 2 * chunk
+    return 4 * max(cbt, states, out)
+
+
+def scan_state_bytes(s: int, p: int, n: int, groups: int, chunk: int) -> int:
+    """Device scratch of one scan call: every chunk's N x P f32 state."""
+    return 4 * groups * -(-s // chunk) * n * p
+
+
+def _scan_cost(s: int, p: int, n: int, dtype_bytes: int, groups: int, bc_groups: int,
+               chunk: int, p_tile: int, model: HopperModel) -> list:
+    """Roofline terms of the four kernels: their padded tensor-core work at
+    the TF32 rate (three passes a product, two for the products with a bf16
+    x) and their device traffic, counting each block's reads (a narrower P
+    tile reads the C B^T and C tiles again), each kernel's terms scaled down
+    when its grid does not fill the SMs."""
+    spec = model.spec
+    nc = -(-s // chunk)
+    n_kt, n_nt = -(-n // SCAN_KT) * SCAN_KT, -(-n // SCAN_NT) * SCAN_NT
+    p_pad = -(-p // p_tile) * p_tile
+    px = 2 if dtype_bytes == 2 else 3
+    states = 4.0 * groups * nc * n * p
+    ntp = p_pad // p_tile
+    tt = chunk // SCAN_CT
+
+    def terms(macs: float, byts: float, blocks: int) -> RooflineTerms:
+        fill = min(1.0, max(blocks, 1) / spec.num_sms)
+        return RooflineTerms(2.0 * macs / spec.peak_flops_tf32 / fill,
+                             byts / spec.hbm_bw / fill)
+
+    g_blocks = bc_groups * nc * tt * (tt + 1) // 2
+    s_blocks = groups * nc * (n_nt // SCAN_NT) * ntp
+    o_blocks = groups * nc * ntp
+    cbt_k = terms(3.0 * g_blocks * SCAN_CT * SCAN_CT * n_kt,
+                  g_blocks * (8.0 * SCAN_CT * n_kt + 4.0 * SCAN_CT * SCAN_CT), g_blocks)
+    chunk_k = terms(px * s_blocks * SCAN_NT * p_tile * chunk,
+                    s_blocks * chunk * (4.0 * SCAN_NT + p_tile * dtype_bytes) + states, s_blocks)
+    pass_k = terms(0.0, 2.0 * states + 4.0 * groups * n * p,
+                   groups * -(-n * p // (4 * SCAN_THREADS)))
+    out_k = terms(px * o_blocks * chunk * chunk * p_tile
+                  + 3.0 * groups * max(nc - 1, 0) * ntp * chunk * n_kt * p_tile,
+                  o_blocks * (4.0 * chunk * chunk + 4.0 * chunk * n_kt
+                              + chunk * p_tile * dtype_bytes * 2 + 4.0 * n_kt * p_tile),
+                  o_blocks)
+    return [cbt_k, chunk_k, pass_k, out_k]
 
 
 @functools.lru_cache(maxsize=4096)
 def pom_scan_schedule(s: int, p: int, n: int, dtype_bytes: int = 2, groups: int = 1,
-                      spec: HopperSpec = H100) -> ScanSchedule:
+                      spec: HopperSpec = H100, *, bc_groups: int = 0) -> ScanSchedule:
     """Chunk length L (the POM split factor) and P tile for ``csrc/ssm_scan.cu``.
 
-    One block per (b * h, P tile) carries h (N x P tile, f32) in shared
-    memory across the chunks, so the P tile is bounded by the 232,448 bytes
-    a block may use (xlstm's N x P = 512 x 512 f32 carry is 1 MiB: it must
-    be split over P).  A narrower P tile fills more SMs but recomputes the
-    L x L matrix C B^T once more per tile; a longer chunk means fewer
-    sequential steps but L^2 work per step.  Any S is accepted: the kernel
-    pads the tail chunk with a = 1, b = 0, x = 0.  ``groups`` is B * H.
-    Ties go to the longer chunk, then to the smaller footprint."""
+    The scan runs in four kernels: C B^T once per (batch, B/C group,
+    chunk), each chunk's N x P state, a pass over the chunk states
+    (sequential only over the chunks) and the readout (parallel over (b * h,
+    chunk, P tile)).  A longer chunk means
+    fewer chunk states to write and pass over but L^2 work per chunk; a
+    narrower P tile fills more SMs but pads P = 1 less only down to 8.  The
+    footprint does not depend on N (it is streamed), so every pair fits; a
+    state whose chunk scratch exceeds the card's memory at every chunk length
+    raises.  ``groups`` is B * H; ``bc_groups`` the distinct (batch, B/C
+    group) pairs (B where one group is broadcast over the heads; 0 means
+    ``groups``).  The score is the sum of the four kernels' bounds; ties go
+    to the longer chunk, then to the smaller footprint."""
     model = HopperModel(spec)
+    bc_groups = bc_groups or groups
     best, best_key = None, None
-    for chunk in SCAN_CHUNKS:
-        for p_tile in SCAN_PTILES:
-            smem = scan_smem_bytes(chunk, p_tile, n)
-            if smem > spec.smem_bytes:
-                continue
-            terms = _scan_cost(s, p, n, dtype_bytes, groups, chunk, p_tile, model)
-            key = (terms.bound_s, -chunk, smem)
-            if best is None or key < best_key:
-                best, best_key = ScanSchedule(chunk, p_tile, terms, smem), key
+    for chunk, p_tile in SCAN_TILES:
+        state = scan_state_bytes(s, p, n, groups, chunk)
+        smem = scan_smem_bytes(chunk, p_tile)
+        if state > spec.hbm_bytes or smem > spec.smem_bytes:
+            continue
+        kernels = _scan_cost(s, p, n, dtype_bytes, groups, bc_groups, chunk, p_tile, model)
+        terms = RooflineTerms(sum(t.compute_s for t in kernels),
+                              sum(t.memory_s for t in kernels))
+        key = (sum(t.bound_s for t in kernels), -chunk, smem)
+        if best is None or key < best_key:
+            best, best_key = ScanSchedule(chunk, p_tile, terms, smem, state), key
     if best is None:
-        raise ValueError(f"ssm_scan: no (chunk, P tile) of state size N {n} fits in "
-                         f"{spec.smem_bytes} bytes of shared memory")
+        raise ValueError(f"ssm_scan: the chunk states of S {s}, N {n}, P {p} over {groups} "
+                         f"(batch, head) pairs exceed the card's {spec.hbm_bytes} bytes at "
+                         f"every (chunk, P tile) of {SCAN_TILES}")
     return best
+
+
+@dataclass(frozen=True)
+class JacobiSchedule:
+    sweeps: int            # sweeps a launch (the last launch runs the rest)
+    tile: tuple            # (rows, columns) of the multi-sweep kernel; JACOBI_TILE at 1
+    launches: int
+    smem_bytes: int
+
+
+def jacobi_plan(steps: int, sweeps: int) -> list:
+    """The sweeps of each launch of a ``steps``-sweep call that runs up to
+    ``sweeps`` a launch: ceil(steps / sweeps) launches."""
+    return [min(sweeps, steps - i) for i in range(0, steps, sweeps)]
+
+
+def jacobi_smem_bytes(tile: tuple, sweeps: int) -> int:
+    """Dynamic shared memory of one multi-sweep block running ``sweeps``
+    sweeps: two f32 copies (read and written in turns) of its tile and a
+    halo of ``sweeps`` cells."""
+    return 2 * 4 * (tile[0] + 2 * sweeps) * (tile[1] + 2 * sweeps)
+
+
+@functools.lru_cache(maxsize=4096)
+def pom_jacobi_schedule(m: int, n: int, steps: int, dtype_bytes: int = 4,
+                        spec: HopperSpec = H100) -> JacobiSchedule:
+    """Sweeps a launch T and tile for ``csrc/stencil.cu``'s ``steps``-sweep call.
+
+    A launch loads each block's tile and a halo of T cells once, sweeps T
+    times in shared memory (the valid region shrinking by a cell a sweep) and
+    writes the tile once, so a call makes ceil(steps / T) passes over the
+    grid instead of ``steps``.  T is as many sweeps as the call has, up to
+    ``JACOBI_MAX_SWEEPS``: on an H100, of every (T up to 10, tile) timed at
+    1024^2 and 4096^2 x 10, this rule's was the fastest (PERF.md,
+    ``tools/scan_bench.py --tiles``).  The tile is 64 x 128 where
+    that grid fills the SMs, else 32 x 128 (1024^2 gives 128 blocks of 64 x
+    128 for 132 SMs).  T = 1 is the single-sweep kernel.  ``dtype_bytes``
+    does not enter: the kernel sweeps in f32 either way."""
+    steps = max(steps, 1)
+    sweeps = min(steps, JACOBI_MAX_SWEEPS)
+    if sweeps == 1:
+        return JacobiSchedule(1, JACOBI_TILE, steps, 0)
+    wide = JACOBI_TILES[1]
+    fills = -(-m // wide[0]) * -(-n // wide[1]) >= spec.num_sms
+    tile = wide if fills else JACOBI_TILES[0]
+    return JacobiSchedule(sweeps, tile, len(jacobi_plan(steps, sweeps)),
+                          jacobi_smem_bytes(tile, sweeps))
 
 
 # the k step of each CUDA-core tile height of csrc/grouped_matmul.cu

@@ -1,6 +1,7 @@
 """Public wrappers over the port's kernels (the ``ops.py`` contract).
 
-Every op but ``jacobi2d`` (which has no schedule, as in the JAX package)
+Every op but ``jacobi2d`` (which takes no ``schedule=``, as in the JAX
+package; its sweeps a launch come from ``autotune.pom_jacobi_schedule``)
 takes ``schedule='pom' | 'naive'`` (POM-DSE block sizes from ``autotune``
 vs fixed defaults).  There is no ``impl`` and no ``interpret``:
 the device of the tensors decides.  A CUDA tensor goes to the hand-written
@@ -36,6 +37,7 @@ from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
 from .grouped_matmul import grouped_matmul as _gmm_cuda
 from .matmul_pom import matmul as _matmul_cuda
+from .ssm_scan import bc_groups as _scan_groups
 from .ssm_scan import ssm_scan as _scan_cuda
 from .stencil import jacobi2d as _jacobi_cuda
 
@@ -134,8 +136,7 @@ def ssm_scan(x, a, b, c, *, schedule: str = "pom"):
         return ref.ssm_scan(x, a, b, c)
     if schedule == "pom":
         bsz, s, nh, p = x.shape
-        sc = pom_scan_schedule(s, p, b.shape[3], x.element_size(), bsz * nh)
-        chunk, p_tile = sc.chunk, sc.p_tile
-    else:
-        chunk, p_tile = 64, 32
-    return _scan_cuda(x, a, b, c, chunk=chunk, p_tile=p_tile)
+        sc = pom_scan_schedule(s, p, b.shape[3], x.element_size(), bsz * nh,
+                               bc_groups=bsz * _scan_groups(b, c))
+        return _scan_cuda(x, a, b, c, chunk=sc.chunk, p_tile=sc.p_tile)
+    return _scan_cuda(x, a, b, c)          # the fixed chunk and P tile

@@ -43,6 +43,40 @@ def jacobi2d(x: torch.Tensor, steps: int = 1) -> torch.Tensor:
     return x
 
 
+def jacobi2d_blocked(x: torch.Tensor, steps: int, sweeps: int, tile: tuple) -> torch.Tensor:
+    """``jacobi2d`` computed as ``csrc/stencil.cu``'s multi-sweep kernel
+    computes it: each launch of up to ``sweeps`` sweeps cuts the grid into
+    ``tile`` blocks, sweeps each block's tile and a halo of that many cells
+    on its own (the valid region shrinking by a cell a sweep, the cells
+    outside the grid zero) and keeps the tile.  Bit-equal to ``jacobi2d``."""
+    m, n = x.shape
+    bm, bn = tile
+    for i in range(0, steps, sweeps):
+        t = min(sweeps, steps - i)
+        pad = torch.zeros(m + 2 * t, n + 2 * t, dtype=torch.float32)
+        pad[t:t + m, t:t + n] = x.float()
+        rows = torch.arange(-t, m + t)[:, None]
+        cols = torch.arange(-t, n + t)[None, :]
+        inner = (rows > 0) & (rows < m - 1) & (cols > 0) & (cols < n - 1)
+        out = torch.empty(m, n, dtype=x.dtype)
+        for r0 in range(0, m, bm):
+            for c0 in range(0, n, bn):
+                blk = pad[r0:r0 + bm + 2 * t, c0:c0 + bn + 2 * t].clone()
+                keep = inner[r0:r0 + bm + 2 * t, c0:c0 + bn + 2 * t]
+                for k in range(1, t + 1):
+                    new = blk.clone()
+                    sweep = 0.2 * (blk[k - 1:-k - 1, k:-k] + blk[k + 1:blk.shape[0] - k + 1, k:-k]
+                                   + blk[k:-k, k - 1:-k - 1]
+                                   + blk[k:-k, k + 1:blk.shape[1] - k + 1] + blk[k:-k, k:-k])
+                    new[k:-k, k:-k] = torch.where(keep[k:-k, k:-k],
+                                                  sweep.to(x.dtype).float(), blk[k:-k, k:-k])
+                    blk = new
+                tr, tc = min(bm, m - r0), min(bn, n - c0)
+                out[r0:r0 + tr, c0:c0 + tc] = blk[t:t + tr, t:t + tc].to(x.dtype)
+        x = out
+    return x
+
+
 def _softmax_av(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax over the last axis of ``s`` restricted to ``mask``, times v;
     rows with no True in ``mask`` give 0."""
@@ -201,4 +235,51 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         h = af[:, t, :, None, None] * h + bf[:, t, :, :, None] * xf[:, t, :, None, :]
         ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, t], h))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros(bsz, 0, nh, p)
+    return y.to(x.dtype), h
+
+
+def ssm_scan_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None, chunk: int = 64):
+    """``ssm_scan`` in ``csrc/ssm_scan.cu``'s decomposition, in f32: the
+    chunk states S_c = B^T diag(exp(cum_L - cum)) X of every chunk, the pass
+    h_{c+1} = exp(cum_L) h_c + S_c over them, and the readout y = (C B^T *
+    tril(exp(cum_t - cum_s))) X + (C * exp(cum)) h_c (cum the inclusive cumsum
+    of log max(a, 1e-20) within the chunk).  The counterpart of the JAX
+    package's ``ref.ssm_scan_chunked``; any S (the tail chunk padded with a =
+    1, b = c = x = 0).  Same arguments and results as ``ssm_scan``."""
+    bsz, s, nh, p = x.shape
+    n = b.shape[-1]
+    L = chunk
+    nc = -(-s // L)
+    pad = nc * L - s
+
+    def chunks(t: torch.Tensor, fill: float) -> torch.Tensor:
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_full((bsz, pad) + t.shape[2:], fill)], dim=1)
+        return t.reshape((bsz, nc, L) + t.shape[2:])
+
+    xc, ac, bc, cc = chunks(x, 0.0), chunks(a, 1.0), chunks(b, 0.0), chunks(c, 0.0)
+    cum = torch.cumsum(torch.log(torch.clamp(ac, min=1e-20)), dim=2)        # (B, nc, L, H)
+    # 1. the chunk states and decays
+    w = torch.exp(cum[:, :, -1:] - cum)
+    states = torch.einsum("bclhn,bclhp->bchnp", bc * w[..., None], xc)     # (B, nc, H, N, P)
+    decay = torch.exp(cum[:, :, -1])                                        # (B, nc, H)
+    # 2. the pass over the chunks: h_in[c] is the state entering chunk c
+    h = (torch.zeros(bsz, nh, n, p, dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    h_in = []
+    for ci in range(nc):
+        h_in.append(h)
+        h = decay[:, ci, :, None, None] * h + states[:, ci]
+    # 3. the readout
+    g = torch.einsum("bclhn,bcshn->bchls", cc, bc)
+    dt = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).permute(0, 1, 4, 2, 3)  # (B,nc,H,L,L)
+    tri = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+    m = torch.where(tri, torch.exp(torch.where(tri, dt, torch.zeros_like(dt))), 0.0) * g
+    y = torch.einsum("bchls,bcshp->bclhp", m, xc)
+    if nc:
+        hs = torch.stack(h_in, dim=1)                                       # (B, nc, H, N, P)
+        y = y + torch.einsum("bclhn,bchnp->bclhp", cc * torch.exp(cum)[..., None], hs)
+    y = y.reshape(bsz, nc * L, nh, p)[:, :s]
     return y.to(x.dtype), h

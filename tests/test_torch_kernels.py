@@ -322,6 +322,66 @@ def test_ssm_scan_ragged_s_and_h0_match_jax_ref():
     np.testing.assert_allclose(hl.numpy(), np.asarray(want_h), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("s,p,n,chunk,broadcast", [(128, 16, 8, 64, False),
+                                                   (128, 8, 16, 64, True),
+                                                   (128, 1, 32, 128, False)])
+def test_ssm_scan_chunked_matches_jax_chunked_and_pallas(s, p, n, chunk, broadcast):
+    """The port's plain chunked scan (the CUDA kernels' decomposition: chunk
+    states, the pass over them, the readout) against the JAX package's
+    ``ref.ssm_scan_chunked`` and the Pallas kernel in interpret mode, at S a
+    multiple of the chunk (which both require); rtol/atol 2e-3, as
+    test_ssm_scan_matches_pallas (sums in another order)."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.ssm_scan import ssm_scan
+    x, a, bm, cm = _scan_np(2, s, 2, p, n, s + p + n, broadcast)
+    jargs = [jnp.asarray(v) for v in (x, a, bm, cm)]
+    y, hl = tref.ssm_scan_chunked(*_torch_scan_args(x, a, bm, cm, broadcast), chunk=chunk)
+    for want_y, want_h in (jref.ssm_scan_chunked(*jargs, chunk=chunk),
+                           ssm_scan(*jargs, chunk=chunk, interpret=True)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=2e-3, atol=2e-3)
+        np.testing.assert_allclose(hl.numpy(), np.asarray(want_h), rtol=2e-3, atol=2e-3)
+
+
+# (B, S, H, P, N, chunk, broadcast): a ragged S, the normaliser's P = 1, a
+# broadcast B/C group, S shorter than a chunk, and a carried h0
+@pytest.mark.parametrize("b,s,h,p,n,chunk,broadcast,with_h0", [
+    (2, 200, 2, 16, 8, 64, False, False), (2, 100, 3, 1, 16, 64, False, False),
+    (1, 130, 4, 8, 8, 128, True, False), (1, 7, 2, 5, 6, 64, True, False),
+    (2, 90, 2, 4, 8, 64, False, True)])
+def test_ssm_scan_chunked_matches_sequential(b, s, h, p, n, chunk, broadcast, with_h0):
+    """The plain chunked scan against the port's and the JAX package's
+    sequential references on shapes the Pallas kernel refuses (ragged S);
+    rtol/atol 1e-4 of values up to ~30 (f32 sums in another order)."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    x, a, bm, cm = _scan_np(b, s, h, p, n, s + h + p, broadcast)
+    targs = _torch_scan_args(x, a, bm, cm, broadcast)
+    h0 = (np.random.default_rng(3).normal(size=(b, h, n, p)).astype(np.float32)
+          if with_h0 else None)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, hl = tref.ssm_scan_chunked(*targs, th0, chunk=chunk)
+    want_y, want_h = tref.ssm_scan(*targs, th0)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hl, want_h, rtol=1e-4, atol=1e-4)
+    jy, jh = jref.ssm_scan(*(jnp.asarray(v) for v in (x, a, bm, cm)),
+                           h0=None if h0 is None else jnp.asarray(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(jh), rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_chunked_bf16_x_and_empty_sequence():
+    x, a, bm, cm = _scan_np(1, 70, 2, 8, 4, 5)
+    tx, ta, tb, tc = _torch_scan_args(x, a, bm, cm, False)
+    y, hl = tref.ssm_scan_chunked(tx.bfloat16(), ta, tb, tc)
+    want_y, want_h = tref.ssm_scan(tx.bfloat16(), ta, tb, tc)
+    assert y.dtype == torch.bfloat16 and hl.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(hl, want_h, rtol=1e-4, atol=1e-4)
+    y, hl = tref.ssm_scan_chunked(tx[:, :0], ta[:, :0], tb[:, :0], tc[:, :0])
+    assert y.shape == (1, 0, 2, 8) and not hl.any()
+
+
 def test_ssm_scan_bf16_returns_x_dtype():
     x, a, bm, cm = _scan_np(1, 16, 2, 8, 4, 3)
     tx, ta, tb, tc = _torch_scan_args(x, a, bm, cm, False)
@@ -423,6 +483,25 @@ def test_jacobi2d_bf16_follows_the_tpu_kernel():
     got = _np(ops.jacobi2d(tx, 3))
     np.testing.assert_array_equal(got, _np(jacobi2d(x, 3, interpret=True)))
     assert np.abs(got - _np(jref.jacobi2d(x, 3))).max() == 2.0 ** -7
+
+
+# (M, N, steps, sweeps a launch, tile): T dividing steps and not, a tile
+# larger than the grid, ragged grids, grids too thin for an interior
+@pytest.mark.parametrize("m,n,steps,sweeps,tile", [
+    (200, 300, 10, 5, (64, 128)), (200, 300, 10, 4, (32, 128)), (130, 260, 7, 7, (128, 128)),
+    (100, 77, 7, 3, (32, 128)), (33, 65, 5, 2, (64, 128)), (2, 40, 3, 2, (32, 128)),
+    (40, 1, 3, 3, (128, 128))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jacobi2d_blocked_mirror_equals_single_sweeps(m, n, steps, sweeps, tile, dtype):
+    """The plain mirror of the multi-sweep kernel (a tile and a halo of T
+    cells swept T times a launch, each block on its own) gives the bits of
+    ``steps`` single sweeps (``ref.jacobi2d``), in f32 and in bf16 (rounded
+    after every sweep)."""
+    x = torch.from_numpy(np.random.default_rng(m * n + steps).normal(size=(m, n)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    got = tref.jacobi2d_blocked(x, steps, sweeps, tile)
+    assert got.dtype == x.dtype
+    assert torch.equal(got, tref.jacobi2d(x, steps))
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (1, 6), (2, 7), (6, 1), (5, 2), (2, 2)])
@@ -581,28 +660,134 @@ def test_cpu_path_takes_any_head_dim():
 
 
 def test_pom_scan_schedule_fits():
+    """Every compiled (chunk, P tile) pair fits one block, whatever N (the
+    kernels stream it); the schedule's footprint is its pair's."""
+    for chunk, pt in autotune.SCAN_TILES:
+        assert autotune.scan_smem_bytes(chunk, pt) <= H100.smem_bytes
+    assert autotune.SCAN_NAIVE in autotune.SCAN_TILES
     s = autotune.pom_scan_schedule(4096, 64, 64, 2)
-    assert s.smem_bytes <= H100.smem_bytes and 4096 % s.chunk == 0
+    assert s.smem_bytes == autotune.scan_smem_bytes(s.chunk, s.p_tile) <= H100.smem_bytes
+    assert s.state_bytes == autotune.scan_state_bytes(4096, 64, 64, 1, s.chunk)
 
 
-# (S, P, N, x bytes, B * H): zamba2 at 2 x 1024, xlstm at 2 x 512, the
-# mLSTM normaliser (P 1), ragged S, a decode-length S
-@pytest.mark.parametrize("s,p,n,xb,groups", [(1024, 128, 64, 2, 64), (512, 512, 512, 2, 8),
-                                             (512, 1, 512, 4, 8), (200, 64, 64, 4, 8),
-                                             (170, 128, 64, 2, 64), (1, 16, 16, 4, 1)])
-def test_pom_scan_schedule_fits_model_shapes(s, p, n, xb, groups):
-    sc = autotune.pom_scan_schedule(s, p, n, xb, groups)
-    assert sc.chunk in autotune.SCAN_CHUNKS and sc.p_tile in autotune.SCAN_PTILES
-    assert sc.smem_bytes == autotune.scan_smem_bytes(sc.chunk, sc.p_tile, n) <= H100.smem_bytes
+# (S, P, N, x bytes, B * H, B/C groups): zamba2 at 2 x 1024 (one group
+# broadcast over the heads), xlstm at 2 x 512, the mLSTM normaliser (P 1),
+# ragged S, a ragged S at zamba2's widths, a decode-length S
+@pytest.mark.parametrize("s,p,n,xb,groups,bcg", [(1024, 128, 64, 2, 64, 2),
+                                                 (512, 512, 512, 2, 8, 8),
+                                                 (512, 1, 512, 4, 8, 8), (200, 64, 64, 4, 8, 8),
+                                                 (170, 128, 64, 2, 64, 2), (1, 16, 16, 4, 1, 1)])
+def test_pom_scan_schedule_fits_model_shapes(s, p, n, xb, groups, bcg):
+    sc = autotune.pom_scan_schedule(s, p, n, xb, groups, bc_groups=bcg)
+    assert (sc.chunk, sc.p_tile) in autotune.SCAN_TILES
+    assert sc.smem_bytes == autotune.scan_smem_bytes(sc.chunk, sc.p_tile) <= H100.smem_bytes
+    assert sc.state_bytes == autotune.scan_state_bytes(s, p, n, groups, sc.chunk) \
+        <= H100.hbm_bytes
+    narrowest = min(t for _, t in autotune.SCAN_TILES)
+    if p <= narrowest:   # a wider P tile only pads (the normaliser's P = 1)
+        assert sc.p_tile == narrowest
+    assert sc.terms.compute_s > 0 and sc.terms.memory_s > 0
 
 
 def test_pom_scan_schedule_splits_xlstm_carry_over_p():
-    """xlstm's 512 x 512 f32 carry is 1 MiB: only a P tile fits; and a state
-    too large for any tile raises."""
-    assert autotune.scan_smem_bytes(32, 512, 512) > H100.smem_bytes
-    assert autotune.pom_scan_schedule(512, 512, 512, 2, 8).p_tile < 512
+    """xlstm's 512 x 512 f32 state is 1 MiB a (batch, head): the readout and
+    the chunk states split it over P tiles, and no footprint depends on N;
+    a state whose chunk scratch exceeds the card's memory raises."""
+    sc = autotune.pom_scan_schedule(512, 512, 512, 2, 8)
+    assert sc.p_tile < 512 and 512 % sc.p_tile == 0
+    assert sc.smem_bytes == autotune.scan_smem_bytes(sc.chunk, sc.p_tile)
+    assert autotune.pom_scan_schedule(512, 64, 8192, 2, 8).smem_bytes <= H100.smem_bytes
     with pytest.raises(ValueError):
-        autotune.pom_scan_schedule(512, 64, 8192, 2, 8)
+        autotune.pom_scan_schedule(1 << 20, 4096, 4096, 2, 64)
+
+
+def test_scan_smem_matches_the_source_layout():
+    """The footprint is the largest of the kernels' shared-memory layouts in
+    csrc/ssm_scan.cu, with the bank-spreading row pitches."""
+    assert autotune._pitch(32, 4) == 36 and autotune._pitch(64, 8) == 72
+    assert autotune._pitch(8, 8) == 8 and autotune._pitch(128, 8) == 136
+    # (chunk 128, P tile 128): the readout (2 x (2 x 128 x 36 + 32 x 136) + 256
+    # floats) over the chunk-state kernel (2 x (2 x 32 x 72 + 32 x 136) + 128)
+    assert autotune.scan_smem_bytes(128, 128) == 4 * (2 * (2 * 128 * 36 + 32 * 136) + 256)
+    # (chunk 64, P tile 128): the readout (2 x (2 x 64 x 36 + 32 x 136) + 128 floats)
+    assert autotune.scan_smem_bytes(64, 128) == 4 * (2 * (2 * 64 * 36 + 32 * 136) + 128)
+    # every footprint covers the C B^T kernel (2 x 2 x 32 x 36 floats) and the
+    # chunk-state kernel (2 x (2 x 32 x 72 + 32 x pitch(P tile)) + chunk floats)
+    for c, t in autotune.SCAN_TILES:
+        assert autotune.scan_smem_bytes(c, t) >= 4 * max(
+            2 * 2 * 32 * 36, 2 * (2 * 32 * 72 + 32 * autotune._pitch(t, 8)) + c)
+
+
+def _dispatched(source: str, pattern: str) -> set:
+    """The integer pairs that ``pattern``'s two groups match in a ``csrc``
+    source."""
+    import re
+    from pathlib import Path
+    text = (Path(autotune.__file__).resolve().parent.parent / "csrc" / source).read_text()
+    return {(int(a), int(b)) for a, b in re.findall(pattern, text)}
+
+
+def test_scan_tiles_match_the_source():
+    """The schedule picks only pairs that csrc/ssm_scan.cu instantiates."""
+    assert _dispatched("ssm_scan.cu", r"SSM_CASE\((\d+), (\d+)\)") == set(autotune.SCAN_TILES)
+
+
+def test_jacobi_tiles_match_the_source():
+    """The multi-sweep tiles are the ones csrc/stencil.cu instantiates."""
+    assert _dispatched("stencil.cu", r"launch_sweeps<T, (\d+), (\d+)>\(") == set(autotune.JACOBI_TILES)
+
+
+# (M, N, steps, x bytes): the paper's 1024^2 x 10, 4096^2 x 10, bf16, the
+# ragged 1000 x 777 x 3, a one-sweep call, grids too thin for an interior
+@pytest.mark.parametrize("m,n,steps,xb", [(1024, 1024, 10, 4), (4096, 4096, 10, 4),
+                                          (1024, 1024, 10, 2), (1000, 777, 3, 4),
+                                          (1024, 1024, 1, 4), (2, 40, 3, 4), (40, 1, 3, 2)])
+def test_pom_jacobi_schedule_fits(m, n, steps, xb):
+    sc = autotune.pom_jacobi_schedule(m, n, steps, xb)
+    assert sc.sweeps == min(steps, autotune.JACOBI_MAX_SWEEPS)
+    assert sc.launches == -(-steps // sc.sweeps) == len(autotune.jacobi_plan(steps, sc.sweeps))
+    if sc.sweeps == 1:
+        assert sc.tile == autotune.JACOBI_TILE and sc.smem_bytes == 0
+    else:
+        assert sc.tile in autotune.JACOBI_TILES
+        assert sc.smem_bytes == autotune.jacobi_smem_bytes(sc.tile, sc.sweeps) \
+            <= H100.smem_bytes
+        assert sc.tile[1] + 2 * sc.sweeps <= autotune.JACOBI_MAX_WIDTH
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_pom_jacobi_schedule_sweeps_several_a_launch(n):
+    """At the paper's 10 sweeps the schedule makes fewer passes over the grid
+    than one launch a sweep, and at 1024^2 its grid still covers the SMs."""
+    sc = autotune.pom_jacobi_schedule(n, n, 10, 4)
+    assert (sc.sweeps, sc.launches) == (10, 1)
+    blocks = -(-n // sc.tile[0]) * -(-n // sc.tile[1])
+    assert blocks >= H100.num_sms
+
+
+# (M, N, tile): the wide tile where its grid fills the SMs, else the narrow one
+@pytest.mark.parametrize("m,n,tile", [(1024, 1024, (32, 128)), (4096, 4096, (64, 128)),
+                                      (1000, 777, (32, 128)), (1056, 1152, (64, 128)),
+                                      (1000, 1024, (32, 128))])
+def test_pom_jacobi_schedule_tile_fills_the_sms(m, n, tile):
+    assert autotune.pom_jacobi_schedule(m, n, 10, 4).tile == tile
+
+
+def test_pom_jacobi_schedule_caps_sweeps_a_launch():
+    sc = autotune.pom_jacobi_schedule(1024, 1024, 40, 4)
+    assert sc.sweeps == autotune.JACOBI_MAX_SWEEPS and sc.launches == 3
+    assert autotune.jacobi_plan(40, sc.sweeps) == [16, 16, 8]
+
+
+def test_jacobi_plan_and_footprint():
+    assert autotune.jacobi_plan(10, 4) == [4, 4, 2]
+    assert autotune.jacobi_plan(10, 10) == [10]
+    assert autotune.jacobi_plan(3, 1) == [1, 1, 1]
+    assert autotune.jacobi_smem_bytes((64, 128), 5) == 8 * 74 * 138
+    # the wide tile's halo stops fitting in one block's shared memory well
+    # above the most sweeps a launch
+    assert autotune.jacobi_smem_bytes((64, 128), 38) <= H100.smem_bytes
+    assert autotune.jacobi_smem_bytes((64, 128), 39) > H100.smem_bytes
 
 
 def test_pom_gmm_schedule_follows_cap():
@@ -1053,13 +1238,17 @@ def _scan_inputs(b, s, h, p, n, dtype, dev, seed, broadcast=False):
 
 
 # (B, S, H, P, N, dtype, broadcast B/C): zamba2's and xlstm's shapes (at a
-# reduced S), the mLSTM normaliser's P = 1, ragged S and N
+# reduced S), the mLSTM normaliser's P = 1, ragged S and N, and odd P (a bf16
+# x copied element by element, an f32 x and the states in 4-byte units, y
+# stored one value at a time; N P odd: the pass one entry a thread)
 SCAN_CASES = [
     (2, 256, 32, 128, 64, "bfloat16", True),
     (2, 128, 4, 512, 512, "bfloat16", False),
     (2, 128, 4, 1, 512, "float32", False),
     (2, 200, 4, 48, 40, "float32", False),
     (1, 7, 2, 16, 16, "float32", True),
+    (1, 50, 1, 7, 15, "bfloat16", False),
+    (1, 70, 3, 5, 20, "float32", False),
 ]
 
 
@@ -1072,14 +1261,13 @@ def test_gpu_ssm_scan_matches_plain(case):
     x, a, bm, cm = _scan_inputs(b, s, h, p, n, dtype, dev, s + p, bc)
     want_y, want_h = tref.ssm_scan(x, a, bm, cm)
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-3, atol=2e-3)
-    for chunk in autotune.SCAN_CHUNKS:
-        for pt in autotune.SCAN_PTILES:
-            if autotune.scan_smem_bytes(chunk, pt, n) > H100.smem_bytes:
-                continue
-            y, hl = scan_mod.ssm_scan(x, a, bm, cm, chunk=chunk, p_tile=pt)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(y.float(), want_y.float(), **tol)
-            torch.testing.assert_close(hl, want_h, rtol=2e-3, atol=2e-3)
+    for chunk, pt in autotune.SCAN_TILES:
+        n0 = scan_mod.launches
+        y, hl = scan_mod.ssm_scan(x, a, bm, cm, chunk=chunk, p_tile=pt)
+        torch.cuda.synchronize()
+        assert scan_mod.launches == n0 + 1
+        torch.testing.assert_close(y.float(), want_y.float(), **tol)
+        torch.testing.assert_close(hl, want_h, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.gpu
@@ -1089,7 +1277,21 @@ def test_gpu_ssm_scan_takes_strided_a():
     x, _, bm, cm = _scan_inputs(2, 100, 4, 32, 16, "float32", dev, 9)
     a = torch.rand(2, 100, 4, 2, device=dev)[..., 1]
     want_y, want_h = tref.ssm_scan(x, a, bm, cm)
-    y, hl = scan_mod.ssm_scan(x, a, bm, cm, chunk=32, p_tile=16)
+    y, hl = scan_mod.ssm_scan(x, a, bm, cm, chunk=64, p_tile=8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(hl, want_h, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8192, 1000])
+def test_gpu_ssm_scan_streams_any_state_width(n):
+    """N is streamed in tiles of 64 (no footprint depends on it): a state
+    wider than one block's shared memory, and a ragged one, run."""
+    dev = _cuda()
+    x, a, bm, cm = _scan_inputs(1, 130, 2, 16, n, "float32", dev, n)
+    want_y, want_h = tref.ssm_scan(x, a, bm, cm)
+    y, hl = ops.ssm_scan(x, a, bm, cm)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, want_y, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(hl, want_h, rtol=2e-3, atol=2e-3)
@@ -1114,7 +1316,7 @@ def test_gpu_new_wrappers_raise_on_unsupported_input():
         scan_mod.ssm_scan(x, a, bm, bm, chunk=48)
     with pytest.raises(ValueError):
         scan_mod.ssm_scan(x, a, torch.zeros(1, 8, 2, 8192, device=dev),
-                          torch.zeros(1, 8, 2, 8192, device=dev), chunk=64, p_tile=64)
+                          torch.zeros(1, 8, 2, 8192, device=dev), chunk=64, p_tile=16)
     with pytest.raises(ValueError):
         scan_mod.ssm_scan(x, a, bm.transpose(2, 3).contiguous().transpose(2, 3), bm)
 
@@ -1352,10 +1554,36 @@ def test_gpu_jacobi2d_matches_plain(case):
     n0 = stencil_mod.launches
     got = stencil_mod.jacobi2d(x, steps)
     torch.cuda.synchronize()
-    assert stencil_mod.launches == n0 + steps
+    sc = autotune.pom_jacobi_schedule(m, n, steps, x.element_size())
+    assert stencil_mod.launches == n0 + sc.launches
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     assert stencil_mod.jacobi2d(x, 0) is x
+
+
+# chip_smoke's JACOBI_SHAPES: (M, N, steps, dtype)
+JACOBI_SMOKE_SHAPES = [(1024, 1024, 10, "float32"), (4096, 4096, 10, "float32"),
+                       (1024, 1024, 10, "bfloat16"), (1000, 777, 3, "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", JACOBI_SMOKE_SHAPES)
+def test_gpu_jacobi2d_sweeps_equal_single_sweeps(case):
+    """The multi-sweep kernel, at every T from 1 to steps and every tile, gives
+    the bits of ``steps`` launches of the single-sweep kernel, in
+    ceil(steps / T) launches."""
+    dev = _cuda()
+    m, n, steps, dtype = case
+    g = torch.Generator(device=dev).manual_seed(m + steps)
+    x = torch.randn(m, n, generator=g, device=dev).to(getattr(torch, dtype))
+    single = stencil_mod.jacobi2d(x, steps, sweeps=1)
+    for t in range(2, steps + 1):
+        for tile in autotune.JACOBI_TILES:
+            n0 = stencil_mod.launches
+            got = stencil_mod.jacobi2d(x, steps, sweeps=t, tile=tile)
+            torch.cuda.synchronize()
+            assert stencil_mod.launches == n0 + -(-steps // t)
+            assert torch.equal(got, single), (t, tile)
 
 
 @pytest.mark.gpu
@@ -1382,6 +1610,10 @@ def test_gpu_library_wrappers_raise_on_unsupported_input():
         stencil_mod.jacobi2d(torch.zeros(8, 16, device=dev)[:, ::2])
     with pytest.raises(ValueError):
         stencil_mod.jacobi2d(x, -1)
+    with pytest.raises(ValueError):
+        stencil_mod.jacobi2d(x, 30, sweeps=30, tile=(128, 128))
+    with pytest.raises(ValueError):
+        stencil_mod.jacobi2d(x, 4, sweeps=2, tile=(16, 16))
 
 
 # (B, Hq, Hkv, Sq, Skv, D, causal) in bf16 for the tensor-core flash route:
