@@ -7,7 +7,7 @@ without the final ok line):
   1. device  -- a CUDA device must be present; prints nvidia-smi's name and
                 power limit;
   2. build   -- builds every CUDA kernel of the paths from
-                ``src/repro_torch/csrc`` (one nvcc per source, all eight in
+                ``src/repro_torch/csrc`` (one nvcc per source, all nine in
                 parallel) and prints ptxas's summary; counts the wgmma
                 (HGMMA) and TMA-load (UTMALDG) instructions in the SASS of
                 matmul_pom, grouped_matmul and flash_attention and fails if
@@ -15,9 +15,9 @@ without the final ok line):
                 the ssm_scan library and fails if there are none; prints the
                 registers and spills of the f32 ring
                 (``strided_gemm_kernel``) in both libraries that include it,
-                of the decode kernels, of the four scan kernels and of the
-                two stencil kernels, and fails if a scan or stencil kernel
-                spills;
+                of the decode kernels, of the four scan kernels, of the
+                two stencil kernels and of the flash backward's kernels, and
+                fails if a scan, stencil or flash-backward kernel spills;
   3. kernels -- each LM kernel against its plain PyTorch version on the card:
                 decode attention at smollm's decode shape (S 128, 1024 and
                 8192), granite's and zamba2's (S 1024), group 8 and ragged
@@ -26,7 +26,10 @@ without the final ok line):
                 the same bits; flash attention at smollm's shapes and ragged ones
                 (in bf16 on every tensor-core tile too: a ragged Sq,
                 Sq < Skv, Sq > Skv with rows that see no key, group 4 and
-                1, non-causal, D 128, and D 32 on the CUDA cores),
+                1, non-causal, D 128, and D 32 on the CUDA cores), the
+                flash backward at the training step's shape in bf16 and
+                f32, with rows that see no key and ragged (a second call
+                bit-equal),
                 grouped_matmul at granite_moe_1b's decode (cap 8) and forward
                 (cap 640) shapes and a ragged one, bf16 and f32, through both
                 schedules and every tensor-core tile, ssm_scan at
@@ -45,6 +48,19 @@ without the final ok line):
   6. forward -- a 512-token prompt (batch 4) through ``forward`` (the flash
                 kernel, all 32 launches on the tensor-core route), held
                 against teacher-forced decode logits;
+  6b. train -- smollm_360m at full width and depth (bf16 parameters, f32
+                moments, remat "full"), batch 8 x 256 of ``SyntheticLM``:
+                one step's loss and every gradient with the kernels against
+                the same step on the plain versions on the card (relative
+                norm of each gradient's difference within TRAIN_GRAD_RTOL),
+                with exact counts (64 flash forwards, all on the tensor
+                cores with lse, and 32 flash backwards a step, all on the
+                tensor cores; no other kernel); the main path, 30 steps of ``launch/train.py``'s
+                loop with a checkpoint at step 10, whose loss must fall; a
+                run stopped after that checkpoint and resumed in the same
+                process, bit-equal to the straight run (losses, parameters,
+                moments); step wall time, device busy time and share,
+                tokens/s, peak memory and the top device kernels;
   7. families -- granite_moe_1b, zamba2_1_2b and xlstm_1_3b at full width
                 and depth (bf16, seeded random weights), one at a time.  The
                 main path: a serve (batch 8; prompt 32 and gen 32, xlstm 16
@@ -117,13 +133,16 @@ without the final ok line):
                 table kernel and the f32 matmul's CUDA-core tile timed
                 beside them on the same inputs); decode at S 128 (the row),
                 1024 ragged and 8192, each split count 1-8 timed at S 128
-                and 8192, and the clusters the card holds at once.  One
-                ``{"kernels": [...]}`` JSON line.
+                and 8192, and the clusters the card holds at once; the
+                flash forward with lse beside it, and the flash backward at
+                the training shape against its bound, its CUDA-core route,
+                its plain version and SDPA's forward plus backward (its
+                backward alone beside it).  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
-the smollm forward, each family's serve and forward, the compile path as
-phases 8-11, the kernel library) and read just after; the counts in the
-kernels line are their sums, and every one of the eight kernels must have
-run.
+the smollm forward, the smollm training loop, each family's serve and
+forward, the compile path as phases 8-11, the kernel library) and read just
+after; the counts in the kernels line are their sums, and every one of the
+eight kernels and the flash backward must have run.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -132,6 +151,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -144,6 +164,28 @@ ROOT = Path(__file__).resolve().parent
 
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 64, 64
 FWD_B, FWD_S = 4, 512
+# training (launch/train.py's defaults): batch 8 x 256 tokens of SyntheticLM,
+# 30 steps with a checkpoint at step 10
+TRAIN_B, TRAIN_S = 8, 256
+TRAIN_STEPS, TRAIN_CKPT = 30, 10
+# peak learning rate: at train.py's default 3e-3 (warmup 20 steps) the loss
+# of 30 steps rises once the rate passes ~2.5e-3, on the kernels and on the
+# plain versions alike; at 1e-3 it falls (PERF.md, tools/train_probe.py)
+TRAIN_LR = 1e-3
+# One training step's gradients with the kernels against the same step on
+# the plain versions on the card, as the relative norm of each parameter's
+# gradient difference, ||g_kernel - g_plain|| / ||g_plain||: the tensor-core
+# forward rounds P to bf16 before P V, and both paths round bf16
+# activations and gradients (2^-8 relative) at different places, which 32
+# layers carry into every gradient (the logit checks' 5% bound).  A wrong
+# mask, head or scale moves a gradient by O(1) of its norm.  The losses,
+# means over 2048 tokens, within 1% (a few bf16 ulps) of each other.
+TRAIN_GRAD_RTOL = 0.05
+TRAIN_LOSS_RTOL = 1e-2
+# the flash backward alone against its plain version, relative to the
+# largest |value| (the forward's form): f32 sums in another order; bf16
+# outputs rounded once
+FLASH_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Logit tolerances, as a fraction of the largest |logit| of the reference:
 # bf16 keeps 8 significant bits (2^-8 relative per rounding).  Kernel and
 # plain version sum in different orders and round their bf16 outputs
@@ -222,7 +264,8 @@ def _kernel_modules() -> dict:
 
 
 def zero_counts() -> None:
-    """Sets every kernel wrapper's launch counts to 0 (per route too)."""
+    """Sets every kernel wrapper's launch counts to 0 (per route too, and
+    the flash backward's)."""
     for n, m in _kernel_modules().items():
         m.launches = 0
         if n in ROUTED:
@@ -231,10 +274,16 @@ def zero_counts() -> None:
             m.launches_ring = 0
         if n == "contraction":
             m.launches_strided = 0
+        if n == "flash_attention":
+            m.launches_bwd = m.launches_bwd_tc = 0
 
 
 def read_counts() -> dict:
-    return {n: m.launches for n, m in _kernel_modules().items()}
+    """kernel -> launches since the counts were last set to 0 (the flash
+    backward as ``flash_attention_bwd``)."""
+    mods = _kernel_modules()
+    return {**{n: m.launches for n, m in mods.items()},
+            "flash_attention_bwd": mods["flash_attention"].launches_bwd}
 
 
 def read_routes() -> dict:
@@ -315,7 +364,7 @@ def build_phase() -> None:
     ring = "strided_gemm_kernel"
     for lib, entry in (("contraction", ring), ("matmul_pom", ring),
                        ("decode_attention", "decode_kernel"), ("ssm_scan", "ssm_scan_"),
-                       ("stencil", "jacobi")):
+                       ("stencil", "jacobi"), ("flash_attention_bwd", "flash_bwd_")):
         found = ptxas_entries(_build.log_path(lib).read_text(), entry)
         if not found:
             fail(f"{lib}: ptxas compiled no {entry}")
@@ -326,7 +375,7 @@ def build_phase() -> None:
         if len(found) <= 2:
             for n, (r, sp) in found.items():
                 print(f"  {n}: {r} registers, {sp} bytes spilled")
-        if spills and lib in ("ssm_scan", "stencil"):
+        if spills and lib in ("ssm_scan", "stencil", "flash_attention_bwd"):
             fail(f"{lib}: kernels spill registers: {spills}")
 
 
@@ -457,9 +506,54 @@ def kernel_phase() -> dict:
             if causal and sq > skv and not bool((got[:, :, :sq - skv] == 0).all()):
                 fail("flash_attention: a query row that sees no key is not 0")
             errs["flash_attention"] = max(errs["flash_attention"], err)
+    errs["flash_attention_bwd"] = flash_bwd_vs_plain(g)
     errs["grouped_matmul"] = gmm_vs_plain(g)
     errs["ssm_scan"] = scan_vs_plain(g)
     return errs
+
+
+def flash_bwd_vs_plain(g) -> float:
+    """The flash backward against ``ref.attention_backward`` on the same q,
+    k, v, o, lse and dO: at the training step's shape in bf16 and f32, and
+    Sq > Skv (rows that see no key get dq 0) and group 4 ragged; a second
+    call gives the same bits; bf16 at D 64 on both routes (tensor and CUDA
+    cores).  Each held to FLASH_BWD_RTOL of its largest |value|; returns the
+    largest absolute error."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import flash_attention as flash_mod
+    worst_abs = 0.0
+    for b, hq, hkv, sq, skv, d, causal, dt in [
+            (TRAIN_B, 15, 5, TRAIN_S, TRAIN_S, 64, True, torch.bfloat16),
+            (TRAIN_B, 15, 5, TRAIN_S, TRAIN_S, 64, True, torch.float32),
+            (1, 4, 2, 200, 64, 64, True, torch.bfloat16),
+            (2, 8, 2, 130, 130, 64, True, torch.float32)]:
+        q, do = _randn(g, b, hq, sq, d, dtype=dt), _randn(g, b, hq, sq, d, dtype=dt)
+        k, v = _randn(g, b, hkv, skv, d, dtype=dt), _randn(g, b, hkv, skv, d, dtype=dt)
+        o, lse = flash_mod.flash_attention(q, k, v, causal=causal, return_lse=True)
+        want = ref.attention_backward(q, k, v, o, lse, do, causal=causal)
+        best = autotune.attention_route(sq, skv, d, q.element_size())
+        for route in sorted({best, autotune.CUDA_CORES}):
+            ntc = flash_mod.launches_bwd_tc
+            got = flash_mod.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                                     route=route)
+            again = flash_mod.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                                       route=route)
+            torch.cuda.synchronize()
+            if (flash_mod.launches_bwd_tc - ntc) != 2 * (route == autotune.TENSOR_CORES):
+                fail(f"flash_attention_backward did not take the route {route}")
+            err = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+            rel = max(e / w.float().abs().max().item() for e, w in zip(err, want))
+            print(f"flash backward B{b} Hq{hq} Hkv{hkv} Sq{sq} Skv{skv} D{d} {str(dt)[6:]} "
+                  f"{route}: max abs err {max(err):.3g}, {rel:.3g} of the largest value "
+                  f"(tolerance {FLASH_BWD_RTOL[dt]})")
+            if not rel <= FLASH_BWD_RTOL[dt]:
+                fail(f"flash_attention_backward disagrees with its plain version: {rel}")
+            if any(not torch.equal(a, x) for a, x in zip(got, again)):
+                fail("flash_attention_backward: a second call gave other bits")
+            if sq > skv and not bool((got[0][:, :, :sq - skv] == 0).all()):
+                fail("flash_attention_backward: a query row that sees no key has dq != 0")
+            worst_abs = max(worst_abs, max(err))
+    return worst_abs
 
 
 def _rel_tol(dtype, f32: float) -> float:
@@ -641,9 +735,11 @@ def busy_share(fn, per: int, label: str, kernels) -> dict:
           + ", ".join(f"{k} {ms:.4f} ms" for k, ms in kernel_ms.items()))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {ms:.4f} ms  {name[:100]}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms, "kernels": len(events) / per,
-            **{f"{k}_ms": ms for k, ms in kernel_ms.items()}}
+            **{f"{k}_ms": ms for k, ms in kernel_ms.items()},
+            "top": [[name[:100], ms] for name, ms in top]}
 
 
 # --------------------------------------------------------------------------
@@ -692,6 +788,172 @@ def forward_phase(model) -> dict:
           f"({out['prefill_tok_s']:.0f} tok/s), peak memory {peak / 2**30:.3f} GiB")
     return {"forward": out, "launches": launches}
 
+
+
+# --------------------------------------------------------------------------
+# 6b. training smollm_360m at full width
+# --------------------------------------------------------------------------
+def _grads(model, batch) -> tuple:
+    """One step's loss and every parameter's gradient (cloned), without the
+    optimiser."""
+    from repro_torch.models import loss_fn
+    model.zero_grad(set_to_none=True)
+    total, _ = loss_fn(model, batch)
+    total.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return total.detach(), grads
+
+
+def check_bwd_tc(label: str, n: int) -> None:
+    """The flash backward ran ``n`` times since the counts were last set to
+    0, every time on the tensor cores."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    got = (flash_mod.launches_bwd, flash_mod.launches_bwd_tc)
+    print(f"{label}: flash backward {got[0]} calls, {got[1]} on the tensor cores")
+    if got != (n, n):
+        fail(f"{label}: flash backward calls (all, tensor cores) {got}, expected ({n}, {n})")
+
+
+def train_phase() -> dict:
+    """smollm_360m at full width and depth (bf16 parameters, f32 moments,
+    ``remat="full"``), batch 8 x 256 from ``SyntheticLM``.
+
+    (1) one step's loss and gradients with the kernels against the same step
+    on the plain versions on the card, with exact launch counts: 64 forward
+    flash launches a step (each layer again under remat), all on the tensor
+    cores with lse, and 32 backward ones; no other kernel.  (2) The main
+    path: 30 steps of ``launch/train.py``'s loop at peak learning rate
+    TRAIN_LR with a checkpoint at step 10 (counts set to 0 just before it,
+    read just after); the loss falls.
+    (3) A second run stopped after its step-10 checkpoint and resumed from
+    it in the same process gives the same losses, parameters and moments,
+    bit for bit.  (4) Step wall time, device busy time and share, tokens/s,
+    peak memory and the top device kernels."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLM, make_device_batch
+    from repro_torch.distributed.step import make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import init_params
+    cfg = get_config("smollm_360m")
+    phase("train smollm_360m full width")
+    if cfg.remat != "full":
+        fail(f"smollm_360m's remat is {cfg.remat!r}, the phase expects 'full'")
+    fwd_per_step, bwd_per_step = 2 * cfg.num_layers, cfg.num_layers
+    want = {"flash_attention": fwd_per_step, "flash_attention_bwd": bwd_per_step}
+    ds = SyntheticLM(cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train"), seed=0)
+    batch = make_device_batch(ds.batch_at(0), "cuda")
+    out = {"batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS}
+
+    # (1) kernels against plain versions on one step
+    model = init_params(cfg, seed=0, device="cuda").requires_grad_(True)
+    _grads(model, batch)                        # warm-up: builds, cuBLAS handles
+    torch.cuda.synchronize()
+    zero_counts()
+    loss_k, g_k = _grads(model, batch)
+    torch.cuda.synchronize()
+    got = read_counts()
+    print(f"launches in one training step: {got}")
+    check_counts("train step", got, want)
+    check_routes("train step", "flash_attention", fwd_per_step)
+    check_bwd_tc("train step", bwd_per_step)
+    with ops.plain_versions():
+        loss_p, g_p = _grads(model, batch)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    rel = {n: ((g_k[n].float() - g_p[n].float()).norm()
+               / g_p[n].float().norm().clamp_min(1e-30)).item() for n in g_p}
+    worst = max(rel, key=rel.get)
+    print(f"train step, kernels vs plain versions: loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (rel {loss_rel:.3g}, tolerance {TRAIN_LOSS_RTOL}); gradient "
+          f"difference, relative norm: largest {rel[worst]:.4g} ({worst}), median "
+          f"{sorted(rel.values())[len(rel) // 2]:.4g} (tolerance {TRAIN_GRAD_RTOL})")
+    if not all(torch.isfinite(g.float()).all() for g in g_k.values()):
+        fail("train step: a gradient is not finite")
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        fail(f"train step: the loss with the kernels is {loss_rel} off the plain one")
+    if not rel[worst] <= TRAIN_GRAD_RTOL:
+        fail(f"train step: {worst}'s gradient is {rel[worst]} off the plain one")
+    out["vs_plain"] = {"loss_rel_err": loss_rel, "grad_rel_norm_max": rel[worst],
+                       "grad_rel_norm_max_param": worst,
+                       "grad_rel_norm_median": sorted(rel.values())[len(rel) // 2]}
+    del model, g_k, g_p
+
+    # (2) the main path: launch/train.py's loop, 30 steps, checkpoint at 10
+    root = tempfile.mkdtemp(prefix="repro_torch_train_")
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR,
+              ckpt_every=TRAIN_CKPT, log_every=TRAIN_CKPT, device="cuda", keep=1)
+    try:
+        zero_counts()
+        straight = train_mod.train(cfg, workdir=os.path.join(root, "a"), **kw)
+        got = read_counts()
+        print(f"launches in the {TRAIN_STEPS}-step run: {got}")
+        check_counts("train loop", got, {k: n * TRAIN_STEPS for k, n in want.items()})
+        check_routes("train loop", "flash_attention", fwd_per_step * TRAIN_STEPS)
+        check_bwd_tc("train loop", bwd_per_step * TRAIN_STEPS)
+        launches = got
+        losses = straight.losses
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        print(f"train loop: {straight.wall_s:.2f} s with checkpoints; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, mean of the first 5 steps {first:.4f}, of the last 5 "
+              f"{last:.4f}")
+        if not all(np.isfinite(losses)) or not last < first:
+            fail(f"train loop: the loss did not fall ({first} -> {last})")
+        out.update(losses=losses, loop_wall_s=straight.wall_s)
+
+        # (3) stop after the step-10 checkpoint, resume in this process
+        cut = train_mod.train(cfg, workdir=os.path.join(root, "b"), stop_after=TRAIN_CKPT, **kw)
+        del cut
+        resumed = train_mod.train(cfg, workdir=os.path.join(root, "b"), **kw)
+        if resumed.start != TRAIN_CKPT:
+            fail(f"the resumed run began at step {resumed.start}, not {TRAIN_CKPT}")
+        diff = max(abs(a - b) for a, b in zip(resumed.losses, losses[TRAIN_CKPT:]))
+        same_state = all(torch.equal(p, q) for p, q in zip(straight.model.parameters(),
+                                                            resumed.model.parameters()))
+        same_state &= all(torch.equal(straight.opt.m[n], resumed.opt.m[n])
+                          and torch.equal(straight.opt.v[n], resumed.opt.v[n])
+                          for n in straight.opt.m)
+        print(f"resumed from step {TRAIN_CKPT}: losses of steps {TRAIN_CKPT}-{TRAIN_STEPS - 1} "
+              f"{'bit-equal to' if diff == 0 else f'{diff:.3g} off'} the straight run's; "
+              f"final parameters and moments {'bit-equal' if same_state else 'differ'}")
+        if diff != 0 or not same_state:
+            fail("the resumed run differs from the straight run")
+        out["resume"] = {"from_step": TRAIN_CKPT, "loss_max_abs_diff": diff,
+                         "state_bit_equal": same_state}
+        del resumed
+
+        # (4) numbers: steps on, from the straight run's state, no checkpoints
+        model, opt = straight.model, straight.opt
+        step_fn = make_train_step(cfg, model, peak_lr=TRAIN_LR, warmup=train_mod.WARMUP,
+                                  total_steps=TRAIN_STEPS)
+        holder = {"opt": opt}
+
+        def steps(n):
+            for i in range(n):
+                holder["opt"], _ = step_fn(holder["opt"], make_device_batch(
+                    ds.batch_at(TRAIN_STEPS + i), "cuda"))
+        steps(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps(5)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / 5
+        peak = torch.cuda.max_memory_allocated()
+        busy = busy_share(lambda: steps(2), 2, "train step", ("flash_kernel_tc",
+                                                               "flash_bwd_"))
+        out.update(step_ms=step_ms, tokens_per_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
+                   peak_mem_bytes=peak, busy=busy)
+        print(f"train step: {step_ms:.2f} ms wall ({out['tokens_per_s']:.0f} tokens/s), "
+              f"peak memory {peak / 2**30:.3f} GiB")
+        del straight, model, opt, holder, step_fn
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"train": out, "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -1685,11 +1947,13 @@ def numbers_phase(errs: dict, launches: dict) -> list:
         fail(f"flash_attention: ops.attention took the {route} route, its schedule "
              f"{sch.route}")
     cc_ms = time_ms(lambda: flash_mod.flash_attention(q, k, v, bq=64, bkv=64), iters=20)
+    lse_ms = time_ms(lambda: flash_mod.flash_attention(q, k, v, bq=sch.bq, bkv=sch.bkv,
+                                                       return_lse=True))
     plain_ms = time_ms(lambda: ref.attention(q, k, v, causal=True), iters=20)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                             enable_gqa=True))
     print(f"flash_attention B{b} S{s} ({route}, tile {(sch.bq, sch.bkv)}): {ms:.4f} ms, "
-          f"CUDA-core route (64, 64) {cc_ms:.4f} ms, "
+          f"with lse {lse_ms:.4f} ms, CUDA-core route (64, 64) {cc_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1698,9 +1962,60 @@ def numbers_phase(errs: dict, launches: dict) -> list:
                  "max_abs_err": errs["flash_attention"], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
                  "library": "scaled_dot_product_attention", "kernel_route": route,
-                 "tile": [sch.bq, sch.bkv], "cuda_core_route_ms": cc_ms})
+                 "tile": [sch.bq, sch.bkv], "cuda_core_route_ms": cc_ms,
+                 "with_lse_ms": lse_ms})
+    rows.append(flash_bwd_row(g, errs, launches))
     clocks("after")
     return rows
+
+
+def flash_bwd_row(g, errs: dict, launches: dict) -> dict:
+    """The flash backward at the training step's shape (B 8, Hq 15, Hkv 5,
+    S 256, D 64, bf16, causal): its time, its plain version's, the bound of
+    its work (q, k, v, o, dO and lse read once, dq, dk, dv written once; the
+    five causal products of the backward, 2.5x the forward's operations, at
+    the bf16 tensor-core rate), and SDPA's forward plus backward (its
+    backward alone beside it) on the same inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    dt = torch.bfloat16
+    b, hq, hkv, s, d = TRAIN_B, 15, 5, TRAIN_S, 64
+    q, do = _randn(g, b, hq, s, d, dtype=dt), _randn(g, b, hq, s, d, dtype=dt)
+    k, v = _randn(g, b, hkv, s, d, dtype=dt), _randn(g, b, hkv, s, d, dtype=dt)
+    o, lse = flash_mod.flash_attention(q, k, v, return_lse=True)
+    byts = (4 * b * hq * s * d + 4 * b * hkv * s * d) * 2 + 4 * b * hq * s
+    flops = 2.5 * 4.0 * d * b * hq * (s * (s + 1) // 2)
+    bms, by = bound(byts, flops, dt)
+    ntc = flash_mod.launches_bwd_tc
+    ms = time_ms(lambda: flash_mod.flash_attention_backward(q, k, v, o, lse, do))
+    if flash_mod.launches_bwd_tc == ntc:
+        fail("flash_attention_backward: the timed calls did not take the tensor cores")
+    cc_ms = time_ms(lambda: flash_mod.flash_attention_backward(q, k, v, o, lse, do,
+                                                               route="cuda_cores"), iters=20)
+    plain_ms = time_ms(lambda: ref.attention_backward(q, k, v, o, lse, do), iters=20)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, leaves, do)
+    lib_ms = time_ms(sdpa_fwd_bwd)
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    print(f"flash_attention_bwd B{b} S{s} (tensor cores): {ms:.4f} ms, CUDA-core route "
+          f"{cc_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa forward + backward {lib_ms:.4f} ms "
+          f"(backward alone {lib_bwd_ms:.4f} ms), bound {bms:.5f} ms ({by})")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "none: no TPU counterpart (the reference differentiates XLA "
+                        "attention; src/repro/configs/base.py:54 use_pallas False)",
+            "launches": launches["flash_attention_bwd"],
+            "max_abs_err": errs["flash_attention_bwd"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention forward + backward",
+            "library_backward_only_ms": lib_bwd_ms, "kernel_route": "tensor_cores",
+            "cuda_core_route_ms": cc_ms,
+            "shape": f"B {b}, Hq {hq}, Hkv {hkv}, S {s}, D {d}, bf16, causal"}
 
 
 def compile_numbers_phase(errs: dict, launches: dict) -> list:
@@ -1945,6 +2260,9 @@ def main() -> None:
     _add(launches, fwd["launches"])
     del model
     torch.cuda.empty_cache()
+    # slice 9: training (its loop's counts set to 0 just before it)
+    trained = train_phase()
+    _add(launches, trained["launches"])
     # slice 3: each family's serve and forward count their own launches
     families = {}
     for arch in FAMILIES:
@@ -1968,13 +2286,13 @@ def main() -> None:
     errs.update(library["errs"])
     _add(launches, library["launches"])
     print(f"launches on all paths: {launches}")
-    for name in KERNEL_MODULES:
+    for name in (*KERNEL_MODULES, "flash_attention_bwd"):
         if launches.get(name, 0) == 0:
             fail(f"{name} was never launched on the main path")
     rows = (numbers_phase(errs, launches) + compile_numbers_phase(errs, launches)
             + lm_numbers_phase(errs, launches) + library_numbers_phase(errs, launches))
     print(json.dumps({"serve": served["serve"], "forward": fwd["forward"],
-                      "families": families, "compile_path": pom, "workloads": wl,
+                      "train": trained["train"], "families": families, "compile_path": pom, "workloads": wl,
                       "workloads_default_size": wl_default,
                       "kernel_library": {k: library[k] for k in
                                          ("wall_ms", "vs_compile_path_max_abs_err")},

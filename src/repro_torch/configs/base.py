@@ -88,6 +88,14 @@ class ModelConfig:
         return self.param_count() - inactive
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # 'train' | 'prefill' | 'decode'
+
+
 ARCH_IDS = [
     "starcoder2_7b", "codeqwen1_5_7b", "smollm_360m", "qwen2_72b",
     "musicgen_large", "zamba2_1_2b", "llama4_maverick_400b",

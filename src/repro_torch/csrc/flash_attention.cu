@@ -37,6 +37,11 @@
 //   memory (m, l in shared memory, acc in registers) and re-read once per q
 //   tile of at most 64 rows.
 //
+// Both routes write, where the caller passes an `lse` buffer (B, Hq, Sq) f32,
+// each row's log-sum-exp of its scaled scores in natural-log units (the
+// training backward, csrc/flash_attention_bwd.cu, recomputes P from it); a
+// null pointer writes nothing.  A row that sees no key gets -inf.
+//
 // Layouts (all contiguous): q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D),
 // out (B, Hq, Sq, D) in q's dtype.  Query head hq uses kv head
 // hq / (Hq / Hkv).  Causal: query i sees key j iff j <= i + (Skv - Sq).
@@ -102,8 +107,8 @@ __host__ __device__ constexpr int smem_floats(int bq, int bkv, int d) {
 template <typename T, int D, int BQ, int BKV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int hq, int hkv, int sq, int skv, int causal,
-             float scale) {
+             T* __restrict__ out, float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+             int causal, float scale) {
   constexpr int R = BQ / 16;    // rows per thread
   constexpr int CS = BKV / 8;   // score columns per thread
   constexpr int CD = D / 8;     // output columns per thread
@@ -255,12 +260,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int c = 0; c < CD; ++c)
         ob[(size_t)(q0 + i) * D + tx + 8 * c] = from_f<T>(l == 0.f ? 0.f : acc[r][c] / l);
+      // m is in natural-log units here
+      if (lse != nullptr && tx == 0)
+        lse[(size_t)bh * sq + q0 + i] = l == 0.f ? -INFINITY : m_s[i] + logf(l);
     }
   }
 }
 
 template <typename T, int D, int BQ, int BKV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
                    int hq, int hkv, int sq, int skv, int causal, float scale,
                    cudaStream_t stream) {
   constexpr int smem = smem_floats(BQ, BKV, D) * (int)sizeof(float);
@@ -272,41 +280,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   dim3 grid((sq + BQ - 1) / BQ, b * hq);
   flash_kernel<T, D, BQ, BKV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), hq, hkv, sq, skv, causal, scale);
+      static_cast<T*>(out), lse, hq, hkv, sq, skv, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D, int BQ>
 cudaError_t dispatch_bkv(int bkv, const void* q, const void* k, const void* v, void* out,
-                         int b, int hq, int hkv, int sq, int skv, int causal,
+                         float* lse, int b, int hq, int hkv, int sq, int skv, int causal,
                          float scale, cudaStream_t st) {
   switch (bkv) {
-    case 32: return launch<T, D, BQ, 32>(q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
-    case 64: return launch<T, D, BQ, 64>(q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
-    case 128: return launch<T, D, BQ, 128>(q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
+    case 32: return launch<T, D, BQ, 32>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
+    case 64: return launch<T, D, BQ, 64>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
+    case 128: return launch<T, D, BQ, 128>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T, int D>
 cudaError_t dispatch_bq(int bq, int bkv, const void* q, const void* k, const void* v,
-                        void* out, int b, int hq, int hkv, int sq, int skv, int causal,
+                        void* out, float* lse, int b, int hq, int hkv, int sq, int skv, int causal,
                         float scale, cudaStream_t st) {
   switch (bq) {
-    case 32: return dispatch_bkv<T, D, 32>(bkv, q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
-    case 64: return dispatch_bkv<T, D, 64>(bkv, q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
+    case 32: return dispatch_bkv<T, D, 32>(bkv, q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
+    case 64: return dispatch_bkv<T, D, 64>(bkv, q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 cudaError_t dispatch_d(int d, int bq, int bkv, const void* q, const void* k, const void* v,
-                       void* out, int b, int hq, int hkv, int sq, int skv, int causal,
+                       void* out, float* lse, int b, int hq, int hkv, int sq, int skv, int causal,
                        float scale, cudaStream_t st) {
   switch (d) {
-    case 32: return dispatch_bq<T, 32>(bq, bkv, q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
-    case 64: return dispatch_bq<T, 64>(bq, bkv, q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
-    case 128: return dispatch_bq<T, 128>(bq, bkv, q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
+    case 32: return dispatch_bq<T, 32>(bq, bkv, q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
+    case 64: return dispatch_bq<T, 64>(bq, bkv, q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
+    case 128: return dispatch_bq<T, 128>(bq, bkv, q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -322,6 +330,7 @@ constexpr int kThreads = kConsumers * 128 + 32;   // + the producer warp
 constexpr int kStages = 2;                    // stages of the K/V ring
 constexpr int kBKV = 64;                      // keys of a K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory: the Q tile (D / 64 boxes of 128 rows x 128 bytes), then
 // kStages stages of a K and a V tile (D / 64 boxes of kBKV rows x 128 bytes
@@ -436,7 +445,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
 flash_kernel_tc(const __grid_constant__ CUtensorMap tma_q, const __grid_constant__ CUtensorMap tma_k,
                 const __grid_constant__ CUtensorMap tma_v, __nv_bfloat16* __restrict__ out,
-                int hq, int hkv, int sq, int skv, int causal, float scale_log2) {
+                float* __restrict__ lse, int hq, int hkv, int sq, int skv, int causal, float scale_log2) {
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -593,6 +602,10 @@ flash_kernel_tc(const __grid_constant__ CUtensorMap tma_q, const __grid_constant
     const int r = row + 8 * h;
     if (r >= sq) continue;
     const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
+    // m is in log2 units (scale * log2 e folded in): lse = (m + log2 l) ln 2
+    if (lse != nullptr && lane % 4 == 0)
+      lse[static_cast<size_t>(bh) * sq + r] =
+          l[h] == 0.f ? -INFINITY : (m[h] + log2f(l[h])) * kLn2;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(r) * D + 8 * j + 2 * (lane % 4)) =
@@ -601,8 +614,9 @@ flash_kernel_tc(const __grid_constant__ CUtensorMap tma_q, const __grid_constant
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int hq,
-                   int hkv, int sq, int skv, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                   int hq, int hkv, int sq, int skv, int causal, float scale,
+                   cudaStream_t stream) {
   using T = Tile<D>;
   const int q_tiles = (sq + kBQ - 1) / kBQ;
   if (q_tiles > 65535 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
@@ -618,19 +632,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   if (err == cudaSuccess) err = make_map(&mv, v, D, skv, static_cast<uint64_t>(b) * hkv, 64, kBKV);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * hq, q_tiles);
-  kern<<<grid, kThreads, T::kSmem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out), hq,
-                                             hkv, sq, skv, causal, scale * kLog2e);
+  kern<<<grid, kThreads, T::kSmem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse,
+                                             hq, hkv, sq, skv, causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
 // The tile of autotune.FLASH_TC_TILES, (bq, bkv) = (kBQ, kBKV), at the head
 // dims of autotune.FLASH_TC_DIMS.
 cudaError_t dispatch(int d, int bq, int bkv, const void* q, const void* k, const void* v,
-                     void* out, int b, int hq, int hkv, int sq, int skv, int causal, float scale,
-                     cudaStream_t st) {
+                     void* out, float* lse, int b, int hq, int hkv, int sq, int skv, int causal,
+                     float scale, cudaStream_t st) {
   if (bq != kBQ || bkv != kBKV) return cudaErrorInvalidValue;
-  if (d == 64) return launch<64>(q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
-  if (d == 128) return launch<128>(q, k, v, out, b, hq, hkv, sq, skv, causal, scale, st);
+  if (d == 64) return launch<64>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
+  if (d == 128) return launch<128>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -638,21 +652,21 @@ cudaError_t dispatch(int d, int bq, int bkv, const void* q, const void* k, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); cudaErrorInvalidValue for an unsupported shape or
-// block size.
+// dtype: 0 = float32, 1 = bfloat16.  `lse`: null, or (B, Hq, Sq) f32 for
+// each row's log-sum-exp.  Returns cudaGetLastError() after the launch (0 on
+// success); cudaErrorInvalidValue for an unsupported shape or block size.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int b, int hq, int hkv, int sq, int skv,
+                                      void* out, float* lse, int b, int hq, int hkv, int sq, int skv,
                                       int d, int bq, int bkv, int causal, float scale,
                                       int dtype, void* stream) {
   if (b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_d<float>(d, bq, bkv, q, k, v, out, b, hq, hkv, sq, skv, causal,
+    return (int)dispatch_d<float>(d, bq, bkv, q, k, v, out, lse, b, hq, hkv, sq, skv, causal,
                                   scale, st);
   if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(d, bq, bkv, q, k, v, out, b, hq, hkv, sq, skv,
+    return (int)dispatch_d<__nv_bfloat16>(d, bq, bkv, q, k, v, out, lse, b, hq, hkv, sq, skv,
                                           causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -662,10 +676,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // success); cudaErrorInvalidValue for a shape, tile or pointer the route
 // does not take.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
-                                         int b, int hq, int hkv, int sq, int skv, int d, int bq,
+                                         float* lse, int b, int hq, int hkv, int sq, int skv, int d, int bq,
                                          int bkv, int causal, float scale, void* stream) {
   if (b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0)
     return (int)cudaErrorInvalidValue;
-  return (int)tc::dispatch(d, bq, bkv, q, k, v, out, b, hq, hkv, sq, skv, causal, scale,
+  return (int)tc::dispatch(d, bq, bkv, q, k, v, out, lse, b, hq, hkv, sq, skv, causal, scale,
                            static_cast<cudaStream_t>(stream));
 }

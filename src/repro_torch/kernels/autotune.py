@@ -118,6 +118,30 @@ def flash_tc_smem_bytes(bq: int, bkv: int, d: int) -> int:
     return 1024 + bq * d * 2 + FLASH_TC_STAGES * 2 * bkv * d * 2 + 8 * (2 * FLASH_TC_STAGES + 1)
 
 
+# csrc/flash_attention_bwd.cu's CUDA-core route: head dim -> ((bq, bkv) of
+# the dK/dV kernel, (bq, bkv) of the dQ kernel), its ``BwdTiles`` (the
+# tensor-core route's tiles are 64 x 64 at D 64 and 128).  D 128 takes 32 query rows
+# a dK/dV tile, so that a thread's dK, dV, S^T and dP^T stay in registers.
+FLASH_BWD_TILES = {32: ((64, 64), (64, 64)), 64: ((64, 64), (64, 64)),
+                   128: ((32, 64), (64, 64))}
+
+
+def flash_bwd_tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one tensor-core backward block (dK/dV and dQ
+    alike, ``tc::Tiles::kSmem``): four bf16 tiles of 64 rows padded by 16
+    bytes, and 64 lse and Delta values."""
+    return 4 * 64 * (d + 8) * 2 + 2 * 64 * 4
+
+
+def flash_bwd_smem_bytes(d: int) -> tuple:
+    """Dynamic shared memory of one dK/dV block and one dQ block of the
+    flash backward (f32 tiles; ``dkdv_smem_floats`` / ``dq_smem_floats``)."""
+    (kbq, kbkv), (qbq, qbkv) = FLASH_BWD_TILES[d]
+    dkdv = 2 * kbkv * (d + 1) + 2 * kbq * (d + 1) + 2 * kbkv * (kbq + 1) + 2 * kbq
+    dq = 2 * qbq * (d + 1) + 2 * qbkv * (d + 1) + qbq * (qbkv + 1) + 2 * qbq
+    return 4 * dkdv, 4 * dq
+
+
 def decode_smem_bytes(heads: int, d: int) -> int:
     """Static shared memory of one decode-attention CTA serving ``heads``
     query heads (f32): each warp's partial acc, max and sum per head, and

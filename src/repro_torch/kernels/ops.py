@@ -34,6 +34,7 @@ from . import ref
 from .autotune import (TENSOR_CORES, pom_attention_schedule, pom_decode_schedule,
                        pom_gmm_schedule, pom_matmul_schedule, pom_scan_schedule)
 from .decode_attention import decode_attention as _decode_cuda
+from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _flash_cuda
 from .grouped_matmul import grouped_matmul as _gmm_cuda
 from .matmul_pom import matmul as _matmul_cuda
@@ -87,16 +88,25 @@ def jacobi2d(x, steps: int = 1):
 
 
 def attention(q, k, v, *, causal: bool = True, schedule: str = "pom"):
-    """q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
+    """q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
+
+    Where autograd needs a gradient (grad mode on and q, k or v requiring
+    one) the call goes through ``FlashAttention``: the same forward kernel,
+    which then also writes each row's log-sum-exp, and the backward kernel.
+    Inside ``plain_versions()`` it is ``ref.attention``, which autograd
+    differentiates."""
     _check(schedule)
     if _plain:
         return ref.attention(q, k, v, causal=causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if schedule == "naive":
-        return _flash_cuda(q, k, v, causal=causal)   # the fixed tile of the route
-    s = pom_attention_schedule(q.shape[2], k.shape[2], q.shape[3], q.element_size(), causal,
-                               aligned=_aligned(q, k, v))
-    return _flash_cuda(q, k, v, causal=causal, bq=s.bq, bkv=s.bkv)
+    bq = bkv = None                        # naive: the fixed tile of the route
+    if schedule == "pom":
+        s = pom_attention_schedule(q.shape[2], k.shape[2], q.shape[3], q.element_size(),
+                                   causal, aligned=_aligned(q, k, v))
+        bq, bkv = s.bq, s.bkv
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, None, bq, bkv)
+    return _flash_cuda(q, k, v, causal=causal, bq=bq, bkv=bkv)
 
 
 def decode_attention(q, k, v, *, length=None, schedule: str = "pom"):

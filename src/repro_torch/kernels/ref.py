@@ -77,22 +77,26 @@ def jacobi2d_blocked(x: torch.Tensor, steps: int, sweeps: int, tile: tuple) -> t
     return x
 
 
-def _softmax_av(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax over the last axis of ``s`` restricted to ``mask``, times v;
-    rows with no True in ``mask`` give 0."""
+def _softmax_av_parts(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor):
+    """(softmax over the last axis of ``s`` restricted to ``mask``, times v;
+    each row's max m and sum l of exp(s - m) over the mask, keepdim).  Rows
+    with no True in ``mask`` give 0 and l = 0."""
     s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros((), dtype=s.dtype, device=s.device))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p, v)
-    return o / torch.where(l == 0, torch.ones_like(l), l)
+    return o / torch.where(l == 0, torch.ones_like(l), l), m, l
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) with GQA broadcast.
+def _softmax_av(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return _softmax_av_parts(s, mask, v)[0]
 
-    Causal: query i attends to keys j <= i + (Skv - Sq) (aligned suffixes)."""
+
+def _scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: Optional[float]):
+    """(scale * Q K^T in f32, the visible-key mask, K and V in f32 with each kv
+    head repeated over its group, scale)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -106,7 +110,54 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = (kj <= qi).expand(b, hq, sq, skv)
     else:
         mask = torch.ones(b, hq, sq, skv, dtype=torch.bool, device=q.device)
+    return s, mask, kr, vr, scale
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) with GQA broadcast.
+
+    Causal: query i attends to keys j <= i + (Skv - Sq) (aligned suffixes)."""
+    s, mask, _, vr, _ = _scores(q, k, v, causal, scale)
     return _softmax_av(s, mask, vr).to(q.dtype)
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, scale: Optional[float] = None):
+    """``attention`` (the same operations, so the same bits) and each row's
+    log-sum-exp of its scaled scores over the keys it sees: (o, lse (B, Hq,
+    Sq) f32, natural log; -inf for a row that sees no key)."""
+    s, mask, _, vr, _ = _scores(q, k, v, causal, scale)
+    o, m, l = _softmax_av_parts(s, mask, vr)
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, -math.inf))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                       lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                       scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of ``attention`` for the output gradient ``do``,
+    from its output ``o`` and ``lse`` (of ``attention_lse``), by the explicit
+    formula the backward kernel computes, in f32:
+    P = exp(S scale - lse) (0 where masked), dV = sum_group P^T dO,
+    dP = dO V^T, Delta = rowsum(dO o O), dS = P o (dP - Delta),
+    dQ = scale dS K, dK = scale sum_group dS^T Q.  The query heads of a
+    group sum into their kv head; a row that sees no key gets 0."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    s, mask, kr, vr, scale = _scores(q, k, v, causal, scale)
+    # where no entry of a row is visible its lse is -inf: every entry masked
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), dtype=s.dtype, device=s.device))
+    dof, qf = do.float(), q.float()
+    dv = torch.matmul(p.transpose(-1, -2), dof).reshape(b, hkv, group, skv, d).sum(2)
+    dp = torch.matmul(dof, vr.transpose(-1, -2))
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kr) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf).reshape(b, hkv, group, skv, d).sum(2) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -18,13 +18,20 @@ moe ``{"l{j}": {"k", "v"}}`` stacked over super-blocks; hybrid
 ``{"ssm": {"h", "conv"}, "shared_kv": {"k", "v"}}`` (one KV cache per
 shared-attention site); ssm ``{"mlstm": {"C", "n"}, "slstm": {"c", "n"}}``.
 ``decode_step`` updates the cache in place and returns it.
+
+Training: parameters are made with ``requires_grad=False`` (serving records
+nothing); a trainer calls ``model.requires_grad_(True)``.  ``forward`` is
+differentiable and ``loss_fn`` is the reference's loss; ``decode_step``
+stays under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -145,12 +152,36 @@ def _every(i: int, k: int) -> bool:
     return bool(k) and (i + 1) % k == 0
 
 
-@torch.no_grad()
+def _dense_block(bp: Block, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    return _attn_ffn(bp, x, cfg, positions)[0]
+
+
+def _remat(fn, cfg: ModelConfig):
+    """The reference's ``jax.checkpoint`` around a block (``cfg.remat``):
+    "none" runs ``fn`` as it is; "full" keeps only the block's inputs and
+    runs it again in the backward (``torch.utils.checkpoint``, non-reentrant;
+    the blocks draw no random numbers, so no RNG state is stashed).  "dots"
+    (keep the matmul outputs) is not ported: no shipped config uses it."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError("remat='dots' is not ported (no shipped config uses it); "
+                                  "use 'full' or 'none'")
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def forward(model: Model, tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, Vpad) f32, aux_loss scalar f32: the MoE
-    load-balance loss summed over layers, 0 for other families)."""
+    load-balance loss summed over layers, 0 for other families).
+
+    Differentiable: with grad mode on, the dense family's blocks run under
+    ``_remat`` (``cfg.remat``) and attention through its backward kernel."""
     cfg = model.cfg
+    dense_block = _remat(_dense_block, cfg) if torch.is_grad_enabled() else _dense_block
     if embeds is not None:
         x = L.frontend_apply(cfg, embeds).to(L.dtype_of(cfg.dtype))
         b, s = x.shape[:2]
@@ -175,10 +206,28 @@ def forward(model: Model, tokens: Optional[torch.Tensor] = None,
             if _every(i, cfg.slstm_every):
                 x = x + XL.slstm_apply(bp.slstm, L.rmsnorm(bp.ln_s, x, cfg.norm_eps), cfg)
         else:
-            x, _ = _attn_ffn(bp, x, cfg, positions)
+            x = dense_block(bp, x, cfg, positions)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     logits = L.unembed_apply(model.embed, x, cfg.vocab_size, L.dtype_of(cfg.logits_dtype))
     return logits, aux
+
+
+def loss_fn(model: Model, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy over ``batch["mask"]`` (default: every
+    position) plus 0.01 x the MoE aux loss.  Returns (total, {"loss", "aux",
+    "ppl_log"}), the metrics detached 0-d tensors."""
+    logits, aux = forward(model, tokens=batch.get("tokens"), embeds=batch.get("embeds"))
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total = loss + 0.01 * aux
+    loss = loss.detach()
+    return total, {"loss": loss, "aux": aux.detach(), "ppl_log": loss}
 
 
 # --------------------------------------------------------------------------

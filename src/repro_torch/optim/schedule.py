@@ -1,0 +1,18 @@
+"""LR schedules (the port of ``repro.optim.schedule``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def cosine_schedule(step, *, peak_lr: float, warmup: int, total: int,
+                    floor_frac: float = 0.1) -> torch.Tensor:
+    """Linear warmup to ``peak_lr`` over ``warmup`` steps, then a cosine down
+    to ``floor_frac * peak_lr`` at ``total``.  ``step``: an int or a 0-d
+    tensor (kept on its device: no host sync).  Returns a 0-d f32 tensor."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = peak_lr * step / max(warmup, 1)
+    t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = peak_lr * (floor_frac + (1 - floor_frac) * 0.5 * (1 + torch.cos(math.pi * t)))
+    return torch.where(step < warmup, warm, cos)

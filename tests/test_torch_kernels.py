@@ -1044,6 +1044,53 @@ def test_every_flash_tensor_core_tile_fits(d):
             assert 2 * (smem + 1024) <= autotune.SMEM_PER_SM
 
 
+def test_flash_backward_tiles_match_the_source():
+    """FLASH_BWD_TILES is ``BwdTiles`` of csrc/flash_attention_bwd.cu, its
+    head dims the ones ``dispatch_d`` launches, and ``flash_bwd_smem_bytes``
+    follows the source's two shared-memory layouts."""
+    import re
+    from pathlib import Path
+    text = (Path(autotune.__file__).resolve().parent.parent / "csrc" /
+            "flash_attention_bwd.cu").read_text()
+    tiles = text[text.index("template <int D> struct BwdTiles {"):]
+    tiles = tiles[:tiles.index("};")]
+
+    def val(name, d):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", tiles).group(1)
+        m = re.fullmatch(r"D == (\d+) \? (\d+) : (\d+)", expr)
+        return int(expr) if m is None else int(m.group(2) if d == int(m.group(1)) else m.group(3))
+    dims = tuple(int(d) for d in re.findall(r"case (\d+): return launch<T, ", text))
+    assert dims == tuple(sorted(autotune.FLASH_BWD_TILES)) == autotune.HEAD_DIMS
+    for d, ((kbq, kbkv), (qbq, qbkv)) in autotune.FLASH_BWD_TILES.items():
+        assert (val("kKvBQ", d), val("kKvBKV", d), val("kQBQ", d), val("kQBKV", d)) == \
+            (kbq, kbkv, qbq, qbkv)
+    assert "return 2 * BKV * (D + 1) + 2 * BQ * (D + 1) + 2 * BKV * (BQ + 1) + 2 * BQ;" in text
+    assert "return 2 * BQ * (D + 1) + 2 * BKV * (D + 1) + BQ * (BKV + 1) + 2 * BQ;" in text
+    # the tensor-core route: 64-row tiles, pitch D + 8, four tiles and lse, Delta
+    assert "constexpr int kRows = 64;" in text and "kPitch = D + 8;" in text
+    assert "kSmem = 4 * kTile * 2 + 2 * kRows * 4;" in text
+    assert re.findall(r"if \(d == (\d+)\)\s+return static_cast<int>\(tc::launch<", text) == \
+        [str(d) for d in autotune.FLASH_TC_DIMS]
+
+
+@pytest.mark.parametrize("d", autotune.HEAD_DIMS)
+def test_flash_backward_tiles_fit(d):
+    """Both backward blocks fit a block's shared memory; their tiles split
+    over the 16 x 8 threads (rows by 16, columns by 8); at D 64, the
+    training shape's, two dK/dV blocks and two dQ blocks share an SM."""
+    (kbq, kbkv), (qbq, qbkv) = autotune.FLASH_BWD_TILES[d]
+    dkdv, dq = autotune.flash_bwd_smem_bytes(d)
+    assert max(dkdv, dq) <= H100.smem_bytes
+    assert kbkv % 16 == 0 and kbq % 8 == 0 and qbq % 16 == 0 and qbkv % 8 == 0 and d % 8 == 0
+    if d == 64:
+        assert 2 * (dkdv + 1024) <= autotune.SMEM_PER_SM
+        assert 2 * (dq + 1024) <= autotune.SMEM_PER_SM
+    if d in autotune.FLASH_TC_DIMS:
+        # the tensor-core blocks: at least two an SM; rows of 16-byte multiples
+        assert 2 * (autotune.flash_bwd_tc_smem_bytes(d) + 1024) <= autotune.SMEM_PER_SM
+        assert ((d + 8) * 2) % 16 == 0
+
+
 @pytest.mark.parametrize("op", ["matmul", "grouped_matmul", "jacobi2d", "attention",
                                 "decode_attention"])
 def test_ops_take_transposed_and_misaligned_operands_on_the_cpu(op):
@@ -1122,6 +1169,177 @@ def test_gpu_flash_matches_plain(case):
             got = flash_mod.flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, dtype) of the backward: smollm_360m's
+# training shape in both dtypes, then ragged Sq and Skv, Sq < Skv, Sq > Skv
+# (rows that see no key), groups 1, 2, 4 and 8, non-causal, D 32, 64, 128
+FLASH_BWD_CASES = [
+    (8, 15, 5, 256, 256, 64, True, "bfloat16"),
+    (8, 15, 5, 256, 256, 64, True, "float32"),
+    (2, 8, 2, 130, 130, 64, True, "bfloat16"),
+    (1, 4, 1, 64, 200, 64, True, "float32"),
+    (1, 4, 2, 200, 64, 64, True, "bfloat16"),
+    (2, 4, 4, 100, 100, 32, False, "float32"),
+    (2, 8, 8, 77, 77, 32, True, "bfloat16"),
+    (2, 8, 2, 300, 300, 128, True, "bfloat16"),
+    (1, 16, 2, 96, 150, 128, False, "float32"),
+]
+
+
+def _bwd_inputs(case, dev, seed=0):
+    b, hq, hkv, sq, skv, d, causal, dtype = case
+    g = torch.Generator(device=dev).manual_seed(seed + sq + skv + d)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, hq, sq, d, generator=g, device=dev).to(dt)
+    k = torch.randn(b, hkv, skv, d, generator=g, device=dev).to(dt)
+    v = torch.randn(b, hkv, skv, d, generator=g, device=dev).to(dt)
+    do = torch.randn(b, hq, sq, d, generator=g, device=dev).to(dt)
+    return q, k, v, do
+
+
+def _close_of_max(got, want, rel):
+    """|got - want| within ``rel`` of the largest |want| (the forward's
+    tolerance form: 1e-4 f32, sums in another order; 2e-2 bf16, one
+    rounding of the output)."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= rel * max(scale, 1e-30), (err, scale)
+
+
+def _bwd_rel(dtype):
+    return 2e-2 if dtype == "bfloat16" else 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_gpu_flash_backward_matches_plain(case):
+    """The backward kernels against ``ref.attention_backward`` on the same
+    q, k, v, o, lse and dO, on the route ``attention_route`` picks (the
+    tensor cores for bf16 at D 64 and 128) and on the CUDA cores; one
+    ``launches_bwd`` a call; a query row that sees no key gets dq 0; a
+    second call gives the same bits (no atomics)."""
+    dev = _cuda()
+    _, _, _, sq, skv, d, causal, dtype = case
+    q, k, v, do = _bwd_inputs(case, dev)
+    o, lse = flash_mod.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = tref.attention_backward(q, k, v, o, lse, do, causal=causal)
+    best = autotune.attention_route(sq, skv, d, q.element_size())
+    for route in sorted({best, autotune.CUDA_CORES}):
+        n0, ntc = flash_mod.launches_bwd, flash_mod.launches_bwd_tc
+        got = flash_mod.flash_attention_backward(q, k, v, o, lse, do, causal=causal, route=route)
+        again = flash_mod.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                                   route=route)
+        torch.cuda.synchronize()
+        assert flash_mod.launches_bwd == n0 + 2
+        assert flash_mod.launches_bwd_tc == ntc + 2 * (route == autotune.TENSOR_CORES)
+        for name, g_, w_, a_ in zip("qkv", got, want, again):
+            assert g_.dtype == w_.dtype and g_.shape == w_.shape, (route, name)
+            assert torch.isfinite(g_.float()).all(), (route, name)
+            _close_of_max(g_, w_, _bwd_rel(dtype))
+            assert torch.equal(g_, a_), (route, name)
+        if causal and sq > skv:
+            assert torch.all(got[0][:, :, :sq - skv] == 0), route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES + [(1, 4, 2, 200, 64, 64, True, "bfloat16"),
+                                                (1, 4, 2, 200, 64, 64, True, "float32")])
+def test_gpu_flash_lse_matches_plain(case):
+    """lse from both routes (every tile of each) against
+    ``ref.attention_lse``: -inf exactly where a row sees no key; the output
+    bit-equal with and without the lse pointer."""
+    dev = _cuda()
+    b, hq, hkv, sq, skv, d, causal, dtype = case
+    q, k, v, _ = _bwd_inputs(case, dev, seed=1)
+    _, want = tref.attention_lse(q, k, v, causal=causal)
+    route = autotune.attention_route(sq, skv, d, q.element_size())
+    tiles = [(bq, bkv) for bq in autotune.FLASH_BQ for bkv in autotune.FLASH_BKV
+             if d in autotune.HEAD_DIMS]
+    if route == autotune.TENSOR_CORES:
+        tiles += list(autotune.FLASH_TC_TILES)
+    for bq, bkv in tiles:
+        o, lse = flash_mod.flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv,
+                                           return_lse=True)
+        plain_o = flash_mod.flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+        torch.cuda.synchronize()
+        assert torch.equal(o, plain_o), (bq, bkv)
+        assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+        none = torch.isinf(want)
+        assert torch.equal(torch.isinf(lse), none), (bq, bkv)
+        assert torch.all(lse[none] < 0)
+        torch.testing.assert_close(lse[~none], want[~none], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_attention_op_differentiates_through_the_kernels(dtype):
+    """``ops.attention`` on inputs that need a gradient runs the forward
+    kernel once and the backward kernel once, and its gradients match
+    autograd through ``ref.attention`` (f32 arithmetic) on the card: 1e-4 of
+    the largest value in f32, 2e-2 in bf16 (the gradients round to bf16)."""
+    dev = _cuda()
+    case = (2, 8, 2, 130, 130, 64, True, dtype)
+    q, k, v, do = _bwd_inputs(case, dev, seed=2)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0, nb0 = flash_mod.launches, flash_mod.launches_bwd
+    o = ops.attention(*leaves, causal=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_mod.launches - n0, flash_mod.launches_bwd - nb0) == (1, 1)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tref.attention(*plain, causal=True).backward(do)
+    for t, r in zip(leaves, plain):
+        _close_of_max(t.grad, r.grad, _bwd_rel(dtype))
+
+
+@pytest.mark.gpu
+def test_gpu_flash_gradient_by_finite_differences():
+    """``FlashAttention`` in f32 against central differences of its own
+    forward kernel: for L = sum(o * w) and a random direction u of q, k or
+    v, (L(x + eps u) - L(x - eps u)) / (2 eps) within 1e-2 of |<grad, u>|
+    (eps 1e-2: the difference's truncation error is O(eps^2), its f32
+    rounding ~1e-7 |L| / eps)."""
+    dev = _cuda()
+    case = (1, 4, 2, 70, 90, 32, True, "float32")
+    q, k, v, w = _bwd_inputs(case, dev, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (flash_mod.FlashAttention.apply(*leaves, True, None, None, None) * w).sum().backward()
+    eps = 1e-2
+    for i, t in enumerate((q, k, v)):
+        u = torch.randn(t.shape, generator=g, device=dev)
+        args = [q, k, v]
+
+        def loss(x):
+            args[i] = x
+            return (flash_mod.flash_attention(*args, causal=True).double() * w).sum().item()
+        fd = (loss(t + eps * u) - loss(t - eps * u)) / (2 * eps)
+        an = (leaves[i].grad.double() * u).sum().item()
+        assert abs(fd - an) <= 1e-2 * abs(an), (i, fd, an)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_backward_raises_on_unsupported_input():
+    dev = _cuda()
+    q = torch.zeros(1, 2, 8, 64, device=dev)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError):                # lse of the wrong shape
+        flash_mod.flash_attention_backward(q, q, q, q, lse[:, :1], q)
+    with pytest.raises(ValueError):                # lse not f32
+        flash_mod.flash_attention_backward(q, q, q, q, lse.double(), q)
+    with pytest.raises(ValueError):                # dO not contiguous
+        flash_mod.flash_attention_backward(q, q, q, q, lse, q.transpose(2, 3))
+    with pytest.raises(ValueError):                # o of another dtype
+        flash_mod.flash_attention_backward(q, q, q, q.bfloat16(), lse, q)
+    q48 = torch.zeros(1, 2, 8, 48, device=dev)     # head_dim 48 is not compiled
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention_backward(q48, q48, q48, q48, lse, q48)
+    with pytest.raises(ValueError):                # f32 has no tensor-core route
+        flash_mod.flash_attention_backward(q, q, q, q, lse, q, route=autotune.TENSOR_CORES)
+    qb = torch.zeros(2 * 8 * 64 + 4, device=dev, dtype=torch.bfloat16)[4:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError):                # 8 bytes off a 16-byte boundary
+        flash_mod.flash_attention_backward(qb, qb, qb, qb, lse, qb, route=autotune.TENSOR_CORES)
 
 
 # (B, Hq, Hkv, S, D, dtype): smollm_360m's, granite_moe_1b's and
