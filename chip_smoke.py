@@ -7,7 +7,7 @@ without the final ok line):
   1. device  -- a CUDA device must be present; prints nvidia-smi's name and
                 power limit;
   2. build   -- builds every CUDA kernel of the paths from
-                ``src/repro_torch/csrc`` (one nvcc per source, all nine in
+                ``src/repro_torch/csrc`` (one nvcc per source, all ten in
                 parallel) and prints ptxas's summary; counts the wgmma
                 (HGMMA) and TMA-load (UTMALDG) instructions in the SASS of
                 matmul_pom, grouped_matmul and flash_attention and fails if
@@ -16,8 +16,9 @@ without the final ok line):
                 registers and spills of the f32 ring
                 (``strided_gemm_kernel``) in both libraries that include it,
                 of the decode kernels, of the four scan kernels, of the
-                two stencil kernels and of the flash backward's kernels, and
-                fails if a scan, stencil or flash-backward kernel spills;
+                two stencil kernels, of the flash backward's kernels and of
+                the scan's decay-gradient kernels, and fails if a scan,
+                stencil, flash-backward or decay-gradient kernel spills;
   3. kernels -- each LM kernel against its plain PyTorch version on the card:
                 decode attention at smollm's decode shape (S 128, 1024 and
                 8192), granite's and zamba2's (S 1024), group 8 and ragged
@@ -34,7 +35,13 @@ without the final ok line):
                 (cap 640) shapes and a ragged one, bf16 and f32, through both
                 schedules and every tensor-core tile, ssm_scan at
                 zamba2's and xlstm's shapes, P = 1 and a ragged S (y and h),
-                through both schedules, with the route of each call;
+                through both schedules, with the route of each call; the
+                grouped matmul's backward (dX, dW) at granite's training
+                shapes (cap 640, on the tensor cores) and a ragged f32 one,
+                a second call bit-equal; the scan's backward (dx, da, db,
+                dc) at zamba2's, xlstm's and the normaliser's training
+                shapes and a ragged one with a non-zero dh_final, and the
+                decay-gradient kernel alone;
   4. contraction vs plain -- the contraction kernel against its plain
                 version in f32 and bf16 on the compile path's schedules
                 (tiled gemm at n 256 and at the path's n 4096, unscheduled
@@ -61,6 +68,24 @@ without the final ok line):
                 process, bit-equal to the straight run (losses, parameters,
                 moments); step wall time, device busy time and share,
                 tokens/s, peak memory and the top device kernels;
+  6c. train families -- granite_moe_1b, zamba2_1_2b and xlstm_1_3b,
+                batch 8 x 256, remat "full" (``train_family_phase``): one
+                step's loss and gradients at full width and depth against
+                the plain versions on the card (granite in bf16 with the
+                kernel run's expert choices replayed, recompute included,
+                which must choose the forward's experts; zamba2 and xlstm on
+                an f32 copy), within TRAIN_GRAD_RTOL and TRAIN_LOSS_RTOL, with
+                exact counts a step (the forward kernels twice, the flash
+                backward once an attention layer, dX and dW a grouped
+                matmul, three scans a scan's backward, two for the
+                normaliser, one decay-gradient launch a scan; in bf16 every
+                flash and grouped-matmul launch on the tensor cores); the
+                main path, ``launch/train.py``'s loop at full width with
+                the depth cut (granite 4 layers, zamba2 6, xlstm 8), 16
+                steps with a checkpoint at 8, whose loss must fall, and a
+                resume bit-equal to the straight run; step wall time,
+                tokens/s, device busy time and share, peak memory and top
+                kernels at full width and depth;
   7. families -- granite_moe_1b, zamba2_1_2b and xlstm_1_3b at full width
                 and depth (bf16, seeded random weights), one at a time.  The
                 main path: a serve (batch 8; prompt 32 and gen 32, xlstm 16
@@ -137,12 +162,17 @@ without the final ok line):
                 flash forward with lse beside it, and the flash backward at
                 the training shape against its bound, its CUDA-core route,
                 its plain version and SDPA's forward plus backward (its
-                backward alone beside it).  One ``{"kernels": [...]}`` JSON line.
+                backward alone beside it); the grouped matmul's backward at
+                granite's training shape (its transposed copies' time and
+                two ``torch.bmm`` beside it), the scan's backward at
+                zamba2's (xlstm's and the normaliser's beside it) and the
+                decay-gradient kernel.  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
-the smollm forward, the smollm training loop, each family's serve and
-forward, the compile path as phases 8-11, the kernel library) and read just
-after; the counts in the kernels line are their sums, and every one of the
-eight kernels and the flash backward must have run.
+the smollm forward, the smollm training loop, each family's training loop,
+serve and forward, the compile path as phases 8-11, the kernel library) and
+read just after; the counts in the kernels line are their sums, and every
+one of the eight kernels and the four backward passes (``BACKWARD``) must
+have run.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -210,6 +240,33 @@ SCAN_SHAPES = {"zamba2": (2, 1024, 32, 128, 64, torch.bfloat16, True),
                "xlstm": (2, 512, 4, 512, 512, torch.bfloat16, False),
                "normaliser": (2, 512, 4, 1, 512, torch.float32, False),
                "ragged": (2, 200, 4, 64, 64, torch.float32, False)}
+# the backward passes against their plain versions, relative to the largest
+# |value| of each plain gradient: the grouped matmul's as its forward (bf16
+# outputs round once, f32 sums of cap or f products in another order); the
+# scan's db, dc and da from split-TF32 products within a few f32 ulps (da
+# through a sum over S of differences that nearly cancel), its dx in x's
+# dtype (a bf16 dx rounds once)
+GMM_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SCAN_BWD_RTOL = 2e-3
+# the scan's gradient at the training shapes (batch 8 x 256; B, S, H, P, N,
+# x dtype, B/C broadcast over heads, dh_final): zamba2's, xlstm's, the mLSTM
+# normaliser's (P 1: its role-swapped scans have N 1), and a ragged one with
+# a non-zero dh_final
+SCAN_BWD_SHAPES = {"zamba2": (8, 256, 32, 128, 64, torch.bfloat16, True, False),
+                   "xlstm": (8, 256, 4, 512, 512, torch.bfloat16, False, False),
+                   "normaliser": (8, 256, 4, 1, 512, torch.float32, False, False),
+                   "ragged": (2, 200, 4, 48, 40, torch.float32, False, True)}
+# training the three families (batch 8 x 256 of SyntheticLM, remat "full"):
+# one step's gradients at full width and depth against the plain versions
+# (granite in bf16 with the kernel run's expert choices replayed, zamba2 and
+# xlstm on an f32 copy, as family_phase holds their logits), the loop and its
+# resume at full width with the depth cut (a checkpoint of the full models is
+# 12-18 GB): granite 4 layers, zamba2 6 (its shared-attention site), xlstm 8
+# (its sLSTM); FAMILY_STEPS steps with a checkpoint at FAMILY_CKPT
+FAMILY_TRAIN = {"granite_moe_1b": dict(check_dtype="bfloat16", loop_layers=4),
+                "zamba2_1_2b": dict(check_dtype="float32", loop_layers=6),
+                "xlstm_1_3b": dict(check_dtype="float32", loop_layers=8)}
+FAMILY_STEPS, FAMILY_CKPT = 16, 8
 # the three families, at full width and depth: serve (batch, prompt, gen),
 # forward (batch, seq), for hybrid and ssm the teacher-forced decode held
 # against the forward on the same tokens (batch, seq; 170 = 5 x 32 + 10
@@ -265,7 +322,7 @@ def _kernel_modules() -> dict:
 
 def zero_counts() -> None:
     """Sets every kernel wrapper's launch counts to 0 (per route too, and
-    the flash backward's)."""
+    the backward passes')."""
     for n, m in _kernel_modules().items():
         m.launches = 0
         if n in ROUTED:
@@ -274,16 +331,27 @@ def zero_counts() -> None:
             m.launches_ring = 0
         if n == "contraction":
             m.launches_strided = 0
-        if n == "flash_attention":
+        if n in ("flash_attention", "grouped_matmul"):
             m.launches_bwd = m.launches_bwd_tc = 0
+        if n == "ssm_scan":
+            m.launches_bwd = m.launches_da = 0
+
+
+# the backward passes' counts: name in the counts -> (module, counter)
+BACKWARD = {"flash_attention_bwd": ("flash_attention", "launches_bwd"),
+            "grouped_matmul_bwd": ("grouped_matmul", "launches_bwd"),
+            "ssm_scan_bwd": ("ssm_scan", "launches_bwd"),
+            "ssm_scan_da": ("ssm_scan", "launches_da")}
 
 
 def read_counts() -> dict:
-    """kernel -> launches since the counts were last set to 0 (the flash
-    backward as ``flash_attention_bwd``)."""
+    """kernel -> launches since the counts were last set to 0 (the backward
+    passes under the names of ``BACKWARD``: the flash backward, the grouped
+    matmul's dX and dW, the scan kernels' runs inside the scan's backward,
+    and the decay-gradient kernel)."""
     mods = _kernel_modules()
     return {**{n: m.launches for n, m in mods.items()},
-            "flash_attention_bwd": mods["flash_attention"].launches_bwd}
+            **{k: getattr(mods[mod], attr) for k, (mod, attr) in BACKWARD.items()}}
 
 
 def read_routes() -> dict:
@@ -364,7 +432,8 @@ def build_phase() -> None:
     ring = "strided_gemm_kernel"
     for lib, entry in (("contraction", ring), ("matmul_pom", ring),
                        ("decode_attention", "decode_kernel"), ("ssm_scan", "ssm_scan_"),
-                       ("stencil", "jacobi"), ("flash_attention_bwd", "flash_bwd_")):
+                       ("stencil", "jacobi"), ("flash_attention_bwd", "flash_bwd_"),
+                       ("ssm_scan_bwd", "ssm_scan_da")):
         found = ptxas_entries(_build.log_path(lib).read_text(), entry)
         if not found:
             fail(f"{lib}: ptxas compiled no {entry}")
@@ -375,7 +444,7 @@ def build_phase() -> None:
         if len(found) <= 2:
             for n, (r, sp) in found.items():
                 print(f"  {n}: {r} registers, {sp} bytes spilled")
-        if spills and lib in ("ssm_scan", "stencil", "flash_attention_bwd"):
+        if spills and lib in ("ssm_scan", "stencil", "flash_attention_bwd", "ssm_scan_bwd"):
             fail(f"{lib}: kernels spill registers: {spills}")
 
 
@@ -508,7 +577,9 @@ def kernel_phase() -> dict:
             errs["flash_attention"] = max(errs["flash_attention"], err)
     errs["flash_attention_bwd"] = flash_bwd_vs_plain(g)
     errs["grouped_matmul"] = gmm_vs_plain(g)
+    errs["grouped_matmul_bwd"] = gmm_bwd_vs_plain(g)
     errs["ssm_scan"] = scan_vs_plain(g)
+    errs["ssm_scan_bwd"], errs["ssm_scan_da"] = scan_bwd_vs_plain(g)
     return errs
 
 
@@ -635,6 +706,95 @@ def scan_vs_plain(g) -> float:
             worst = max(worst, ey)
         del x, a, bm, cm, want_y, want_h
     return worst
+
+
+def gmm_bwd_vs_plain(g) -> float:
+    """grouped_matmul_backward (dX and dW) against its plain version at
+    granite_moe_1b's training shapes (8 x 256 tokens: cap 640; wi/wg and
+    wo) in bf16, every launch on the tensor cores, and a ragged one in f32
+    (the CUDA cores); a second call gives the same bits."""
+    from repro_torch.kernels import grouped_matmul as gmm_mod
+    from repro_torch.kernels import ref
+    worst = 0.0
+    for e, cap, d, f, dt in ((32, 640, 1024, 512, torch.bfloat16),
+                             (32, 640, 512, 1024, torch.bfloat16),
+                             (4, 130, 100, 70, torch.float32)):
+        x = _randn(g, e, cap, d, dtype=dt)
+        w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(dt)
+        dy = _randn(g, e, cap, f, dtype=dt)
+        want = ref.grouped_matmul_backward(x, w, dy)
+        n0, ntc = gmm_mod.launches_bwd, gmm_mod.launches_bwd_tc
+        got = gmm_mod.grouped_matmul_backward(x, w, dy)
+        again = gmm_mod.grouped_matmul_backward(x, w, dy)
+        torch.cuda.synchronize()
+        tc = gmm_mod.launches_bwd_tc - ntc
+        if gmm_mod.launches_bwd - n0 != 4 or tc != (4 if dt == torch.bfloat16 else 0):
+            fail(f"grouped_matmul_backward E{e} cap{cap} d{d} f{f}: "
+                 f"{gmm_mod.launches_bwd - n0} launches, {tc} on the tensor cores")
+        for name, gr, wt, ag in zip(("dx", "dw"), got, want, again):
+            err = (gr.float() - wt.float()).abs().max().item()
+            tol = GMM_BWD_RTOL[dt] * wt.float().abs().max().item()
+            print(f"grouped_matmul_backward {name} E{e} cap{cap} d{d} f{f} {str(dt)[6:]}: "
+                  f"max abs err {err:.3g} (tolerance {tol:.3g})")
+            if not err <= tol:
+                fail(f"grouped_matmul_backward {name} disagrees with its plain version: {err}")
+            if not torch.equal(gr, ag):
+                fail(f"grouped_matmul_backward {name}: a second call gave other bits")
+            worst = max(worst, err)
+        del x, w, dy, want, got, again
+    return worst
+
+
+def _scan_bwd_inputs(g, b, s, h, p, n, dt, broadcast, tail):
+    x, a, bm, cm = _scan_inputs(g, b, s, h, p, n, dt, broadcast)
+    dy = _randn(g, b, s, h, p, dtype=dt)
+    dh = torch.randn(b, h, n, p, generator=g, device="cuda") if tail else None
+    return x, a, bm, cm, dy, dh
+
+
+def scan_bwd_vs_plain(g) -> tuple:
+    """The scan's backward on the kernels (``ssm_scan.scan_backward``: three
+    runs of the scan kernels, two for x = 1's normaliser in the models but
+    three here, and the decay-gradient kernel) against the sequential
+    ``ref.ssm_scan_backward`` at SCAN_BWD_SHAPES, and the decay-gradient
+    kernel alone against ``ref.ssm_scan_da`` on the same dc and db.
+    Returns the worst max abs errors (backward, decay gradient)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as scan_mod
+    worst = worst_da = 0.0
+    for label, (b, s, h, p, n, dt, bc, tail) in SCAN_BWD_SHAPES.items():
+        x, a, bm, cm, dy, dh = _scan_bwd_inputs(g, b, s, h, p, n, dt, bc, tail)
+        want = ref.ssm_scan_backward(x, a, bm, cm, dy, dh)
+        n0 = (scan_mod.launches_bwd, scan_mod.launches_da)
+        got = scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy, dh)
+        torch.cuda.synchronize()
+        if (scan_mod.launches_bwd - n0[0], scan_mod.launches_da - n0[1]) != (3 + tail, 1):
+            fail(f"scan backward {label}: {scan_mod.launches_bwd - n0[0]} scans and "
+                 f"{scan_mod.launches_da - n0[1]} decay-gradient launches")
+        for name, gr, wt in zip(("dx", "da", "db", "dc"), got, want):
+            err = (gr.float() - wt.float()).abs().max().item()
+            rel = _rel_tol(dt, SCAN_BWD_RTOL) if name == "dx" else SCAN_BWD_RTOL
+            tol = rel * wt.float().abs().max().item()
+            print(f"scan backward {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]}"
+                  f"{' dh_final' if tail else ''} {name}: max abs err {err:.3g} "
+                  f"(tolerance {tol:.3g})")
+            if not (bool(torch.isfinite(gr).all()) and err <= tol):
+                fail(f"scan backward {label} {name} disagrees with its plain version: {err}")
+            worst = max(worst, err)
+        # the decay-gradient kernel alone, on the plain dc and db
+        _, _, db, dc = want
+        bias = None if dh is None else torch.randn(b, h, generator=g, device="cuda")
+        da = scan_mod.ssm_scan_da(cm, dc, bm, db, a, bias)
+        da_want = ref.ssm_scan_da(cm, dc, bm, db, a, bias)
+        torch.cuda.synchronize()
+        err = (da - da_want).abs().max().item()
+        tol = 1e-4 * da_want.abs().max().item()
+        print(f"ssm_scan_da {label}: max abs err {err:.3g} (tolerance {tol:.3g})")
+        if not err <= tol:
+            fail(f"ssm_scan_da {label} disagrees with its plain version: {err}")
+        worst_da = max(worst_da, err)
+        del x, a, bm, cm, dy, dh, want, got
+    return worst, worst_da
 
 
 # --------------------------------------------------------------------------
@@ -794,13 +954,15 @@ def forward_phase(model) -> dict:
 # 6b. training smollm_360m at full width
 # --------------------------------------------------------------------------
 def _grads(model, batch) -> tuple:
-    """One step's loss and every parameter's gradient (cloned), without the
-    optimiser."""
+    """One step's loss and every parameter's gradient (cloned; 0 for a
+    parameter the loss does not reach, as in ``make_train_step``: xlstm's
+    sLSTM weights of a block without an sLSTM), without the optimiser."""
     from repro_torch.models import loss_fn
     model.zero_grad(set_to_none=True)
     total, _ = loss_fn(model, batch)
     total.backward()
-    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+             for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return total.detach(), grads
 
@@ -952,6 +1114,228 @@ def train_phase() -> dict:
         del straight, model, opt, holder, step_fn
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"train": out, "launches": launches}
+
+
+# --------------------------------------------------------------------------
+# 6c. training the moe, hybrid and ssm families
+# --------------------------------------------------------------------------
+def expected_train_launches(cfg) -> dict:
+    """Launches of one training step (remat "full": every block's forward
+    runs twice), derived from the config as ``expected_launches``: the
+    forward kernels, the flash backward once an attention layer, dX and dW a
+    grouped matmul, three scans a Mamba2 or mLSTM scan's backward (dx, db,
+    dc) and two the normaliser's (x = 1 asks for no dx), and one
+    decay-gradient launch a scan."""
+    fwd, _ = expected_launches(cfg)
+    runs = 2 if cfg.remat == "full" else 1
+    want = {k: runs * n for k, n in fwd.items() if n}
+    attn, gmm, scan = fwd["flash_attention"], fwd["grouped_matmul"], fwd["ssm_scan"]
+    if attn:
+        want["flash_attention_bwd"] = attn
+    if gmm:
+        want["grouped_matmul_bwd"] = 2 * gmm
+    if scan:
+        want["ssm_scan_bwd"] = 3 * cfg.num_layers + (2 * cfg.num_layers
+                                                     if cfg.family == "ssm" else 0)
+        want["ssm_scan_da"] = scan
+    return want
+
+
+def check_train_routes(label: str, want: dict, bf16: bool) -> None:
+    """In bf16 every flash launch, forward and backward, and every grouped
+    matmul, forward, dX and dW, took the tensor cores; in f32 the CUDA
+    cores.  Prints the grouped matmul backward's tensor-core share."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import grouped_matmul as gmm_mod
+    for name, mod in (("flash_attention", flash_mod), ("grouped_matmul", gmm_mod)):
+        n, nb = want.get(name, 0), want.get(f"{name}_bwd", 0)
+        if not n:
+            continue
+        check_routes(label, name, n if bf16 else 0, 0 if bf16 else n)
+        got = (mod.launches_bwd, mod.launches_bwd_tc)
+        print(f"{label}: {name} backward {got[0]} launches, {got[1]} on the tensor cores"
+              + (f" (share {got[1] / got[0]:.3f})" if got[0] else ""))
+        if got != (nb, nb if bf16 else 0):
+            fail(f"{label}: {name} backward launches (all, tensor cores) {got}, expected "
+                 f"({nb}, {nb if bf16 else 0})")
+
+
+def train_family_phase(arch: str) -> dict:
+    """One model of the moe, hybrid or ssm family, batch 8 x 256 of
+    ``SyntheticLM``, remat "full".
+
+    (1) One step's loss and gradients at full width and depth with the
+    kernels against the same step on the plain versions on the card, with
+    exact counts (``expected_train_launches``): granite in bf16 with the
+    kernel run's expert choices replayed (the log covers the recompute's
+    routing calls too, in reverse layer order, and the kernel run's
+    recompute must choose its own forward's experts), zamba2 and xlstm on an
+    f32 copy of the weights (chaotic in bf16: ``family_phase``).  (2) The
+    main path: ``launch/train.py``'s loop in bf16 at full width, depth cut
+    (FAMILY_TRAIN), FAMILY_STEPS steps at TRAIN_LR with a checkpoint at
+    FAMILY_CKPT (counts set to 0 just before it, read just after); the loss
+    falls.  (3) A run stopped after that checkpoint and resumed is bit-equal
+    to the straight one.  (4) At full width and depth in bf16: step wall
+    time, tokens/s, device busy time and share, peak memory, top kernels."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLM, make_device_batch
+    from repro_torch.distributed.step import make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import Model, init_params
+    from repro_torch.optim import adamw_init
+    spec = FAMILY_TRAIN[arch]
+    cfg = get_config(arch)
+    phase(f"train {arch} full width")
+    if cfg.remat != "full":
+        fail(f"{arch}'s remat is {cfg.remat!r}, the phase expects 'full'")
+    moe = cfg.family == "moe"
+    bf16 = spec["check_dtype"] == "bfloat16"
+    ds = SyntheticLM(cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train"), seed=0)
+    batch = make_device_batch(ds.batch_at(0), "cuda")
+    want = expected_train_launches(cfg)
+    out = {"batch": TRAIN_B, "seq": TRAIN_S, "check_dtype": spec["check_dtype"]}
+    model = init_params(cfg, seed=0, device="cuda")
+
+    # (1) one step against the plain versions
+    check_model = model
+    if not bf16:
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        check_model = Model(cfg32, "cuda")
+        check_model.load_state_dict({k: t.float() for k, t in model.state_dict().items()})
+    check_model.requires_grad_(True)
+    routes, stats = [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zero_counts()
+    with moe_routes(routes, False, stats) if moe else contextlib.nullcontext():
+        loss_k, g_k = _grads(check_model, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    got = read_counts()
+    print(f"launches in one training step ({spec['check_dtype']}, {step_s:.2f} s): {got}")
+    check_counts(f"{arch} train step", got, want)
+    check_train_routes(f"{arch} train step", want, bf16)
+    if moe:                                    # forward calls, then the recompute's
+        layers = len(routes) // 2
+        if len(routes) != 2 * cfg.num_layers // cfg.moe_every:
+            fail(f"{arch}: {len(routes)} routing calls in a step, expected "
+                 f"{2 * cfg.num_layers // cfg.moe_every}")
+        flips = sum(int((routes[i] != routes[2 * layers - 1 - i]).any(dim=-1).sum())
+                    for i in range(layers))
+        print(f"{arch} train step: the recompute chose other experts than the forward in "
+              f"{flips} of {layers * routes[0].shape[0]} (token, layer) slots")
+        if flips:
+            fail(f"{arch}: the recompute's routing differs from the forward's")
+        out["recompute_route_flips"] = flips
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with ops.plain_versions(), (moe_routes(routes, True, stats) if moe
+                                else contextlib.nullcontext()):
+        loss_p, g_p = _grads(check_model, batch)
+        plain_peak = torch.cuda.max_memory_allocated()
+    plain_s = time.perf_counter() - t0
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    rel = {n: ((g_k[n].float() - g_p[n].float()).norm()
+               / g_p[n].float().norm().clamp_min(1e-30)).item() for n in g_p}
+    worst = max(rel, key=rel.get)
+    median = sorted(rel.values())[len(rel) // 2]
+    print(f"{arch} train step ({spec['check_dtype']}), kernels vs plain versions: loss "
+          f"{loss_k.item():.6f} vs {loss_p.item():.6f} (rel {loss_rel:.3g}, tolerance "
+          f"{TRAIN_LOSS_RTOL}); gradient difference, relative norm: largest {rel[worst]:.4g} "
+          f"({worst}), median {median:.4g} (tolerance {TRAIN_GRAD_RTOL}); the plain step "
+          f"{plain_s:.1f} s, peak memory {plain_peak / 2**30:.2f} GiB")
+    if not all(torch.isfinite(gr.float()).all() for gr in g_k.values()):
+        fail(f"{arch} train step: a gradient is not finite")
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        fail(f"{arch} train step: the loss with the kernels is {loss_rel} off the plain one")
+    if not rel[worst] <= TRAIN_GRAD_RTOL:
+        fail(f"{arch} train step: {worst}'s gradient is {rel[worst]} off the plain one")
+    out["vs_plain"] = {"loss_rel_err": loss_rel, "grad_rel_norm_max": rel[worst],
+                       "grad_rel_norm_max_param": worst, "grad_rel_norm_median": median,
+                       "plain_peak_mem_bytes": plain_peak, "kernel_step_s": step_s,
+                       "plain_step_s": plain_s}
+    if moe:
+        out["vs_plain"]["routing"] = route_report(f"{arch} train step, plain run", stats)
+    del check_model, g_k, g_p, routes
+    torch.cuda.empty_cache()
+
+    # (2) the main path: launch/train.py's loop at full width, depth cut
+    cut = dataclasses.replace(cfg, num_layers=spec["loop_layers"])
+    per_step = expected_train_launches(cut)
+    root = tempfile.mkdtemp(prefix="repro_torch_train_")
+    kw = dict(steps=FAMILY_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR,
+              ckpt_every=FAMILY_CKPT, log_every=FAMILY_CKPT, device="cuda", keep=1)
+    try:
+        zero_counts()
+        straight = train_mod.train(cut, workdir=os.path.join(root, "a"), **kw)
+        got = read_counts()
+        print(f"launches in the {FAMILY_STEPS}-step run ({cut.num_layers} layers): {got}")
+        check_counts(f"{arch} train loop", got, {k: n * FAMILY_STEPS for k, n in per_step.items()})
+        check_train_routes(f"{arch} train loop",
+                           {k: n * FAMILY_STEPS for k, n in per_step.items()}, True)
+        launches = got
+        losses = straight.losses
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        print(f"{arch} train loop ({cut.num_layers} layers): {straight.wall_s:.2f} s with "
+              f"checkpoints; loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first 5 "
+              f"steps {first:.4f}, of the last 5 {last:.4f}")
+        if not all(np.isfinite(losses)) or not last < first:
+            fail(f"{arch} train loop: the loss did not fall ({first} -> {last})")
+        out.update(loop_layers=cut.num_layers, loop_steps=FAMILY_STEPS, losses=losses,
+                   loop_wall_s=straight.wall_s)
+        # (3) stop after the checkpoint, resume in this process
+        t0 = time.perf_counter()
+        train_mod.train(cut, workdir=os.path.join(root, "b"), stop_after=FAMILY_CKPT, **kw)
+        resumed = train_mod.train(cut, workdir=os.path.join(root, "b"), **kw)
+        out["resume_s"] = time.perf_counter() - t0
+        if resumed.start != FAMILY_CKPT:
+            fail(f"{arch}: the resumed run began at step {resumed.start}, not {FAMILY_CKPT}")
+        diff = max(abs(a - b) for a, b in zip(resumed.losses, losses[FAMILY_CKPT:]))
+        same = all(torch.equal(p, q) for p, q in zip(straight.model.parameters(),
+                                                      resumed.model.parameters()))
+        same &= all(torch.equal(straight.opt.m[n], resumed.opt.m[n])
+                    and torch.equal(straight.opt.v[n], resumed.opt.v[n]) for n in straight.opt.m)
+        print(f"{arch} resumed from step {FAMILY_CKPT}: losses "
+              f"{'bit-equal to' if diff == 0 else f'{diff:.3g} off'} the straight run's; final "
+              f"parameters and moments {'bit-equal' if same else 'differ'} (the cut run and "
+              f"the resumed one {out['resume_s']:.1f} s)")
+        if diff != 0 or not same:
+            fail(f"{arch}: the resumed run differs from the straight run")
+        out["resume"] = {"from_step": FAMILY_CKPT, "loss_max_abs_diff": diff,
+                         "state_bit_equal": same}
+        del straight, resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (4) numbers at full width and depth, bf16
+    step_fn = make_train_step(cfg, model, peak_lr=TRAIN_LR, warmup=train_mod.WARMUP,
+                              total_steps=FAMILY_STEPS)
+    holder = {"opt": adamw_init(dict(model.named_parameters()), cfg.optim_state_dtype,
+                                cfg.optim_second_dtype)}
+
+    def steps(n):
+        for i in range(n):
+            holder["opt"], _ = step_fn(holder["opt"], make_device_batch(ds.batch_at(i), "cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"moe": ("gemm_kernel", "flash_kernel_tc", "flash_bwd_"),
+               "hybrid": ("ssm_scan_", "ssm_scan_da", "flash_kernel_tc", "flash_bwd_"),
+               "ssm": ("ssm_scan_", "ssm_scan_da")}[cfg.family]
+    busy = busy_share(lambda: steps(1), 1, f"{arch} train step", kernels)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = busy.get("wall_ms", float("nan"))
+    out.update(step_ms=step_ms, tokens_per_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
+               peak_mem_bytes=peak, busy=busy)
+    print(f"{arch} train step: {step_ms:.2f} ms wall ({out['tokens_per_s']:.0f} tokens/s), "
+          f"peak memory {peak / 2**30:.3f} GiB")
+    del model, step_fn, holder
     torch.cuda.empty_cache()
     return {"train": out, "launches": launches}
 
@@ -2152,7 +2536,97 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
                  **scan["zamba2"], "library_ms": None,
                  "library": "none: no single PyTorch call computes the scan",
                  "at_xlstm_shape": scan["xlstm"], "at_normaliser_shape": scan["normaliser"]})
+    rows += backward_rows(g, errs, launches)
     clocks("after")
+    return rows
+
+
+NO_TPU = ("none: no TPU counterpart (the reference differentiates its pure-jnp ops with "
+          "XLA; src/repro/configs/base.py:54 use_pallas False)")
+
+
+def backward_rows(g, errs: dict, launches: dict) -> list:
+    """The backward passes at the training shapes (batch 8 x 256): the
+    grouped matmul's dX and dW at granite's wi/wg shape (E 32, cap 640, d
+    1024, f 512, bf16), with the two transposed copies' time beside it and
+    two ``torch.bmm`` as its library call; the scan's backward at zamba2's
+    shape (xlstm's and the normaliser's beside it) and the decay-gradient
+    kernel at zamba2's shape, neither with a library call.  Bounds: each
+    input read once and each output written once; the grouped matmul's two
+    products at the bf16 tensor-core rate, the scan's three scans' products
+    at the TF32 rate (as the forward row), the decay gradient's dots at the
+    f32 rate."""
+    from repro_torch.kernels import grouped_matmul as gmm_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as scan_mod
+    rows = []
+    dt = torch.bfloat16
+    e, cap, d, f = 32, 640, 1024, 512
+    x = _randn(g, e, cap, d, dtype=dt)
+    w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(dt)
+    dy = _randn(g, e, cap, f, dtype=dt)
+    byts = (2 * e * cap * d + 2 * e * d * f + e * cap * f) * 2
+    bms, by = bound(byts, 2 * 2.0 * e * cap * d * f, dt)
+    n0, ntc = gmm_mod.launches_bwd, gmm_mod.launches_bwd_tc
+    ms = time_ms(lambda: gmm_mod.grouped_matmul_backward(x, w, dy), iters=50)
+    n, tc = gmm_mod.launches_bwd - n0, gmm_mod.launches_bwd_tc - ntc
+    copies_ms = time_ms(lambda: (w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()),
+                        iters=50)
+    plain_ms = time_ms(lambda: ref.grouped_matmul_backward(x, w, dy), iters=20)
+    lib_ms = time_ms(lambda: (torch.bmm(dy, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), dy)))
+    print(f"grouped_matmul_bwd E{e} cap{cap} d{d} f{f} bf16 ({tc} of {n} timed launches on the "
+          f"tensor cores): {ms:.4f} ms (the transposed copies alone {copies_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, two torch.bmm {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+    rows.append({"name": "grouped_matmul_bwd", "route": "cuda",
+                 "source": "src/repro_torch/csrc/grouped_matmul.cu", "replaces": NO_TPU,
+                 "launches": launches["grouped_matmul_bwd"],
+                 "max_abs_err": errs["grouped_matmul_bwd"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                 "library": "two torch.bmm (dY W^T, X^T dY)", "transposed_copies_ms": copies_ms,
+                 "tensor_core_share": tc / n, "shape": f"E {e}, cap {cap}, d {d}, f {f}, bf16"})
+    del x, w, dy
+    scan = {}
+    for label in ("zamba2", "xlstm", "normaliser"):
+        b, s, h, p, n, sdt, bc, tail = SCAN_BWD_SHAPES[label]
+        x, a, bm, cm, dy, _ = _scan_bwd_inputs(g, b, s, h, p, n, sdt, bc, tail)
+        hb = 1 if bc else h
+        # x, a, b, c, dy read once (a broadcast group once); dx (x's dtype), da,
+        # db and dc (f32, per head) written once; three scans' products
+        byts = (2 * b * s * h * p * x.element_size() + 8 * b * s * h + 8 * b * s * hb * n
+                + 8 * b * s * h * n)
+        bms, by = bound(byts, 3 * 4.0 * b * s * h * n * p, torch.float32, tf32=True)
+        needs = (p > 1, True, True, True)          # the normaliser's x = 1 needs no dx
+        ms = time_ms(lambda: scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy,
+                                                    needs=needs), iters=20)
+        plain_ms = time_ms(lambda: ref.ssm_scan_backward(x, a, bm, cm, dy), iters=3, warmup=1)
+        print(f"ssm_scan_bwd {label} B{b} S{s} H{h} P{p} N{n} {str(sdt)[6:]}: {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}, TF32 rate)")
+        scan[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "shape": f"B {b}, S {s}, H {h}, P {p}, N {n}, x {str(sdt)[6:]}"}
+        if label == "zamba2":
+            _, _, db, dc = ref.ssm_scan_backward(x, a, bm, cm, dy)
+            byts = 4 * (2 * b * s * hb * n + 2 * b * s * h * n + 2 * b * s * h)
+            da_bms, da_by = bound(byts, 4.0 * b * s * h * n, torch.float32)
+            da_ms = time_ms(lambda: scan_mod.ssm_scan_da(cm, dc, bm, db, a))
+            da_plain = time_ms(lambda: ref.ssm_scan_da(cm, dc, bm, db, a), iters=20)
+            print(f"ssm_scan_da {label} B{b} S{s} H{h} N{n}: {da_ms:.4f} ms, plain "
+                  f"{da_plain:.4f} ms, bound {da_bms:.5f} ms ({da_by})")
+            rows.append({"name": "ssm_scan_da", "route": "cuda",
+                         "source": "src/repro_torch/csrc/ssm_scan_bwd.cu", "replaces": NO_TPU,
+                         "launches": launches["ssm_scan_da"], "max_abs_err": errs["ssm_scan_da"],
+                         "ms": da_ms, "plain_ms": da_plain, "bound_ms": da_bms,
+                         "bound_by": da_by, "library_ms": None,
+                         "library": "none: no single PyTorch call computes it",
+                         "shape": f"B {b}, S {s}, H {h}, N {n}, b and c broadcast"})
+            del db, dc
+        del x, a, bm, cm, dy
+    rows.insert(1, {"name": "ssm_scan_bwd", "route": "cuda",
+                    "source": "src/repro_torch/csrc/ssm_scan.cu + src/repro_torch/csrc/"
+                              "ssm_scan_bwd.cu (kernels/ssm_scan.py scan_backward)",
+                    "replaces": NO_TPU, "launches": launches["ssm_scan_bwd"],
+                    "max_abs_err": errs["ssm_scan_bwd"], **scan["zamba2"], "library_ms": None,
+                    "library": "none: no single PyTorch call computes the scan",
+                    "at_xlstm_shape": scan["xlstm"], "at_normaliser_shape": scan["normaliser"]})
     return rows
 
 
@@ -2263,6 +2737,13 @@ def main() -> None:
     # slice 9: training (its loop's counts set to 0 just before it)
     trained = train_phase()
     _add(launches, trained["launches"])
+    # slice 10: training the moe, hybrid and ssm families (each loop's counts
+    # set to 0 just before it)
+    trained_families = {}
+    for arch in FAMILY_TRAIN:
+        res = train_family_phase(arch)
+        trained_families[arch] = res["train"]
+        _add(launches, res["launches"])
     # slice 3: each family's serve and forward count their own launches
     families = {}
     for arch in FAMILIES:
@@ -2286,13 +2767,14 @@ def main() -> None:
     errs.update(library["errs"])
     _add(launches, library["launches"])
     print(f"launches on all paths: {launches}")
-    for name in (*KERNEL_MODULES, "flash_attention_bwd"):
+    for name in (*KERNEL_MODULES, *BACKWARD):
         if launches.get(name, 0) == 0:
             fail(f"{name} was never launched on the main path")
     rows = (numbers_phase(errs, launches) + compile_numbers_phase(errs, launches)
             + lm_numbers_phase(errs, launches) + library_numbers_phase(errs, launches))
     print(json.dumps({"serve": served["serve"], "forward": fwd["forward"],
-                      "train": trained["train"], "families": families, "compile_path": pom, "workloads": wl,
+                      "train": trained["train"], "train_families": trained_families,
+                      "families": families, "compile_path": pom, "workloads": wl,
                       "workloads_default_size": wl_default,
                       "kernel_library": {k: library[k] for k in
                                          ("wall_ms", "vs_compile_path_max_abs_err")},

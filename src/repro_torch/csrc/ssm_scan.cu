@@ -776,7 +776,7 @@ cudaError_t dispatch(const void* x, const float* a, const float* b, const float*
 #define SSM_CASE(LL, PP)                                                                     \
   if (L == LL && pt == PP)                                                                   \
     return launch<T, LL, PP>(x, a, b, c, y, hout, gmat, states, cums, st, d, s);
-  SSM_CASE(64, 8) SSM_CASE(64, 128) SSM_CASE(128, 128)
+  SSM_CASE(64, 8) SSM_CASE(64, 64) SSM_CASE(64, 128) SSM_CASE(128, 128)
 #undef SSM_CASE
   return cudaErrorInvalidValue;
 }

@@ -3,9 +3,19 @@ on one card, without shardings).
 
 loss -> backward -> global-norm clip -> AdamW with the cosine learning rate;
 every metric a 0-d device tensor, so a step never waits for the device.  On
-the card attention's forward and backward run on the flash kernels
-(``kernels.ops.attention`` under autograd).  The families whose card path
-reaches a kernel without a backward yet cannot train.
+the card every family's gradient runs on the port's kernels (``kernels.ops``
+under autograd), each block recomputed in the backward under remat "full":
+
+* dense: attention's forward and backward on the flash kernels
+  (``FlashAttention``);
+* moe (granite_moe_1b): the flash kernels, and the experts' grouped
+  matmuls forward and backward (dX and dW) on ``csrc/grouped_matmul.cu``
+  (``GroupedMatmul``);
+* hybrid (zamba2_1_2b): the Mamba2 scan forward and backward on
+  ``csrc/ssm_scan.cu`` and the decay-gradient kernel ``csrc/ssm_scan_bwd.cu``
+  (``SsmScan``), and the shared attention block's flash kernels;
+* ssm (xlstm_1_3b): both mLSTM scans (y and the normaliser) on the same
+  scan kernels; the sLSTM is plain PyTorch, as the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -17,9 +27,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model, loss_fn
 from repro_torch.optim import AdamWState, adamw_update, cosine_schedule
 
-# family -> the kernel of its path that has no backward yet
-NO_BACKWARD = {"moe": "grouped_matmul", "hybrid": "ssm_scan", "ssm": "ssm_scan"}
-
 Metrics = Dict[str, torch.Tensor]
 
 
@@ -29,14 +36,8 @@ def make_train_step(cfg: ModelConfig, model: Model, *, peak_lr: float = 3e-4,
     """``step(opt, batch) -> (opt, metrics)``: one optimiser step of
     ``model`` (its parameters updated in place, made trainable here) on
     ``batch``; metrics ``loss``, ``aux``, ``ppl_log``, ``grad_norm``, ``lr``.
-
-    Raises ``NotImplementedError`` for a family whose path has a kernel
-    without a backward (ROADMAP Queue 1 item 8, next slice), on any device."""
-    if cfg.family in NO_BACKWARD:
-        raise NotImplementedError(
-            f"training the {cfg.family} family needs a backward of the "
-            f"{NO_BACKWARD[cfg.family]} kernel, which is not ported yet "
-            "(ROADMAP Queue 1 item 8: the moe, hybrid and ssm families)")
+    Every family trains; the module docstring lists the kernels each one's
+    gradient runs on."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
 

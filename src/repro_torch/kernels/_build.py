@@ -26,7 +26,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNELS = ("decode_attention", "flash_attention", "contraction", "probe", "grouped_matmul",
-           "ssm_scan", "matmul_pom", "stencil", "flash_attention_bwd")
+           "ssm_scan", "matmul_pom", "stencil", "flash_attention_bwd", "ssm_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

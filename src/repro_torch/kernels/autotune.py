@@ -51,11 +51,12 @@ GMM_BM = (8, 32, 64, 128)
 GMM_BN = 64
 # the (chunk length, P tile) pairs compiled into csrc/ssm_scan.cu: those the
 # paths' shapes select (the mLSTM normaliser's P = 1; zamba2's and xlstm's
-# serve prefills and 170-token checks; their forwards); the K step of C B^T,
+# serve prefills and 170-token checks; their forwards; zamba2's gradient, whose
+# role-swapped scans have P 64 and N 128); the K step of C B^T,
 # the chunk states and the readout (N and the chunk streamed in steps of
 # SCAN_KT); the N rows of a chunk-state tile (SCAN_NT); the side of a C B^T
 # tile (SCAN_CT); every scan kernel runs SCAN_THREADS threads a block
-SCAN_TILES = ((64, 8), (64, 128), (128, 128))
+SCAN_TILES = ((64, 8), (64, 64), (64, 128), (128, 128))
 SCAN_NAIVE = (64, 128)
 SCAN_KT = 32
 SCAN_NT = 64

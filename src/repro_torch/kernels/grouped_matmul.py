@@ -30,19 +30,31 @@ CUDA kernels of ``csrc/grouped_matmul.cu``.
 
 A CUDA tensor goes to a kernel (or the wrapper raises); a CPU tensor goes
 to the plain version ``ref.grouped_matmul``.
+
+The gradient (``GroupedMatmul``; no TPU counterpart: the reference lets XLA
+differentiate its pure-jnp grouped matmul) is two more grouped matmuls on
+the same kernels, dX = dY W^T and dW = X^T dY, each on a contiguous copy of
+its transposed operand and with the tile ``autotune.pom_gmm_schedule``
+picks for its shape (``grouped_matmul_backward``).  dW contracts over cap,
+a multiple of 8 (``models.moe.capacity``), so bf16 keeps the tensor cores.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .autotune import GMM_BM, GMM_NAIVE_BM, GMM_TC_NAIVE, GMM_TC_TILES, TENSOR_CORES, gmm_route
+from .autotune import (GMM_BM, GMM_NAIVE_BM, GMM_TC_NAIVE, GMM_TC_TILES, TENSOR_CORES, gmm_route,
+                       pom_gmm_schedule)
 from .ref import grouped_matmul as grouped_matmul_plain
+from .ref import grouped_matmul_backward as grouped_matmul_backward_plain
 
-# kernel launches through this wrapper, process-wide: all of them, and those
-# of the tensor-core route (the rest took the CUDA cores)
+# kernel launches, process-wide: through ``grouped_matmul``, all of them and
+# those of the tensor-core route (the rest took the CUDA cores); and the same
+# for the launches of ``grouped_matmul_backward`` (dX and dW, one each)
 launches = 0
 launches_tc = 0
+launches_bwd = 0
+launches_bwd_tc = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = {}
@@ -76,6 +88,25 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int | None = None,
     global launches, launches_tc
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w)
+    out, tc = _launch(x, w, bm, tile)
+    launches += 1
+    launches_tc += tc
+    return out
+
+
+def pom_tile(x: torch.Tensor, w: torch.Tensor) -> dict:
+    """The tile ``autotune.pom_gmm_schedule`` picks for these operands (its
+    route from their shape, dtype and alignment), as ``grouped_matmul``'s
+    keyword argument ``tile`` (tensor cores) or ``bm`` (CUDA cores)."""
+    e, cap, d = x.shape
+    s = pom_gmm_schedule(e, cap, d, w.shape[2], x.element_size(),
+                         aligned=not (x.data_ptr() % 16 or w.data_ptr() % 16))
+    return {"tile": (s.bm, s.bn, s.bk)} if s.route == TENSOR_CORES else {"bm": s.bm}
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, bm=None, tile=None) -> tuple:
+    """One launch on CUDA tensors (not counted): (out, whether it took the
+    tensor cores)."""
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
@@ -123,6 +154,49 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int | None = None,
                        _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {rc}")
-    launches += 1
-    launches_tc += tc
-    return out
+    return out, tc
+
+
+def grouped_matmul_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                            needs: tuple = (True, True)) -> tuple:
+    """(dx, dw) of ``grouped_matmul(x, w)`` for the output gradient ``dy``
+    (E, cap, f), in x's and w's dtypes (x's and w's must agree, as the
+    forward requires), each None where ``needs`` (x, w) does not ask for it.
+    On the card dx = grouped_matmul(dy, w^T) and dw = grouped_matmul(x^T,
+    dy), each transposed operand copied to contiguous and each product on
+    the tile of ``pom_tile``; on the CPU ``ref.grouped_matmul_backward``."""
+    global launches_bwd, launches_bwd_tc
+    if x.device.type == "cpu":
+        return tuple(g if need else None
+                     for g, need in zip(grouped_matmul_backward_plain(x, w, dy), needs))
+    dy = dy.to(x.dtype).contiguous()
+    grads = []
+    for need, lhs, rhs in ((needs[0], dy, w.transpose(1, 2)), (needs[1], x.transpose(1, 2), dy)):
+        if not need:
+            grads.append(None)
+            continue
+        lhs, rhs = lhs.contiguous(), rhs.contiguous()
+        g, tc = _launch(lhs, rhs, **pom_tile(lhs, rhs))
+        launches_bwd += 1
+        launches_bwd_tc += tc
+        grads.append(g)
+    return tuple(grads)
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """The grouped matmul with its gradient: the forward kernel, and
+    ``grouped_matmul_backward`` on the saved x and w.
+    ``GroupedMatmul.apply(x, w, tile)``: ``tile`` is ``grouped_matmul``'s
+    keyword arguments for the forward (``pom_tile``'s, or {} for the fixed
+    tile of the route)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile):
+        ctx.save_for_backward(x, w)
+        return grouped_matmul(x, w, **tile)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = grouped_matmul_backward(x, w, dy, needs=tuple(ctx.needs_input_grad[:2]))
+        return dx, dw, None

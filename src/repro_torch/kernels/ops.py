@@ -31,14 +31,16 @@ import contextlib
 import torch
 
 from . import ref
-from .autotune import (TENSOR_CORES, pom_attention_schedule, pom_decode_schedule,
-                       pom_gmm_schedule, pom_matmul_schedule, pom_scan_schedule)
+from .autotune import pom_attention_schedule, pom_decode_schedule, pom_matmul_schedule
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _flash_cuda
+from .grouped_matmul import GroupedMatmul
 from .grouped_matmul import grouped_matmul as _gmm_cuda
+from .grouped_matmul import pom_tile as _gmm_tile
 from .matmul_pom import matmul as _matmul_cuda
-from .ssm_scan import bc_groups as _scan_groups
+from .ssm_scan import SsmScan
+from .ssm_scan import pom_tile as _scan_tile
 from .ssm_scan import ssm_scan as _scan_cuda
 from .stencil import jacobi2d as _jacobi_cuda
 
@@ -60,6 +62,12 @@ def plain_versions():
 def _check(schedule: str) -> None:
     if schedule not in ("pom", "naive"):
         raise ValueError(f"schedule must be 'pom' or 'naive', got {schedule!r}")
+
+
+def _under_grad(*ts) -> bool:
+    """Autograd records this call: grad mode is on and an operand requires a
+    gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _aligned(*ts) -> bool:
@@ -104,7 +112,7 @@ def attention(q, k, v, *, causal: bool = True, schedule: str = "pom"):
         s = pom_attention_schedule(q.shape[2], k.shape[2], q.shape[3], q.element_size(),
                                    causal, aligned=_aligned(q, k, v))
         bq, bkv = s.bq, s.bkv
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if _under_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, None, bq, bkv)
     return _flash_cuda(q, k, v, causal=causal, bq=bq, bkv=bkv)
 
@@ -124,29 +132,31 @@ def decode_attention(q, k, v, *, length=None, schedule: str = "pom"):
 
 
 def grouped_matmul(x, w, *, schedule: str = "pom"):
-    """x: (E, cap, d) @ w: (E, d, f) -> (E, cap, f) in x's dtype."""
+    """x: (E, cap, d) @ w: (E, d, f) -> (E, cap, f) in x's dtype.
+
+    Where autograd needs a gradient the call goes through ``GroupedMatmul``
+    (the same forward kernel, and the backward's dX and dW on it too)."""
     _check(schedule)
     if _plain:
         return ref.grouped_matmul(x, w)
     x, w = x.contiguous(), w.contiguous()
-    if schedule == "naive":
-        return _gmm_cuda(x, w)             # the fixed tile of the route
-    s = pom_gmm_schedule(x.shape[0], x.shape[1], x.shape[2], w.shape[2], x.element_size(),
-                         aligned=_aligned(x, w))
-    if s.route == TENSOR_CORES:
-        return _gmm_cuda(x, w, tile=(s.bm, s.bn, s.bk))
-    return _gmm_cuda(x, w, bm=s.bm)
+    tile = {} if schedule == "naive" else _gmm_tile(x, w)   # naive: the route's fixed tile
+    if _under_grad(x, w):
+        return GroupedMatmul.apply(x, w, tile)
+    return _gmm_cuda(x, w, **tile)
 
 
 def ssm_scan(x, a, b, c, *, schedule: str = "pom"):
     """x: (B, S, H, P), a: (B, S, H), b/c: (B, S, H, N) -> (y (B, S, H, P) in
-    x's dtype, final h (B, H, N, P) f32), from h = 0."""
+    x's dtype, final h (B, H, N, P) f32), from h = 0.
+
+    Where autograd needs a gradient the call goes through ``SsmScan`` (the
+    same forward kernels; the backward runs them again, with the schedule
+    of each operand shape, and the decay-gradient kernel)."""
     _check(schedule)
     if _plain:
         return ref.ssm_scan(x, a, b, c)
-    if schedule == "pom":
-        bsz, s, nh, p = x.shape
-        sc = pom_scan_schedule(s, p, b.shape[3], x.element_size(), bsz * nh,
-                               bc_groups=bsz * _scan_groups(b, c))
-        return _scan_cuda(x, a, b, c, chunk=sc.chunk, p_tile=sc.p_tile)
-    return _scan_cuda(x, a, b, c)          # the fixed chunk and P tile
+    tile = _scan_tile(x, b, c) if schedule == "pom" else {}   # naive: the fixed chunk, P tile
+    if _under_grad(x, a, b, c):
+        return SsmScan.apply(x, a, b, c, tile)
+    return _scan_cuda(x, a, b, c, **tile)

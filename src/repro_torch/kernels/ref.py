@@ -334,3 +334,74 @@ def ssm_scan_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch
         y = y + torch.einsum("bclhn,bchnp->bclhp", cc * torch.exp(cum)[..., None], hs)
     y = y.reshape(bsz, nc * L, nh, p)[:, :s]
     return y.to(x.dtype), h
+
+
+def grouped_matmul_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """Gradients (dx, dw) of ``grouped_matmul(x, w)`` for the output gradient
+    ``dy`` (E, cap, f), in f32, cast to x's and w's dtypes:
+    dx = dy w^T (E, cap, d), dw = x^T dy (E, d, f), each per expert."""
+    dyf = dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dyf, w.float()).to(x.dtype)
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dyf).to(w.dtype)
+    return dx, dw
+
+
+def ssm_scan_backward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                      dy: torch.Tensor, dh_final: Optional[torch.Tensor] = None):
+    """Gradients (dx, da, db, dc) of ``ssm_scan(x, a, b, c)`` (from h = 0) for
+    the output gradients ``dy`` (B, S, H, P) and ``dh_final`` (B, H, N, P) or
+    None, by the sequential reverse recursion in f32:
+
+        lambda_t = c_t (x) dy_t + a_{t+1} lambda_{t+1},  lambda_{S-1} starting
+        from c (x) dy + dh_final;
+        dx_t = b_t . lambda_t,  db_t = lambda_t x_t,  dc_t = h_t dy_t,
+        da_t = sum(lambda_t * h_{t-1}).
+
+    The forward states h_t are recomputed.  Each gradient in its input's
+    dtype and shape (for a b or c that broadcasts one group over the heads,
+    the per-head gradient: autograd's ``expand`` sums it)."""
+    bsz, s, nh, p = x.shape
+    n = b.shape[-1]
+    xf, af, bf, cf = x.float(), a.float(), b.float(), c.float()
+    dyf = dy.float()
+    h = torch.zeros(bsz, nh, n, p, dtype=torch.float32, device=x.device)
+    hs = []
+    for t in range(s):
+        hs.append(h)                                         # h_{t-1}
+        h = af[:, t, :, None, None] * h + bf[:, t, :, :, None] * xf[:, t, :, None, :]
+    hs.append(h)
+    lam = (torch.zeros_like(h) if dh_final is None else dh_final.float().clone())
+    dx, da, db, dc = (torch.zeros_like(xf), torch.zeros_like(af),
+                      torch.zeros(bsz, s, nh, n, dtype=torch.float32, device=x.device),
+                      torch.zeros(bsz, s, nh, n, dtype=torch.float32, device=x.device))
+    for t in range(s - 1, -1, -1):
+        if t < s - 1:
+            lam = af[:, t + 1, :, None, None] * lam
+        lam = lam + cf[:, t, :, :, None] * dyf[:, t, :, None, :]
+        dx[:, t] = torch.einsum("bhn,bhnp->bhp", bf[:, t], lam)
+        db[:, t] = torch.einsum("bhnp,bhp->bhn", lam, xf[:, t])
+        dc[:, t] = torch.einsum("bhnp,bhp->bhn", hs[t + 1], dyf[:, t])
+        da[:, t] = (lam * hs[t]).sum((-1, -2))
+    return dx.to(x.dtype), da.to(a.dtype), db.to(b.dtype), dc.to(c.dtype)
+
+
+# the forward kernel's floor on a: it computes with log max(a, A_FLOOR)
+A_FLOOR = 1e-20
+
+
+def ssm_scan_da(c: torch.Tensor, dc: torch.Tensor, b: torch.Tensor, db: torch.Tensor,
+                a: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``csrc/ssm_scan_bwd.cu``: the decay's gradient from
+    the gradients of the readout and the input projection.  Per (batch,
+    head), g_u = c_u . dc_u - b_u . db_u (dots over N), then d log a_t =
+    sum_{u >= t} g_u (+ ``bias`` (B, H), the dh_final term) and da_t =
+    d log a_t / a_t, 0 where a_t < A_FLOOR (the forward's clamp: there the
+    scan does not depend on a_t).  The sums run in f64.  Returns (B, S, H)
+    f32."""
+    g = (c.double() * dc.double()).sum(-1) - (b.double() * db.double()).sum(-1)
+    dlog = g.flip(1).cumsum(1).flip(1)
+    if bias is not None:
+        dlog = dlog + bias.double()[:, None, :]
+    af = a.double()
+    da = torch.where(af >= A_FLOOR, dlog / torch.clamp(af, min=A_FLOOR), torch.zeros_like(dlog))
+    return da.float()

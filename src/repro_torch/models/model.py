@@ -157,6 +157,36 @@ def _dense_block(bp: Block, x: torch.Tensor, cfg: ModelConfig,
     return _attn_ffn(bp, x, cfg, positions)[0]
 
 
+def _moe_block(bp: Block, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A super-block of ``moe_every`` layers: (x, the sum of its MoE layers'
+    aux losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in bp.layers():
+        x, a = _attn_ffn(blk, x, cfg, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _hybrid_block(bp: Block, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                  shared: Optional[Block]) -> torch.Tensor:
+    """A Mamba2 block, then the shared attention block where this is one of
+    its sites (``shared`` not None)."""
+    x = x + M.mamba2_apply(bp.mamba, L.rmsnorm(bp.ln, x, cfg.norm_eps), cfg)
+    if shared is not None:
+        x, _ = _attn_ffn(shared, x, cfg, positions)
+    return x
+
+
+def _xlstm_block(bp: Block, x: torch.Tensor, cfg: ModelConfig, with_slstm: bool) -> torch.Tensor:
+    """An mLSTM block, then its sLSTM block where it has one."""
+    x = x + XL.mlstm_apply(bp.mlstm, L.rmsnorm(bp.ln, x, cfg.norm_eps), cfg)
+    if with_slstm:
+        x = x + XL.slstm_apply(bp.slstm, L.rmsnorm(bp.ln_s, x, cfg.norm_eps), cfg)
+    return x
+
+
 def _remat(fn, cfg: ModelConfig):
     """The reference's ``jax.checkpoint`` around a block (``cfg.remat``):
     "none" runs ``fn`` as it is; "full" keeps only the block's inputs and
@@ -178,10 +208,15 @@ def forward(model: Model, tokens: Optional[torch.Tensor] = None,
     """Returns (logits (B, S, Vpad) f32, aux_loss scalar f32: the MoE
     load-balance loss summed over layers, 0 for other families).
 
-    Differentiable: with grad mode on, the dense family's blocks run under
-    ``_remat`` (``cfg.remat``) and attention through its backward kernel."""
+    Differentiable: with grad mode on, every family's blocks run under
+    ``_remat`` (``cfg.remat``), as the reference's do (a moe super-block, a
+    hybrid block with its shared-attention site, an xLSTM block with its
+    sLSTM), and the kernels through their backward passes."""
     cfg = model.cfg
-    dense_block = _remat(_dense_block, cfg) if torch.is_grad_enabled() else _dense_block
+    grad = torch.is_grad_enabled()
+    dense_block, moe_block, hybrid_block, xlstm_block = (
+        _remat(fn, cfg) if grad else fn
+        for fn in (_dense_block, _moe_block, _hybrid_block, _xlstm_block))
     if embeds is not None:
         x = L.frontend_apply(cfg, embeds).to(L.dtype_of(cfg.dtype))
         b, s = x.shape[:2]
@@ -193,18 +228,13 @@ def forward(model: Model, tokens: Optional[torch.Tensor] = None,
 
     for i, bp in enumerate(model.blocks):
         if cfg.family == "moe":
-            for blk in bp.layers():
-                x, a = _attn_ffn(blk, x, cfg, positions)
-                if a is not None:
-                    aux = aux + a
+            x, a = moe_block(bp, x, cfg, positions)
+            aux = aux + a
         elif cfg.family == "hybrid":
-            x = x + M.mamba2_apply(bp.mamba, L.rmsnorm(bp.ln, x, cfg.norm_eps), cfg)
-            if _every(i, cfg.attn_every):
-                x, _ = _attn_ffn(model.shared_attn, x, cfg, positions)
+            x = hybrid_block(bp, x, cfg, positions,
+                             model.shared_attn if _every(i, cfg.attn_every) else None)
         elif cfg.family == "ssm":
-            x = x + XL.mlstm_apply(bp.mlstm, L.rmsnorm(bp.ln, x, cfg.norm_eps), cfg)
-            if _every(i, cfg.slstm_every):
-                x = x + XL.slstm_apply(bp.slstm, L.rmsnorm(bp.ln_s, x, cfg.norm_eps), cfg)
+            x = xlstm_block(bp, x, cfg, _every(i, cfg.slstm_every))
         else:
             x = dense_block(bp, x, cfg, positions)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)

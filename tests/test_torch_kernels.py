@@ -1990,3 +1990,161 @@ def test_gpu_ops_take_misaligned_and_transposed_operands(op):
         rel = 2e-2 if want.dtype == torch.bfloat16 else 1e-4
         assert got.shape == want.shape and got.dtype == want.dtype
         assert (got.float() - want.float()).abs().max().item() <= rel * max(scale, 1.0)
+
+
+# --------------------------------------------------------------------------
+# on the card: the backward passes of the grouped matmul and the scan
+# --------------------------------------------------------------------------
+# (E, cap, d, f, dtype): granite_moe_1b's training shapes (8 x 256 tokens:
+# cap 640; wi/wg d 1024 -> f 512, wo 512 -> 1024), then ragged ones on the
+# CUDA cores (d 100: no TMA row) and in f32
+GMM_BWD_CASES = [
+    (32, 640, 1024, 512, "bfloat16"),
+    (32, 640, 512, 1024, "bfloat16"),
+    (4, 40, 100, 70, "bfloat16"),
+    (3, 130, 64, 129, "float32"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_BWD_CASES)
+def test_gpu_grouped_matmul_backward_matches_plain(case):
+    """dX and dW against ``ref.grouped_matmul_backward`` (bf16 one rounding
+    of the f32 sum; f32 sums of cap or f products in another order), two
+    ``launches_bwd`` a call, on the tensor cores where ``gmm_route`` takes
+    both shapes (bf16, every dim a multiple of 8)."""
+    dev = _cuda()
+    e, cap, d, f, dtype = case
+    g = torch.Generator(device=dev).manual_seed(cap + d)
+    dt = getattr(torch, dtype)
+    x = torch.randn(e, cap, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+    dy = torch.randn(e, cap, f, generator=g, device=dev).to(dt)
+    want = tref.grouped_matmul_backward(x, w, dy)
+    n0, ntc = gmm_mod.launches_bwd, gmm_mod.launches_bwd_tc
+    got = gmm_mod.grouped_matmul_backward(x, w, dy)
+    torch.cuda.synchronize()
+    tc = all(autotune.gmm_route(e, m, k, n, x.element_size()) == autotune.TENSOR_CORES
+             for m, k, n in ((cap, f, d), (d, cap, f)))
+    assert gmm_mod.launches_bwd == n0 + 2 and gmm_mod.launches_bwd_tc == ntc + 2 * tc
+    for gr, wt, name in zip(got, want, ("dx", "dw")):
+        assert gr.dtype == wt.dtype and gr.shape == wt.shape, name
+        scale = wt.float().abs().max().item()
+        rel = 1e-2 if dtype == "bfloat16" else 1e-4
+        assert (gr.float() - wt.float()).abs().max().item() <= rel * scale, name
+
+
+@pytest.mark.gpu
+def test_gpu_grouped_matmul_function_differentiates_through_the_kernels():
+    """``ops.grouped_matmul`` under autograd: one forward launch, dX and dW on
+    the kernel, against autograd through the plain version."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(8, 64, 128, generator=g, device=dev).bfloat16()
+    w = (torch.randn(8, 128, 64, generator=g, device=dev) * 128 ** -0.5).bfloat16()
+    dy = torch.randn(8, 64, 64, generator=g, device=dev).bfloat16()
+    n0 = (gmm_mod.launches, gmm_mod.launches_bwd)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w)]
+    ops.grouped_matmul(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert (gmm_mod.launches, gmm_mod.launches_bwd) == (n0[0] + 1, n0[1] + 2)
+    want = tref.grouped_matmul_backward(x, w, dy)
+    for leaf, wt in zip(leaves, want):
+        assert (leaf.grad.float() - wt.float()).abs().max() <= 1e-2 * wt.float().abs().max()
+
+
+# (B, S, H, P, N, x dtype, broadcast B/C, dh_final): zamba2's and xlstm's
+# training shapes (8 x 256), the mLSTM normaliser's (P 1; its role-swapped
+# scans have N 1), ragged S and widths, a non-zero dh_final
+SCAN_BWD_CASES = [
+    (8, 256, 32, 128, 64, "bfloat16", True, False),
+    (2, 256, 4, 512, 512, "bfloat16", False, False),
+    (2, 256, 4, 1, 512, "float32", False, False),
+    (2, 200, 4, 48, 40, "float32", False, True),
+    (1, 130, 3, 16, 8, "float32", True, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_BWD_CASES)
+def test_gpu_scan_backward_matches_plain(case):
+    """``scan_backward`` on the kernels (its scans counted in
+    ``launches_bwd``, the decay gradient in ``launches_da``) against the
+    sequential ``ref.ssm_scan_backward``: dx within 1e-2 (a bf16 x: one
+    rounding) or 2e-3, db, dc and da within 2e-3 of their largest value
+    (split-TF32 products, within a few f32 ulps, over S steps; da through a
+    sum over S of differences that nearly cancel)."""
+    dev = _cuda()
+    b, s, h, p, n, dtype, bc, tail = case
+    x, a, bm, cm = _scan_inputs(b, s, h, p, n, dtype, dev, s + p + n, bc)
+    g = torch.Generator(device=dev).manual_seed(7)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    dh = torch.randn(b, h, n, p, generator=g, device=dev) if tail else None
+    want = tref.ssm_scan_backward(x, a, bm, cm, dy, dh)
+    n0 = (scan_mod.launches_bwd, scan_mod.launches_da)
+    got = scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy, dh)
+    torch.cuda.synchronize()
+    assert (scan_mod.launches_bwd, scan_mod.launches_da) == (n0[0] + 3 + tail, n0[1] + 1)
+    for gr, wt, name in zip(got, want, ("dx", "da", "db", "dc")):
+        assert gr.dtype == wt.dtype and gr.shape == wt.shape, name
+        assert torch.isfinite(gr).all(), name
+        rel = 1e-2 if (name == "dx" and dtype == "bfloat16") else 2e-3
+        scale = wt.float().abs().max().item()
+        assert (gr.float() - wt.float()).abs().max().item() <= rel * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_scan_function_differentiates_through_the_kernels(dtype):
+    """``ops.ssm_scan`` under autograd (zamba2's broadcast b and c, as the
+    model passes them): one forward call, three backward scans and one
+    decay-gradient launch; the gradient of the unexpanded b and c summed
+    over the heads, against autograd through the plain version."""
+    dev = _cuda()
+    x, a, bm, cm = _scan_inputs(2, 130, 8, 32, 16, dtype, dev, 3, True)
+    base = [t[:, :, :1].contiguous() for t in (bm, cm)]
+    dy = torch.randn(x.shape, device=dev).to(x.dtype)
+
+    def run(plain):
+        leaves = [t.clone().requires_grad_(True) for t in (x, a, *base)]
+        xb, ab, bb, cb = leaves
+        if plain:
+            with ops.plain_versions():
+                y, _ = ops.ssm_scan(xb, ab, bb.expand(bm.shape), cb.expand(cm.shape))
+        else:
+            y, _ = ops.ssm_scan(xb, ab, bb.expand(bm.shape), cb.expand(cm.shape))
+        y.backward(dy)
+        return [t.grad for t in leaves]
+    n0 = (scan_mod.launches, scan_mod.launches_bwd, scan_mod.launches_da)
+    got = run(False)
+    torch.cuda.synchronize()
+    assert (scan_mod.launches, scan_mod.launches_bwd, scan_mod.launches_da) == \
+        (n0[0] + 1, n0[1] + 3, n0[2] + 1)
+    for gr, wt in zip(got, run(True)):
+        rel = 1e-2 if gr.dtype == torch.bfloat16 else 2e-3
+        assert (gr.float() - wt.float()).abs().max() <= rel * wt.float().abs().max()
+
+
+@pytest.mark.gpu
+def test_gpu_ssm_scan_da_matches_plain():
+    """The decay-gradient kernel against ``ref.ssm_scan_da``: strided and
+    broadcast c and b, a bias, an a below the floor (0 there), N = 1 and
+    odd N (4-byte loads)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    for bsz, s, h, n, bc in ((8, 256, 32, 64, True), (2, 256, 4, 512, False), (2, 70, 3, 1, False),
+                             (1, 1000, 2, 7, False)):
+        c, b = (torch.randn(bsz, s, 1 if bc else h, n, generator=g, device=dev).expand(
+            bsz, s, h, n) for _ in range(2))
+        dc, db = (torch.randn(bsz, s, h, n, generator=g, device=dev) for _ in range(2))
+        a = torch.rand(bsz, s, h, 2, generator=g, device=dev)[..., 1] * 0.9 + 0.1
+        a[0, 3] = 1e-30
+        bias = torch.randn(bsz, h, generator=g, device=dev)
+        for bb in (None, bias):
+            want = tref.ssm_scan_da(c, dc, b, db, a, bb)
+            n0 = scan_mod.launches_da
+            got = scan_mod.ssm_scan_da(c, dc, b, db, a, bb)
+            torch.cuda.synchronize()
+            assert scan_mod.launches_da == n0 + 1
+            assert torch.all(got[0, 3] == 0)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())

@@ -1,7 +1,7 @@
 """The selective scan and the Jacobi-2D stencil on one GPU, and the scan's
 share of zamba2_1_2b's and xlstm_1_3b's forwards.
 
-    python3 tools/scan_bench.py [--src PATH] [--no-forward] [--tiles]
+    python3 tools/scan_bench.py [--src PATH] [--no-forward] [--tiles] [--backward]
 
 ``--src`` is the ``src`` directory of the checkout to measure (default this
 checkout's), so that two checkouts compare in one call: run them in turns
@@ -18,6 +18,11 @@ names holding ``ssm_scan``).  ``--tiles`` (this checkout's kernels only)
 first times every (chunk, P tile) the scan is compiled for at the three
 shapes and every (sweeps a launch, tile) of the stencil at the two grids,
 beside each schedule's pick: the evidence for ``autotune``'s choices.
+``--backward`` (this checkout's kernels only) times the backward passes at
+the training shapes by kernel instead: the scan's ``scan_backward`` at
+``chip_smoke``'s SCAN_BWD_SHAPES (zamba2, xlstm, the normaliser) and the
+grouped matmul's at granite's (E 32, cap 640, d 1024, f 512, bf16), each
+with its plain PyTorch copies, casts and flips beside the kernels.
 Prints the card's name and power limit first.
 
 Imports nothing of JAX.  Exits non-zero without a card.
@@ -101,11 +106,39 @@ def tiles(g) -> None:
         del x
 
 
+def backward(g) -> None:
+    """The backward passes at the training shapes, by kernel."""
+    from chip_smoke import SCAN_BWD_SHAPES, _randn, _scan_bwd_inputs, time_ms
+    from repro_torch.kernels import grouped_matmul as gmm_mod
+    from repro_torch.kernels import ssm_scan as scan_mod
+    for label in ("zamba2", "xlstm", "normaliser"):
+        b, s, h, p, n, dt, bc, tail = SCAN_BWD_SHAPES[label]
+        x, a, bm, cm, dy, _ = _scan_bwd_inputs(g, b, s, h, p, n, dt, bc, tail)
+        needs = (p > 1, True, True, True)          # the normaliser's x = 1 needs no dx
+
+        def run():
+            scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy, needs=needs)
+        print(f"scan_backward {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]}: "
+              f"{time_ms(run, iters=20):.4f} ms; by kernel: {by_kernel(run)}")
+        del x, a, bm, cm, dy
+    e, cap, d, f = 32, 640, 1024, 512
+    x = _randn(g, e, cap, d, dtype=torch.bfloat16)
+    w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).bfloat16()
+    dy = _randn(g, e, cap, f, dtype=torch.bfloat16)
+
+    def run():
+        gmm_mod.grouped_matmul_backward(x, w, dy)
+    print(f"grouped_matmul_backward E{e} cap{cap} d{d} f{f} bf16: {time_ms(run, iters=20):.4f} "
+          f"ms; by kernel: {by_kernel(run)}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory to measure")
     ap.add_argument("--no-forward", action="store_true", help="skip the model forwards")
     ap.add_argument("--tiles", action="store_true", help="time every compiled tile first")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the scan's and the grouped matmul's backward by kernel instead")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     if not torch.cuda.is_available():
@@ -119,6 +152,9 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip())
     print(f"measuring {Path(repro_torch.__file__).parent}")
     g = torch.Generator(device="cuda").manual_seed(7)
+    if args.backward:
+        backward(g)
+        return
     if args.tiles:
         tiles(g)
     for label in ("zamba2", "xlstm", "normaliser"):
