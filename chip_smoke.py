@@ -19,6 +19,11 @@ without the final ok line):
                 two stencil kernels, of the flash backward's kernels and of
                 the scan's decay-gradient kernels, and fails if a scan,
                 stencil, flash-backward or decay-gradient kernel spills;
+                counts HGMMA, UTMALDG and wgmma waits in each of the
+                backward's tensor-core kernels (the flash backward's dQ and
+                dK/dV kernels, the grouped matmul's two in-place operand
+                layouts) and fails if one has no wgmma or TMA or ptxas
+                serialised its products;
   3. kernels -- each LM kernel against its plain PyTorch version on the card:
                 decode attention at smollm's decode shape (S 128, 1024 and
                 8192), granite's and zamba2's (S 1024), group 8 and ragged
@@ -29,16 +34,18 @@ without the final ok line):
                 Sq < Skv, Sq > Skv with rows that see no key, group 4 and
                 1, non-causal, D 128, and D 32 on the CUDA cores), the
                 flash backward at the training step's shape in bf16 and
-                f32, with rows that see no key and ragged (a second call
-                bit-equal),
+                f32, granite's and zamba2's training shapes, with rows that
+                see no key and ragged (a second call bit-equal),
                 grouped_matmul at granite_moe_1b's decode (cap 8) and forward
                 (cap 640) shapes and a ragged one, bf16 and f32, through both
                 schedules and every tensor-core tile, ssm_scan at
                 zamba2's and xlstm's shapes, P = 1 and a ragged S (y and h),
                 through both schedules, with the route of each call; the
                 grouped matmul's backward (dX, dW) at granite's training
-                shapes (cap 640, on the tensor cores) and a ragged f32 one,
-                a second call bit-equal; the scan's backward (dx, da, db,
+                shapes (cap 640, on the tensor cores), at cap 328 and with a
+                strided dy, and a ragged f32 one, a second call bit-equal
+                and the first call's peak allocation no more than dx, dw and
+                dy's copy (no transposed copy); the scan's backward (dx, da, db,
                 dc) at zamba2's, xlstm's and the normaliser's training
                 shapes and a ragged one with a non-zero dh_final, and the
                 decay-gradient kernel alone;
@@ -162,9 +169,10 @@ without the final ok line):
                 flash forward with lse beside it, and the flash backward at
                 the training shape against its bound, its CUDA-core route,
                 its plain version and SDPA's forward plus backward (its
-                backward alone beside it); the grouped matmul's backward at
-                granite's training shape (its transposed copies' time and
-                two ``torch.bmm`` beside it), the scan's backward at
+                backward alone beside it), and at granite's and zamba2's
+                training shapes against SDPA's backward and the bound; the
+                grouped matmul's backward at granite's training shape (two
+                ``torch.bmm`` beside it), the scan's backward at
                 zamba2's (xlstm's and the normaliser's beside it) and the
                 decay-gradient kernel.  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
@@ -424,6 +432,20 @@ def build_phase() -> None:
         print(f"sass {name}: {counts}")
         if not all(counts.values()):
             fail(f"{name}: the tensor-core route compiled without wgmma or TMA: {counts}")
+    # the backward's tensor-core kernels: the flash backward's two and the
+    # grouped matmul's two operand layouts (gemm_kernel<BM, BN, A MN-major,
+    # B K-major>, mangled ...Lb1ELb0E / ...Lb0ELb1E), each on wgmma fed by
+    # TMA, and its products pipelined (fewer wgmma waits than wgmmas: one
+    # after every HGMMA is ptxas serialising them)
+    for lib, fn in (("flash_attention_bwd", "flash_bwd_dq_tc_kernel"),
+                    ("flash_attention_bwd", "flash_bwd_dkdv_tc_kernel"),
+                    ("grouped_matmul", "Lb1ELb0E"), ("grouped_matmul", "Lb0ELb1E")):
+        counts = _build.sass_counts(lib, ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR"), function=fn)
+        print(f"sass {lib} {fn}: {counts}")
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            fail(f"{lib} {fn}: compiled without wgmma or TMA: {counts}")
+        if counts["WARPGROUP.DEPBAR"] >= counts["HGMMA"]:
+            fail(f"{lib} {fn}: ptxas serialised the wgmma products: {counts}")
     counts = _build.sass_counts("ssm_scan", ("HMMA",))
     print(f"sass ssm_scan: {counts}")
     if not counts["HMMA"]:
@@ -585,24 +607,27 @@ def kernel_phase() -> dict:
 
 def flash_bwd_vs_plain(g) -> float:
     """The flash backward against ``ref.attention_backward`` on the same q,
-    k, v, o, lse and dO: at the training step's shape in bf16 and f32, and
-    Sq > Skv (rows that see no key get dq 0) and group 4 ragged; a second
-    call gives the same bits; bf16 at D 64 on both routes (tensor and CUDA
-    cores).  Each held to FLASH_BWD_RTOL of its largest |value|; returns the
-    largest absolute error."""
+    k, v, o, lse and dO: at the training step's shape in bf16 and f32,
+    granite_moe_1b's (16 / 8) and zamba2_1_2b's (32 / 32) training shapes in
+    bf16, and Sq > Skv (rows that see no key get dq 0) and group 4 ragged; a
+    second call gives the same bits; bf16 at D 64 on both routes (tensor and
+    CUDA cores).  Each held to FLASH_BWD_RTOL of its largest |value|;
+    returns the largest absolute error."""
     from repro_torch.kernels import autotune, ref
     from repro_torch.kernels import flash_attention as flash_mod
     worst_abs = 0.0
     for b, hq, hkv, sq, skv, d, causal, dt in [
             (TRAIN_B, 15, 5, TRAIN_S, TRAIN_S, 64, True, torch.bfloat16),
             (TRAIN_B, 15, 5, TRAIN_S, TRAIN_S, 64, True, torch.float32),
+            (TRAIN_B, 16, 8, TRAIN_S, TRAIN_S, 64, True, torch.bfloat16),
+            (TRAIN_B, 32, 32, TRAIN_S, TRAIN_S, 64, True, torch.bfloat16),
             (1, 4, 2, 200, 64, 64, True, torch.bfloat16),
             (2, 8, 2, 130, 130, 64, True, torch.float32)]:
         q, do = _randn(g, b, hq, sq, d, dtype=dt), _randn(g, b, hq, sq, d, dtype=dt)
         k, v = _randn(g, b, hkv, skv, d, dtype=dt), _randn(g, b, hkv, skv, d, dtype=dt)
         o, lse = flash_mod.flash_attention(q, k, v, causal=causal, return_lse=True)
         want = ref.attention_backward(q, k, v, o, lse, do, causal=causal)
-        best = autotune.attention_route(sq, skv, d, q.element_size())
+        best = autotune.attention_bwd_route(sq, skv, d, q.element_size())
         for route in sorted({best, autotune.CUDA_CORES}):
             ntc = flash_mod.launches_bwd_tc
             got = flash_mod.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
@@ -708,34 +733,62 @@ def scan_vs_plain(g) -> float:
     return worst
 
 
+# the grouped matmul's backward may allocate dx and dw, and dy's contiguous
+# copy where dy is a strided view, plus this slack (the caching allocator's
+# 512-byte rounding; a transposed copy of x or w at granite's shapes is 42
+# MB or 34 MB)
+GMM_BWD_ALLOC_SLACK = 1 << 20
+
+
 def gmm_bwd_vs_plain(g) -> float:
     """grouped_matmul_backward (dX and dW) against its plain version at
     granite_moe_1b's training shapes (8 x 256 tokens: cap 640; wi/wg and
-    wo) in bf16, every launch on the tensor cores, and a ragged one in f32
-    (the CUDA cores); a second call gives the same bits."""
+    wo) in bf16, at cap 328 (a tail in every tile of cap) and with a dy that
+    is a strided view in bf16, every launch on the tensor cores, and a
+    ragged one in f32 (the CUDA cores); a second call gives the same bits;
+    the first call's peak allocation rises by at most dx, dw, dy's copy if
+    it needs one and GMM_BWD_ALLOC_SLACK: no operand is transposed into a
+    copy."""
     from repro_torch.kernels import grouped_matmul as gmm_mod
     from repro_torch.kernels import ref
     worst = 0.0
-    for e, cap, d, f, dt in ((32, 640, 1024, 512, torch.bfloat16),
-                             (32, 640, 512, 1024, torch.bfloat16),
-                             (4, 130, 100, 70, torch.float32)):
+    for e, cap, d, f, dt, strided in ((32, 640, 1024, 512, torch.bfloat16, False),
+                                      (32, 640, 512, 1024, torch.bfloat16, False),
+                                      (32, 328, 1024, 512, torch.bfloat16, False),
+                                      (32, 640, 1024, 512, torch.bfloat16, True),
+                                      (4, 130, 100, 70, torch.float32, False)):
         x = _randn(g, e, cap, d, dtype=dt)
         w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(dt)
-        dy = _randn(g, e, cap, f, dtype=dt)
-        want = ref.grouped_matmul_backward(x, w, dy)
+        dy = _randn(g, e, cap, 2 * f, dtype=dt)[:, :, ::2] if strided else \
+            _randn(g, e, cap, f, dtype=dt)
+        want = ref.grouped_matmul_backward(x, w, dy.contiguous())
         n0, ntc = gmm_mod.launches_bwd, gmm_mod.launches_bwd_tc
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         got = gmm_mod.grouped_matmul_backward(x, w, dy)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
         again = gmm_mod.grouped_matmul_backward(x, w, dy)
         torch.cuda.synchronize()
+        allowed = (x.numel() + w.numel() + (dy.numel() if strided else 0)) * x.element_size() \
+            + GMM_BWD_ALLOC_SLACK
         tc = gmm_mod.launches_bwd_tc - ntc
+        label = (f"E{e} cap{cap} d{d} f{f} {str(dt)[6:]}"
+                 + (" strided dy" if strided else ""))
+        print(f"grouped_matmul_backward {label}: peak allocation +{rise} bytes "
+              f"(allowed {allowed}: dx, dw{', dy copy' if strided else ''} and slack)")
+        if rise > allowed:
+            fail(f"grouped_matmul_backward {label}: allocated {rise} bytes, more than dx and dw "
+                 f"({allowed}): a transposed operand was copied")
         if gmm_mod.launches_bwd - n0 != 4 or tc != (4 if dt == torch.bfloat16 else 0):
-            fail(f"grouped_matmul_backward E{e} cap{cap} d{d} f{f}: "
+            fail(f"grouped_matmul_backward {label}: "
                  f"{gmm_mod.launches_bwd - n0} launches, {tc} on the tensor cores")
         for name, gr, wt, ag in zip(("dx", "dw"), got, want, again):
             err = (gr.float() - wt.float()).abs().max().item()
             tol = GMM_BWD_RTOL[dt] * wt.float().abs().max().item()
-            print(f"grouped_matmul_backward {name} E{e} cap{cap} d{d} f{f} {str(dt)[6:]}: "
-                  f"max abs err {err:.3g} (tolerance {tol:.3g})")
+            print(f"grouped_matmul_backward {name} {label}: max abs err {err:.3g} "
+                  f"(tolerance {tol:.3g})")
             if not err <= tol:
                 fail(f"grouped_matmul_backward {name} disagrees with its plain version: {err}")
             if not torch.equal(gr, ag):
@@ -2359,47 +2412,63 @@ def flash_bwd_row(g, errs: dict, launches: dict) -> dict:
     its work (q, k, v, o, dO and lse read once, dq, dk, dv written once; the
     five causal products of the backward, 2.5x the forward's operations, at
     the bf16 tensor-core rate), and SDPA's forward plus backward (its
-    backward alone beside it) on the same inputs."""
+    backward alone beside it) on the same inputs; and the same kernel time,
+    SDPA backward and bound at granite_moe_1b's (16 / 8) and zamba2_1_2b's
+    (32 / 32) training shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ref
     dt = torch.bfloat16
-    b, hq, hkv, s, d = TRAIN_B, 15, 5, TRAIN_S, 64
-    q, do = _randn(g, b, hq, s, d, dtype=dt), _randn(g, b, hq, s, d, dtype=dt)
-    k, v = _randn(g, b, hkv, s, d, dtype=dt), _randn(g, b, hkv, s, d, dtype=dt)
-    o, lse = flash_mod.flash_attention(q, k, v, return_lse=True)
-    byts = (4 * b * hq * s * d + 4 * b * hkv * s * d) * 2 + 4 * b * hq * s
-    flops = 2.5 * 4.0 * d * b * hq * (s * (s + 1) // 2)
-    bms, by = bound(byts, flops, dt)
-    ntc = flash_mod.launches_bwd_tc
-    ms = time_ms(lambda: flash_mod.flash_attention_backward(q, k, v, o, lse, do))
-    if flash_mod.launches_bwd_tc == ntc:
-        fail("flash_attention_backward: the timed calls did not take the tensor cores")
-    cc_ms = time_ms(lambda: flash_mod.flash_attention_backward(q, k, v, o, lse, do,
-                                                               route="cuda_cores"), iters=20)
-    plain_ms = time_ms(lambda: ref.attention_backward(q, k, v, o, lse, do), iters=20)
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-
-    def sdpa_fwd_bwd():
+    b, s, d = TRAIN_B, TRAIN_S, 64
+    at = {}
+    for label, hq, hkv in (("smollm", 15, 5), ("granite", 16, 8), ("zamba2", 32, 32)):
+        q, do = _randn(g, b, hq, s, d, dtype=dt), _randn(g, b, hq, s, d, dtype=dt)
+        k, v = _randn(g, b, hkv, s, d, dtype=dt), _randn(g, b, hkv, s, d, dtype=dt)
+        o, lse = flash_mod.flash_attention(q, k, v, return_lse=True)
+        byts = (4 * b * hq * s * d + 4 * b * hkv * s * d) * 2 + 4 * b * hq * s
+        flops = 2.5 * 4.0 * d * b * hq * (s * (s + 1) // 2)
+        bms, by = bound(byts, flops, dt)
+        ntc = flash_mod.launches_bwd_tc
+        ms = time_ms(lambda: flash_mod.flash_attention_backward(q, k, v, o, lse, do))
+        if flash_mod.launches_bwd_tc == ntc:
+            fail("flash_attention_backward: the timed calls did not take the tensor cores")
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-        torch.autograd.grad(out, leaves, do)
-    lib_ms = time_ms(sdpa_fwd_bwd)
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
-    print(f"flash_attention_bwd B{b} S{s} (tensor cores): {ms:.4f} ms, CUDA-core route "
-          f"{cc_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa forward + backward {lib_ms:.4f} ms "
-          f"(backward alone {lib_bwd_ms:.4f} ms), bound {bms:.5f} ms ({by})")
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+        row = {"ms": ms, "library_backward_only_ms": lib_bwd_ms, "bound_ms": bms,
+               "bound_by": by, "shape": f"B {b}, Hq {hq}, Hkv {hkv}, S {s}, D {d}, bf16, causal"}
+        if label == "smollm":
+            row["cuda_core_route_ms"] = time_ms(
+                lambda: flash_mod.flash_attention_backward(q, k, v, o, lse, do,
+                                                           route="cuda_cores"), iters=20)
+            row["plain_ms"] = time_ms(lambda: ref.attention_backward(q, k, v, o, lse, do),
+                                      iters=20)
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+                torch.autograd.grad(out, leaves, do)
+            row["library_ms"] = time_ms(sdpa_fwd_bwd)
+        print(f"flash_attention_bwd {label} B{b} Hq{hq} Hkv{hkv} S{s} (tensor cores): {ms:.4f} ms"
+              + (f", CUDA-core route {row['cuda_core_route_ms']:.4f} ms, plain "
+                 f"{row['plain_ms']:.4f} ms, sdpa forward + backward {row['library_ms']:.4f} ms"
+                 if label == "smollm" else "")
+              + f", sdpa backward alone {lib_bwd_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        at[label] = row
+        del q, k, v, do, o, lse, leaves, out
+    main = at.pop("smollm")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "none: no TPU counterpart (the reference differentiates XLA "
                         "attention; src/repro/configs/base.py:54 use_pallas False)",
             "launches": launches["flash_attention_bwd"],
-            "max_abs_err": errs["flash_attention_bwd"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "max_abs_err": errs["flash_attention_bwd"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "library": "scaled_dot_product_attention forward + backward",
-            "library_backward_only_ms": lib_bwd_ms, "kernel_route": "tensor_cores",
-            "cuda_core_route_ms": cc_ms,
-            "shape": f"B {b}, Hq {hq}, Hkv {hkv}, S {s}, D {d}, bf16, causal"}
+            "library_backward_only_ms": main["library_backward_only_ms"],
+            "kernel_route": "tensor_cores", "cuda_core_route_ms": main["cuda_core_route_ms"],
+            "shape": main["shape"], "at_granite_shape": at["granite"],
+            "at_zamba2_shape": at["zamba2"]}
 
 
 def compile_numbers_phase(errs: dict, launches: dict) -> list:
@@ -2548,8 +2617,7 @@ NO_TPU = ("none: no TPU counterpart (the reference differentiates its pure-jnp o
 def backward_rows(g, errs: dict, launches: dict) -> list:
     """The backward passes at the training shapes (batch 8 x 256): the
     grouped matmul's dX and dW at granite's wi/wg shape (E 32, cap 640, d
-    1024, f 512, bf16), with the two transposed copies' time beside it and
-    two ``torch.bmm`` as its library call; the scan's backward at zamba2's
+    1024, f 512, bf16), with two ``torch.bmm`` as its library call; the scan's backward at zamba2's
     shape (xlstm's and the normaliser's beside it) and the decay-gradient
     kernel at zamba2's shape, neither with a library call.  Bounds: each
     input read once and each output written once; the grouped matmul's two
@@ -2570,19 +2638,18 @@ def backward_rows(g, errs: dict, launches: dict) -> list:
     n0, ntc = gmm_mod.launches_bwd, gmm_mod.launches_bwd_tc
     ms = time_ms(lambda: gmm_mod.grouped_matmul_backward(x, w, dy), iters=50)
     n, tc = gmm_mod.launches_bwd - n0, gmm_mod.launches_bwd_tc - ntc
-    copies_ms = time_ms(lambda: (w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()),
-                        iters=50)
     plain_ms = time_ms(lambda: ref.grouped_matmul_backward(x, w, dy), iters=20)
     lib_ms = time_ms(lambda: (torch.bmm(dy, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), dy)))
     print(f"grouped_matmul_bwd E{e} cap{cap} d{d} f{f} bf16 ({tc} of {n} timed launches on the "
-          f"tensor cores): {ms:.4f} ms (the transposed copies alone {copies_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, two torch.bmm {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+          f"tensor cores, operands read in place): {ms:.4f} ms, plain {plain_ms:.4f} ms, two "
+          f"torch.bmm {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
     rows.append({"name": "grouped_matmul_bwd", "route": "cuda",
-                 "source": "src/repro_torch/csrc/grouped_matmul.cu", "replaces": NO_TPU,
+                 "source": "src/repro_torch/csrc/grouped_matmul.cu + "
+                           "src/repro_torch/csrc/hopper_gemm.cuh", "replaces": NO_TPU,
                  "launches": launches["grouped_matmul_bwd"],
                  "max_abs_err": errs["grouped_matmul_bwd"], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                 "library": "two torch.bmm (dY W^T, X^T dY)", "transposed_copies_ms": copies_ms,
+                 "library": "two torch.bmm (dY W^T, X^T dY)",
                  "tensor_core_share": tc / n, "shape": f"E {e}, cap {cap}, d {d}, f {f}, bf16"})
     del x, w, dy
     scan = {}

@@ -18,27 +18,36 @@
 // Bound: at the port's training shape (smollm_360m: B 8, Hq 15, Hkv 5,
 // S 256, D 64, bf16, causal) reading q, k, v, o, dO, lse and writing dq, dk,
 // dv take longer at 3.35 TB/s than the five causal products at the bf16
-// tensor-core rate, so the bound is bytes.
+// tensor-core rate, so the bound is bytes (0.0063 ms on an H100 SXM).  At
+// that size what holds a kernel above the bound is latency: loads that do
+// not overlap products, few and uneven dK/dV work items (B * Hkv * Skv / 64
+// of them, 160 at that shape, whose causal key tile 0 walks the group's 12
+// query tiles where tile 3 walks 3), and a fixed cost an item.  The
+// tensor-core route answers with TMA rings fed by a producer, the longest
+// walks first and split over two warpgroups, and a persistent dK/dV grid.
 //
-// Design (deterministic, no atomics), three kernels a call on either of two
-// routes (the tensor cores for bf16 at D 64 / 128 with 16-byte aligned
-// operands, `flash_attention_bwd_tc_launch`; the CUDA cores for the rest,
-// `flash_attention_bwd_launch`), chosen as the forward's are:
-// * flash_bwd_delta_kernel: Delta (B, Hq, Sq) in f32, one warp a row;
-// * flash_bwd_dkdv_kernel: one block per (b * Hkv + kv head, key tile of
-//   BKV).  K and V stay in shared memory; the block walks the group's query
-//   heads and, causal, only the query tiles on or below the diagonal,
-//   recomputing S^T and dP^T for each, and keeps dK and dV in f32 registers;
-//   the group's sum happens in the block, so no two blocks write one key;
-// * flash_bwd_dq_kernel: one block per (b * Hq + h, query tile of BQ),
-//   walking the key tiles up to its last row's last visible key (as the
-//   forward does), recomputing P and dP and keeping dQ in f32 registers.
-// On the CUDA cores every product runs in f32 from operands staged in
-// shared memory (bf16 converted on load); on the tensor cores on
-// mma.sync with f32 sums, P and dS rounded to bf16 as the forward rounds P
-// (namespace tc below).  The recompute of S and dP in both the dK/dV and
-// the dQ kernel (seven products where a kernel with atomics on dQ needs
-// five) is the price of determinism.
+// Design (deterministic, no atomics), on either of two routes (the tensor
+// cores for bf16 at D 64 with 16-byte aligned operands,
+// `flash_attention_bwd_tc_launch`; the CUDA cores for the rest -- f32, D
+// 32 and 128, misaligned operands -- `flash_attention_bwd_launch`), chosen
+// by autotune.attention_bwd_route:
+// * the CUDA cores, three kernels: flash_bwd_delta_kernel, Delta (B, Hq, Sq)
+//   in f32, one warp a row; flash_bwd_dkdv_kernel, one block per
+//   (b * Hkv + kv head, key tile of BKV), K and V in shared memory, walking
+//   the group's query heads and, causal, only the query tiles on or below
+//   the diagonal, recomputing S^T and dP^T for each, with dK and dV in f32
+//   registers (the group's sum happens in the block, so no two blocks write
+//   one key); flash_bwd_dq_kernel, one block per (b * Hq + h, query tile of
+//   BQ), walking the key tiles up to its last row's last visible key (as
+//   the forward does), recomputing P and dP and keeping dQ in f32
+//   registers.  Every product in f32 from operands staged in shared memory
+//   (bf16 converted on load).
+// * the tensor cores, two kernels on TMA and wgmma (namespace tc below):
+//   dQ, which folds Delta into its prologue, then dK and dV, whose two
+//   consumer warpgroups split each block's walk.
+// The recompute of S and dP in both the dK/dV and the dQ kernel (seven
+// products where a kernel with atomics on dQ needs five) is the price of
+// determinism.
 //
 // Layouts (all contiguous): q, o, dout, dq (B, Hq, Sq, D); k, v, dk, dv
 // (B, Hkv, Skv, D); lse, delta (B, Hq, Sq) f32.  Query head h uses kv head
@@ -48,6 +57,8 @@
 
 #include <cstdint>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -432,313 +443,538 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
   }
 }
 
-// ------------------------------------------------ the tensor-core route (bf16)
-// bf16 with D 64 or 128 and 16-byte aligned q, k, v, dO: the same three
-// kernels' work with every product on mma.sync.m16n8k16 (bf16 in, f32
-// sums).  A block is four warps, each owning 16 rows of the block's 64-row
-// tile (keys in dK/dV, queries in dQ).  Tiles are staged in shared memory
-// 16 bytes a thread, rows padded by 16 bytes so that ldmatrix reads 8 rows
-// without bank conflicts.  S^T = K Q^T and dP^T = V dO^T (dK/dV), or S = Q
-// K^T and dP = dO V^T (dQ), come out as the m16n8 accumulator fragments;
-// P and dS are rounded to bf16 in registers, where those fragments are
-// exactly the next product's A operand, and dV += P^T dO, dK += dS^T Q
-// (dQ += dS K) read dO, Q (K) through ldmatrix's transpose.
+// ------------------------------------------ the tensor-core route (bf16, D 64)
+// bf16 at D 64 with 16-byte aligned q, k, v, o and dO: two kernels a call
+// on TMA and wgmma, each with a producer warp that keeps a ring of the
+// tiles its block walks and consumer warpgroups that run every product on
+// wgmma.m64n64k16 with f32 sums (hopper.cuh).
+//
+// * flash_bwd_dq_tc_kernel, one block per (b * Hq + h, 64-row query tile),
+//   causal tiles with the most keys first.  The producer loads the Q and dO
+//   tiles once and the K and V tiles through a two-stage ring.  Its
+//   prologue computes Delta = rowsum(dO o O) of its rows (a quad of lanes a
+//   row, 16 columns each) and writes it out for the dK/dV kernel, which
+//   runs after it.  Each key tile: S = Q K^T and dP = dO V^T (both operands
+//   K-major in shared memory), P = exp2(S scale log2 e - lse log2 e) and
+//   dS = P o (dP - Delta) on the accumulator fragments in registers, dS
+//   rounded to bf16 -- the fragments' consecutive pairs are exactly wgmma's
+//   register A operand -- and dQ += dS K with K MN-major (the transpose
+//   bit).  Key tiles above the diagonal are never loaded; only edge tiles
+//   are masked.
+// * flash_bwd_dkdv_tc_kernel, persistent: one block an SM walks work items
+//   of one (b * Hkv + kv head, 64-key tile) each, in key tile-major order
+//   (causal tile 0, the longest walks, first) dealt snake-wise over the
+//   blocks.  An item's steps are the group's query heads times its query
+//   tiles on or below the diagonal.  A producer warp loads each item's K
+//   and V (two buffers, so the next item's load overlaps this one's steps)
+//   and streams each step's Q and dO (TMA) and lse and Delta (its 32 lanes'
+//   cp.async copies) through a four-stage ring.  Two consumer warpgroups
+//   take an item's steps in turn (the longest key tile walks half as many
+//   steps as one warpgroup would), each computing S^T = K Q^T and dP^T = V
+//   dO^T (K-major), P^T and dS^T in registers (P^T and dS^T rounded to
+//   bf16, as the forward rounds P), then dV += P^T dO and dK += dS^T Q with
+//   dO and Q MN-major.  At an item's end the two warpgroups' dK and dV are
+//   summed through shared memory in a fixed order (dK = dK_0 + dK_1, dV =
+//   dV_0 + dV_1): the call is deterministic.  A block a work item would pay
+//   its launch, its K/V load and that sum once per 64 keys, which at a
+//   group of 1 (zamba2: 1-4 steps an item) is most of the item.
+// The dK/dV consumers hold four m64n64 f32 fragments (dK, dV, S^T, dP^T)
+// at once: the producer's warpgroup hands its registers to them
+// (setmaxnreg: 40 a producer thread, 232 a consumer thread).  Every stage
+// is released by each consumer warp after its own reads (four arrivals).
+// TMA fills a box past Sq or Skv with zeros of the same head, never the
+// next head's rows; lse and Delta past a head's Sq are zeros, masked with
+// the rows they belong to.
 namespace tc {
 
-constexpr int kRows = 64;        // rows of a block's tile, and of each step's tile
+using namespace hopper;
+
+constexpr int kD = 64;                      // head dim: one 128-byte box a row
+constexpr int kRows = 64;                   // rows of every tile (keys or queries)
+constexpr int kTileBytes = kRows * kD * 2;  // one swizzled 64 x 64 bf16 tile
+constexpr int kRowBytes = kRows * 4;        // 64 lse or Delta values
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory: four bf16 tiles of kRows x (D + 8), then lse (log2 units)
-// and Delta, kRows floats each.  Must agree with
+// dK/dV: two consumer warpgroups and a producer warpgroup (one warp of it
+// works); four stages, two a consumer.  Shared memory: two K/V buffers,
+// then each stage's Q and dO, then each stage's lse and Delta, then the
+// warpgroups' hand-over of their sums, then full[p] and empty[p] a K/V
+// buffer and full[s] and empty[s] a stage; 1 KB to align the tiles to the
+// 1024-byte swizzle period.  Must agree with
 // repro_torch.kernels.autotune.flash_bwd_tc_smem_bytes.
-template <int D>
-struct Tiles {
-  static_assert(D == 64 || D == 128, "head dim");
-  static constexpr int kPitch = D + 8;
-  static constexpr int kTile = kRows * kPitch;
-  static constexpr int kSmem = 4 * kTile * 2 + 2 * kRows * 4;
-};
+constexpr int kKvConsumers = 2;
+constexpr int kKvThreads = kKvConsumers * 128 + 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // 128 x 40 + 256 x 232 <= 65536
+constexpr int kKvStages = 4;
+constexpr int kXferBytes = kKvConsumers * (kD / 2) * 128 * 4;   // dK of one, dV of the other
+constexpr int kKvSmem = 1024 + 2 * 2 * kTileBytes + kKvStages * 2 * kTileBytes +
+                        kKvStages * 2 * kRowBytes + kXferBytes + 8 * (4 + 2 * kKvStages);
+// dQ: one consumer warpgroup and the producer warp; a two-stage K/V ring.
+// Shared memory: Q and dO, then each stage's K and V, then full[s],
+// empty[s] and the Q/dO barrier; 1 KB to align.
+constexpr int kQThreads = 128 + 32;
+constexpr int kQStages = 2;
+constexpr int kQSmem = 1024 + 2 * kTileBytes + kQStages * 2 * kTileBytes + 8 * (1 + 2 * kQStages);
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// All 256 consumer threads of a dK/dV block (barrier 1; the producer
+// warpgroup does not take part).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kKvConsumers * 128) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+// 4 bytes from global to shared memory, asynchronously (zeros where `in` is
+// false: no byte is read), and an arrival on `bar` once every such copy of
+// this thread has landed (counted as one of the barrier's arrivals).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+// 2^x in one MUFU.EX2 (ftz: a result below 2^-126, far below a bf16 P's
+// resolution, is 0), so that a masked entry is a select, not a branch
+// around exp2f's range checks.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// d (16 x 8, f32) += a (16 x 16, bf16) b (16 x 8, bf16)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// threadIdx.x / n, warp-uniform as the compiler sees it (a lane-0 shuffle):
+// a branch on it is not divergent, so ptxas keeps the wgmma pipeline (a
+// wgmma under a branch it must treat as divergent is serialised, C7520).
+__device__ __forceinline__ int uniform_div(int n) {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / n, 0);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// A warpgroup's register budget a thread (all its 128 threads execute it).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// kRows rows x D of src (rows from r0, zeros at or past n) into dst (pitch
-// D + 8), 16 bytes a thread a step
-template <int D>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-                                      int r0, int n) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * D + 8 * c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + 8 * c) = x;
-  }
-}
-
-// acc (16 x 64: eight m16n8 fragments) = rows row0 ... row0 + 15 of a times
-// the transpose of all kRows rows of b, both D wide: A B^T over D.  Both
-// operands are K-major in shared memory, so ldmatrix reads them as they are.
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const __nv_bfloat16* a, int row0,
-                                        const __nv_bfloat16* b, int lane) {
-  constexpr int P = D + 8;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4];
-    ldsm_x4(fa, smem_u32(a + (row0 + lane % 16) * P + 16 * kk + 8 * (lane / 16)));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t fb[4];
-      ldsm_x4(fb, smem_u32(b + (16 * np + lane % 8 + 8 * (lane / 16)) * P + 16 * kk +
-                           8 * ((lane / 8) % 2)));
-      mma(acc[2 * np], fa, fb[0], fb[1]);
-      mma(acc[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// acc (16 x D: D / 8 m16n8 fragments) += p (16 x 64 in registers, the
-// fragments of mma_abt, rounded to bf16) times all kRows rows of b (D wide):
-// b is read through ldmatrix's transpose.
-template <int D>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                       const __nv_bfloat16* b, int lane) {
-  constexpr int P = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk) {
-    // the m16n8 fragments 2 kk and 2 kk + 1 are the A fragment of k step kk
-    const uint32_t fa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < D / 16; ++nd) {
-      uint32_t fb[4];
-      ldsm_x4_trans(fb, smem_u32(b + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * P +
-                                 16 * nd + 8 * (lane / 16)));
-      mma(acc[2 * nd], fa, fb[0], fb[1]);
-      mma(acc[2 * nd + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// rows of a block's tile (row0 + lane / 4 and + 8) and D columns of acc,
-// times `mul`, as bf16 pairs into dst (rows past n dropped)
-template <int D>
-__device__ __forceinline__ void store(__nv_bfloat16* dst, const float (&acc)[D / 8][4], int row0,
+// rows (row0 + lane / 4 and + 8, those below n) of an m64n64 fragment,
+// times `mul`, as bf16 pairs into dst (kD wide)
+__device__ __forceinline__ void store(__nv_bfloat16* dst, const float (&acc)[kD / 2], int row0,
                                       int n, float mul, int lane) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + lane / 4 + 8 * h;
     if (r >= n) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(r) * D + 8 * j +
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(r) * kD + 8 * j +
                                          2 * (lane % 4)) =
-          __floats2bfloat162_rn(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int hq,
-                         int hkv, int sq, int skv, int causal, float scale) {
-  using Tl = Tiles<D>;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + Tl::kTile;
-  __nv_bfloat16* qs = vs + Tl::kTile;
-  __nv_bfloat16* dos = qs + Tl::kTile;
-  float* lse_s = reinterpret_cast<float*>(dos + Tl::kTile);
-  float* dl_s = lse_s + kRows;
-
-  const int bkh = blockIdx.y;   // b * hkv + kv head
-  const int b = bkh / hkv;
-  const int kvh = bkh - b * hkv;
-  const int group = hq / hkv;
-  const int j0 = blockIdx.x * kRows;
-  const int seq_off = skv - sq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int key_lo = j0 + 16 * warp + lane / 4;   // and key_lo + 8
-  const float scale_log2 = scale * kLog2e;
-
-  stage<D>(ks, k + static_cast<size_t>(bkh) * skv * D, j0, skv);
-  stage<D>(vs, v + static_cast<size_t>(bkh) * skv * D, j0, skv);
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  const int i_first = causal ? max(0, j0 - seq_off) : 0;
-  for (int hh = 0; hh < group; ++hh) {
-    const size_t bh = static_cast<size_t>(b) * hq + kvh * group + hh;
-    for (int i0 = (i_first / kRows) * kRows; i0 < sq; i0 += kRows) {
-      __syncthreads();   // the last tile's Q and dO are consumed
-      stage<D>(qs, q + bh * sq * D, i0, sq);
-      stage<D>(dos, dout + bh * sq * D, i0, sq);
-      for (int i = threadIdx.x; i < kRows; i += kThreads) {
-        const bool in = i0 + i < sq;
-        lse_s[i] = in ? lse[bh * sq + i0 + i] * kLog2e : 0.f;
-        dl_s[i] = in ? delta[bh * sq + i0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      float st[8][4], dpt[8][4];
-      mma_abt<D>(st, ks, 16 * warp, qs, lane);    // S^T = K Q^T
-      mma_abt<D>(dpt, vs, 16 * warp, dos, lane);  // dP^T = V dO^T
-      // P^T and dS^T; masked entries are exactly 0
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key_lo + 8 * (e >> 1);
-          const int qi = 8 * n + 2 * (lane % 4) + (e & 1);
-          const int qpos = i0 + qi;
-          const bool ok = key < skv && qpos < sq && (!causal || key <= qpos + seq_off);
-          const float p = ok ? exp2f(st[n][e] * scale_log2 - lse_s[qi]) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - dl_s[qi]);
-        }
-      mma_pb<D>(dva, st, dos, lane);    // dV += P^T dO
-      mma_pb<D>(dka, dpt, qs, lane);    // dK += dS^T Q
-    }
-  }
-  store<D>(dk + static_cast<size_t>(bkh) * skv * D, dka, j0 + 16 * warp, skv, scale, lane);
-  store<D>(dv + static_cast<size_t>(bkh) * skv * D, dva, j0 + 16 * warp, skv, 1.f, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
+__global__ void __launch_bounds__(kQThreads, 2)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tma_q,
+                       const __grid_constant__ CUtensorMap tma_do,
+                       const __grid_constant__ CUtensorMap tma_k,
+                       const __grid_constant__ CUtensorMap tma_v,
+                       const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dq, int hq, int hkv, int sq, int skv,
                        int causal, float scale) {
-  using Tl = Tiles<D>;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + Tl::kTile;
-  __nv_bfloat16* ks = dos + Tl::kTile;
-  __nv_bfloat16* vs = ks + Tl::kTile;
-  float* lse_s = reinterpret_cast<float*>(vs + Tl::kTile);
-  float* dl_s = lse_s + kRows;
-
-  const int bh = blockIdx.y;    // b * hq + query head
-  const int b = bh / hq;
-  const int bkh = b * hkv + (bh - b * hq) / (hq / hkv);
-  const int q0 = blockIdx.x * kRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t dos = qs + kTileBytes;
+  const uint32_t ring = dos + kTileBytes;                   // stage s: K, then V
+  const uint32_t bars = ring + kQStages * 2 * kTileBytes;   // full[s], empty[s], then Q/dO's
+  const uint32_t qbar = bars + 16 * kQStages;
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;                                // b * hq + query head
+  const int kvz = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  // causal query tiles in reverse: the ones with the most keys launch first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
   const int seq_off = skv - sq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale_log2 = scale * kLog2e;
-
-  stage<D>(qs, q + static_cast<size_t>(bh) * sq * D, q0, sq);
-  stage<D>(dos, dout + static_cast<size_t>(bh) * sq * D, q0, sq);
-  for (int i = threadIdx.x; i < kRows; i += kThreads) {
-    const bool in = q0 + i < sq;
-    lse_s[i] = in ? lse[static_cast<size_t>(bh) * sq + q0 + i] * kLog2e : 0.f;
-    dl_s[i] = in ? delta[static_cast<size_t>(bh) * sq + q0 + i] : 0.f;
-  }
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
-
+  // the key tiles up to the last key the tile's last row sees
   const int kv_end = causal ? min(skv, max(0, min(q0 + kRows, sq) + seq_off)) : skv;
-  for (int j0 = 0; j0 < kv_end; j0 += kRows) {
-    __syncthreads();   // the last tile's K and V are consumed (Q, dO staged)
-    stage<D>(ks, k + static_cast<size_t>(bkh) * skv * D, j0, skv);
-    stage<D>(vs, v + static_cast<size_t>(bkh) * skv * D, j0, skv);
-    __syncthreads();
+  const int n_tiles = (kv_end + kRows - 1) / kRows;
+  if (tid == 0) {
+    for (int s = 0; s < kQStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                 // full: the producer's arrival + bytes
+      mbar_init(bars + 8 * (kQStages + s), 4);    // empty: one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float sa[8][4], dpa[8][4];
-    mma_abt<D>(sa, qs, 16 * warp, ks, lane);    // S = Q K^T
-    mma_abt<D>(dpa, dos, 16 * warp, vs, lane);  // dP = dO V^T
+  const int warp = uniform_div(32), lane = tid % 32;
+  if (warp == 4) {                                // the producer warp
+    if (tid == 128 && n_tiles > 0) {
+      mbar_expect_tx(qbar, 2 * kTileBytes);
+      tma_load(qs, &tma_q, qbar, 0, q0, bh);
+      tma_load(dos, &tma_do, qbar, 0, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kQStages;
+        if (t >= kQStages) mbar_wait(bars + 8 * (kQStages + s), ((t / kQStages) & 1) ^ 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t ks = ring + s * 2 * kTileBytes;
+        mbar_expect_tx(full, 2 * kTileBytes);
+        tma_load(ks, &tma_k, full, 0, t * kRows, kvz);
+        tma_load(ks + kTileBytes, &tma_v, full, 0, t * kRows, kvz);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: the m64n64 fragments hold, for each 8-column
+  // group j, rows r and r + 8 (r = warp * 16 + lane / 4) at columns
+  // 8 j + 2 (lane % 4) + {0, 1}
+  const int row = q0 + warp * 16 + lane / 4;      // and row + 8
+  // Delta of rows row and row + 8: the quad's lanes take 16 columns each
+  float dl[2], ls[2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    const bool in = r < sq;
+    // a row past Sq reads the tile's first row (in bounds) and counts 0
+    const size_t at = static_cast<size_t>(bh) * sq + (in ? r : q0);
+    const size_t off = at * kD + (lane % 4) * 16;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const uint4 ov = reinterpret_cast<const uint4*>(o + off)[c];
+      const uint4 dv = reinterpret_cast<const uint4*>(dout + off)[c];
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(o2[i]), g = __bfloat1622float2(d2[i]);
+        acc += a.x * g.x + a.y * g.y;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[h] = in ? acc : 0.f;
+    ls[h] = in ? lse[at] * kLog2e : 0.f;
+    if (in && lane % 4 == 0) delta[at] = acc;
+  }
+
+  const float scale_log2 = scale * kLog2e;
+  float dqa[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dqa[i] = 0.f;
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kQStages;
+    const int j0 = t * kRows;
+    mbar_wait(bars + 8 * s, (t / kQStages) & 1);
+    const uint32_t ks = ring + s * 2 * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+    float sc[kRows / 2], dp[kRows / 2];
+#pragma unroll
+    for (int i = 0; i < kRows / 2; ++i) sc[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)   // a k16 step is 32 bytes along a swizzled row
+      WgmmaSS<kRows, 0, 0>::mma(sc, desc(qs + kk * 32, 16, 1024), desc(ks + kk * 32, 16, 1024));
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      WgmmaSS<kRows, 0, 0>::mma(dp, desc(dos + kk * 32, 16, 1024), desc(vs + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();                   // S is done, dP still in flight
+
+    // P; masked entries (keys past Skv, rows past Sq, causal keys past the
+    // row's diagonal) are exactly 0
+    const bool edge = j0 + kRows > skv || q0 + kRows > sq ||
+                      (causal && j0 + kRows - 1 > q0 + seq_off);
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qi = 16 * warp + lane / 4 + 8 * (e >> 1);
-        const int qpos = q0 + qi;
-        const int key = j0 + 8 * n + 2 * (lane % 4) + (e & 1);
-        const bool ok = key < skv && qpos < sq && (!causal || key <= qpos + seq_off);
-        const float p = ok ? exp2f(sa[n][e] * scale_log2 - lse_s[qi]) : 0.f;
-        sa[n][e] = p * (dpa[n][e] - dl_s[qi]);   // dS
+        const int key = j0 + 8 * j + 2 * (lane % 4) + (e & 1);
+        const int r = row + 8 * (e >> 1);
+        const bool ok = !edge | ((key < skv) & (r < sq) & (!causal | (key <= r + seq_off)));
+        const float p = ex2(sc[4 * j + e] * scale_log2 - ls[e >> 1]);
+        sc[4 * j + e] = ok ? p : 0.f;
       }
-    mma_pb<D>(dqa, sa, ks, lane);     // dQ += dS K
+    wgmma_wait<0>();
+    // dS = P o (dP - Delta), in bf16
+    uint32_t da[kRows / 4];
+#pragma unroll
+    for (int i = 0; i < kRows / 4; ++i)
+      da[i] = pack_bf16(sc[2 * i] * (dp[2 * i] - dl[i % 2]),       // rows row + 8 (i % 2)
+                        sc[2 * i + 1] * (dp[2 * i + 1] - dl[i % 2]));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      // K MN-major: 16 key rows of 128 bytes a k16 step, 8-row groups 1024
+      // bytes apart
+      WgmmaRS<kD>::mma(dqa, da + 4 * kk, desc(ks + kk * 2048, kTileBytes, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(bars + 8 * (kQStages + s));  // stage s is free again
   }
-  store<D>(dq + static_cast<size_t>(bh) * sq * D, dqa, q0 + 16 * warp, sq, scale, lane);
+  store(dq + static_cast<size_t>(bh) * sq * kD, dqa, q0 + warp * 16, sq, scale, lane);
 }
 
-template <int D>
+// A dK/dV work item: one (b * Hkv + kv head, 64-key tile) and its walk,
+// the group's query heads times the query tiles from the first that sees
+// the tile (causal) to the last.
+struct Item {
+  int bkh, j0, qt0, n_qt, n_steps;
+};
+
+__device__ __forceinline__ Item item_at(int i, int nkv, int hq, int hkv, int sq, int skv,
+                                        int causal) {
+  Item it;
+  it.bkh = i % nkv;                       // key tile-major: causal tile 0, the
+  it.j0 = (i / nkv) * kRows;              // longest walks, come first
+  it.qt0 = causal ? max(0, it.j0 - (skv - sq)) / kRows : 0;
+  it.n_qt = (sq + kRows - 1) / kRows - it.qt0;
+  it.n_steps = (hq / hkv) * it.n_qt;
+  return it;
+}
+
+// The item of this block's round r, or -1 past the last: rounds go snake-
+// wise over the blocks (an odd round in reverse), so the block that took
+// one of the longest walks takes one of the shortest next.
+__device__ __forceinline__ int item_index(int r, int n_items) {
+  const int i = r * gridDim.x + (r % 2 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  return i < n_items ? i : -1;
+}
+
+__global__ void __launch_bounds__(kKvThreads, 1)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tma_q,
+                         const __grid_constant__ CUtensorMap tma_k,
+                         const __grid_constant__ CUtensorMap tma_v,
+                         const __grid_constant__ CUtensorMap tma_do,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int hq,
+                         int hkv, int sq, int skv, int causal, float scale, int nkv,
+                         int n_items) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t kv = (raw + 1023) & ~1023u;                    // buffer p: K, then V
+  const uint32_t ring = kv + 2 * 2 * kTileBytes;                // stage s: Q, then dO
+  const uint32_t rows = ring + kKvStages * 2 * kTileBytes;      // stage s: lse, then Delta
+  const uint32_t xfer = rows + kKvStages * 2 * kRowBytes;       // the warpgroups' sums
+  const uint32_t bars = xfer + kXferBytes;   // kv full[p], kv empty[p], full[s], empty[s]
+  const uint32_t kv_full = bars, kv_empty = bars + 16;
+  const uint32_t full = bars + 32, empty = full + 8 * kKvStages;
+  const int tid = threadIdx.x;
+  const int group = hq / hkv, seq_off = skv - sq;
+  if (tid == 0) {
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(kv_full + 8 * p, 1);                    // the TMA bytes
+      mbar_init(kv_empty + 8 * p, 4 * kKvConsumers);    // one arrival a consumer warp
+    }
+    for (int s = 0; s < kKvStages; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);                  // the TMA bytes, 32 lanes' copies
+      mbar_init(empty + 8 * s, 4);                      // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Consumer warpgroup w takes the odd or even steps of every item, and only
+  // stages w and w + 2: its m-th step (counted over the items) lands in
+  // stage w + 2 (m % 2), phase m / 2, so a stage's phases are consumed in
+  // order by one warpgroup.
+  const int wg = uniform_div(128), warp = uniform_div(32) % 4, lane = tid % 32;
+  if (wg == kKvConsumers) {                                     // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0) {                                            // its first warp
+      int m0 = 0, m1 = 0;                                       // each consumer's steps
+      for (int r = 0;; ++r) {
+        const int i = item_index(r, n_items);
+        if (i < 0) break;
+        const Item it = item_at(i, nkv, hq, hkv, sq, skv, causal);
+        const int p = r % 2;
+        if (r >= 2) mbar_wait(kv_empty + 8 * p, ((r / 2) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(kv_full + 8 * p, 2 * kTileBytes);
+          tma_load(kv + p * 2 * kTileBytes, &tma_k, kv_full + 8 * p, 0, it.j0, it.bkh);
+          tma_load(kv + p * 2 * kTileBytes + kTileBytes, &tma_v, kv_full + 8 * p, 0, it.j0,
+                   it.bkh);
+        }
+        for (int t = 0; t < it.n_steps; ++t) {
+          const int w = t % kKvConsumers, mw = w ? m1 : m0;
+          const int s = w + kKvConsumers * (mw % 2);
+          m0 += w == 0;
+          m1 += w == 1;
+          if (mw >= 2) mbar_wait(empty + 8 * s, ((mw / 2) & 1) ^ 1);
+          const int i0 = (it.qt0 + t % it.n_qt) * kRows;
+          const int bh = (it.bkh / hkv) * hq + (it.bkh % hkv) * group + t / it.n_qt;
+          if (lane == 0) {
+            const uint32_t qs = ring + s * 2 * kTileBytes;
+            mbar_expect_tx(full + 8 * s, 2 * kTileBytes);
+            tma_load(qs, &tma_q, full + 8 * s, 0, i0, bh);
+            tma_load(qs + kTileBytes, &tma_do, full + 8 * s, 0, i0, bh);
+          }
+          // the step's lse and Delta, zeros past Sq, copied asynchronously:
+          // each lane's copies land, then count as its arrival on `full`
+          const uint32_t dst = rows + s * 2 * kRowBytes;
+          for (int j = lane; j < kRows; j += 32) {
+            const bool in = i0 + j < sq;
+            const size_t at = in ? static_cast<size_t>(bh) * sq + i0 + j : 0;
+            cp_async_4(dst + 4 * j, lse + at, in);
+            cp_async_4(dst + kRowBytes + 4 * j, delta + at, in);
+          }
+          cp_async_arrive(full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const float* row_vals = reinterpret_cast<const float*>(smem_raw + (rows - raw));
+  float* sums = reinterpret_cast<float*>(smem_raw + (xfer - raw));
+  const float scale_log2 = scale * kLog2e;
+  const int i_t = tid % 128;
+  int m = 0;                                                    // this warpgroup's steps so far
+  for (int r = 0;; ++r) {
+    const int i = item_index(r, n_items);
+    if (i < 0) break;
+    const Item it = item_at(i, nkv, hq, hkv, sq, skv, causal);
+    const int p = r % 2;
+    const uint32_t ks = kv + p * 2 * kTileBytes, vs = ks + kTileBytes;
+    // the m64n64 fragments of S^T and dP^T hold keys (rows) key and key + 8
+    // at query columns 8 j + 2 (lane % 4) + {0, 1}
+    const int key = it.j0 + warp * 16 + lane / 4;               // and key + 8
+    float dka[kD / 2], dva[kD / 2];
+#pragma unroll
+    for (int j = 0; j < kD / 2; ++j) dka[j] = dva[j] = 0.f;
+    mbar_wait(kv_full + 8 * p, (r / 2) & 1);
+    for (int t = wg; t < it.n_steps; t += kKvConsumers, ++m) {
+      const int s = wg + kKvConsumers * (m % 2);
+      const int i0 = (it.qt0 + t % it.n_qt) * kRows;
+      mbar_wait(full + 8 * s, (m / 2) & 1);
+      const uint32_t qs = ring + s * 2 * kTileBytes;
+      const uint32_t dos = qs + kTileBytes;
+      const float* lse_s = row_vals + s * 2 * kRows;
+      const float* dl_s = lse_s + kRows;
+      float st[kRows / 2], dpt[kRows / 2];
+#pragma unroll
+      for (int j = 0; j < kRows / 2; ++j) st[j] = dpt[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        WgmmaSS<kRows, 0, 0>::mma(st, desc(ks + kk * 32, 16, 1024),
+                                  desc(qs + kk * 32, 16, 1024));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        WgmmaSS<kRows, 0, 0>::mma(dpt, desc(vs + kk * 32, 16, 1024),
+                                  desc(dos + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();                 // S^T is done, dP^T still in flight
+
+      // P^T; masked entries are exactly 0.  dV += P^T dO starts while dS^T
+      // is computed
+      const bool edge = it.j0 + kRows > skv || i0 + kRows > sq ||
+                        (causal && it.j0 + kRows - 1 > i0 + seq_off);
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * (lane % 4) + (e & 1);
+          const int kpos = key + 8 * (e >> 1);
+          const bool ok = !edge | ((kpos < skv) & (i0 + qi < sq) &
+                                   (!causal | (kpos <= i0 + qi + seq_off)));
+          const float pr = ex2(st[4 * j + e] * scale_log2 - lse_s[qi] * kLog2e);
+          st[4 * j + e] = ok ? pr : 0.f;
+        }
+      uint32_t pa[kRows / 4], sa[kRows / 4];
+#pragma unroll
+      for (int j = 0; j < kRows / 4; ++j) pa[j] = pack_bf16(st[2 * j], st[2 * j + 1]);
+      wgmma_wait<0>();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)   // dO and Q MN-major, as K in the dQ kernel
+        WgmmaRS<kD>::mma(dva, pa + 4 * kk, desc(dos + kk * 2048, kTileBytes, 1024));
+      wgmma_commit();
+      // dS^T = P^T o (dP^T - Delta), in bf16
+#pragma unroll
+      for (int j = 0; j < kRows / 4; ++j) {
+        const int qi = 8 * (j / 2) + 2 * (lane % 4);
+        sa[j] = pack_bf16(st[2 * j] * (dpt[2 * j] - dl_s[qi]),
+                          st[2 * j + 1] * (dpt[2 * j + 1] - dl_s[qi + 1]));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+        WgmmaRS<kD>::mma(dka, sa + 4 * kk, desc(qs + kk * 2048, kTileBytes, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + 8 * s);                // stage s is free again
+    }
+    if (lane == 0) mbar_arrive(kv_empty + 8 * p);               // so are K and V
+
+    // the two warpgroups' sums in a fixed order: warpgroup 1 hands over its
+    // dK, warpgroup 0 its dV
+    consumers_sync();                 // the last item's sums are read
+#pragma unroll
+    for (int j = 0; j < kD / 2; ++j) {
+      if (wg == 1) sums[j * 128 + i_t] = dka[j];
+      else sums[(kD / 2 + j) * 128 + i_t] = dva[j];
+    }
+    consumers_sync();
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < kD / 2; ++j) dka[j] += sums[j * 128 + i_t];
+      store(dk + static_cast<size_t>(it.bkh) * skv * kD, dka, it.j0 + warp * 16, skv, scale,
+            lane);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kD / 2; ++j) dva[j] = sums[(kD / 2 + j) * 128 + i_t] + dva[j];
+      store(dv + static_cast<size_t>(it.bkh) * skv * kD, dva, it.j0 + warp * 16, skv, 1.f,
+            lane);
+    }
+  }
+}
+
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int b, int hq,
                    int hkv, int sq, int skv, int causal, float scale, cudaStream_t st) {
-  using Tl = Tiles<D>;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 != 0)
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(dout)) % 16 != 0)
     return cudaErrorInvalidValue;
-  auto kv_kern = flash_bwd_dkdv_tc_kernel<D>;
-  auto q_kern = flash_bwd_dq_tc_kernel<D>;
-  static const cudaError_t attr = [&] {   // once per instantiation
-    cudaError_t e = smem_opt_in(kv_kern, Tl::kSmem);
-    return e == cudaSuccess ? smem_opt_in(q_kern, Tl::kSmem) : e;
+  static const cudaError_t attr = [] {   // once per process
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kQSmem);
+    return e == cudaSuccess ? cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   kKvSmem)
+                            : e;
   }();
   if (attr != cudaSuccess) return attr;
-  using T = __nv_bfloat16;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  const int rows = b * hq * sq;
-  flash_bwd_delta_kernel<T><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
-      static_cast<const T*>(o), tdo, delta, rows, D);
-  cudaError_t err = cudaGetLastError();
+  const uint64_t nq = static_cast<uint64_t>(b) * hq, nkv = static_cast<uint64_t>(b) * hkv;
+  CUtensorMap mq, mdo, mk, mv;
+  cudaError_t err = make_map(&mq, q, kD, sq, nq, kD, kRows);
+  if (err == cudaSuccess) err = make_map(&mdo, dout, kD, sq, nq, kD, kRows);
+  if (err == cudaSuccess) err = make_map(&mk, k, kD, skv, nkv, kD, kRows);
+  if (err == cudaSuccess) err = make_map(&mv, v, kD, skv, nkv, kD, kRows);
   if (err != cudaSuccess) return err;
-  kv_kern<<<dim3((skv + kRows - 1) / kRows, b * hkv), kThreads, Tl::kSmem, st>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), hq, hkv, sq, skv,
-      causal, scale);
+  using T = __nv_bfloat16;
+  flash_bwd_dq_tc_kernel<<<dim3(nq, (sq + kRows - 1) / kRows), kQThreads, kQSmem, st>>>(
+      mq, mdo, mk, mv, static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), hq, hkv, sq, skv, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  q_kern<<<dim3((sq + kRows - 1) / kRows, b * hq), kThreads, Tl::kSmem, st>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), hq, hkv, sq, skv, causal, scale);
+  // persistent: a block an SM (one fits by registers), each walking items
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int n_items = static_cast<int>(nkv) * ((skv + kRows - 1) / kRows);
+  flash_bwd_dkdv_tc_kernel<<<n_items < sms ? n_items : sms, kKvThreads, kKvSmem, st>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), hq, hkv, sq, skv,
+      causal, scale, static_cast<int>(nkv), n_items);
   return cudaGetLastError();
 }
 
@@ -769,24 +1005,18 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16 on the tensor cores: d 64 or 128, q, k, v and dout 16-byte aligned.
-// The same work and arguments as flash_attention_bwd_launch (without a
-// dtype); cudaErrorInvalidValue for a shape or pointer the route does not
-// take.
+// bf16 on the tensor cores: d 64, q, k, v, o and dout 16-byte aligned.  The
+// same work and arguments as flash_attention_bwd_launch (without a dtype),
+// in two kernels (dQ with Delta, then dK and dV); cudaErrorInvalidValue for
+// a shape or pointer the route does not take.
 extern "C" int flash_attention_bwd_tc_launch(const void* q, const void* k, const void* v,
                                              const void* o, const void* dout, const float* lse,
                                              float* delta, void* dq, void* dk, void* dv, int b,
                                              int hq, int hkv, int sq, int skv, int d, int causal,
                                              float scale, void* stream) {
-  if (b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0 || b * hkv > 65535 ||
-      b * hq > 65535)
+  if (b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0 || d != tc::kD ||
+      (sq + tc::kRows - 1) / tc::kRows > 65535 || (skv + tc::kRows - 1) / tc::kRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return static_cast<int>(tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq, hkv,
-                                           sq, skv, causal, scale, st));
-  if (d == 128)
-    return static_cast<int>(tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq, hkv,
-                                            sq, skv, causal, scale, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tc::launch(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq,
+                                     skv, causal, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -15,7 +15,8 @@
 // Two routes, chosen by shape (autotune.gmm_route), each with its tiles:
 //
 // * tensor cores (`grouped_matmul_tc_launch`): bf16 with d and f multiples
-//   of 8, so that TMA can describe both operands.  The mainloop of
+//   of 8, so that TMA can describe both operands (the contiguous dim of
+//   each, whichever the layout, a multiple of 8).  The mainloop of
 //   hopper_gemm.cuh with the expert in blockIdx.z and 3-D descriptors,
 //   (d, cap, E) for x and (f, d, E) for w, so that a tile at a cap or d
 //   tail reads TMA's zeros, never the next expert's rows.  At decode a
@@ -36,8 +37,25 @@
 //   column tx + j * BN/TN), so the reads of a warp from shared memory and
 //   its stores to out are on consecutive addresses.
 //
+// The backward (kernels/grouped_matmul.py grouped_matmul_backward) runs on
+// the same kernels: dX = dY W^T and dW = X^T dY.  It has no TPU
+// counterpart: the reference lets XLA differentiate its pure-jnp grouped
+// matmul.  Bound: at granite_moe_1b's training shape (E 32, cap 640, d 1024,
+// f 512, bf16) the bytes of x, w, dy, dx and dw (0.0513 ms at 3.35 TB/s)
+// edge out the two products' operations at the tensor-core rate.  Both
+// products read the saved x and w where they lie (layouts 1 and 2 below):
+// the tensor-core route reads w as a K-major B operand and x as an MN-major
+// A operand through wgmma's transpose bits, the CUDA-core route by index.
+// No operand is transposed into a copy: at that shape copies of W^T and X^T
+// would move 150 MB more, nearly the products' own 172 MB.  On
+// the tensor cores dW's contraction over cap is a row count of TMA boxes,
+// so cap needs no multiple of 8: a cap tail reads zeros, as a d or f tail
+// does.
+//
 // Layouts (all contiguous): x (E, cap, d), w (E, d, f), out (E, cap, f) in
-// x's dtype (float32 or bfloat16; w of the same dtype).
+// x's dtype (float32 or bfloat16; w of the same dtype); layout 1 takes w
+// stored as its transpose (E, f, d), layout 2 x stored as its transpose
+// (E, d, cap).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,7 +74,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 constexpr int kBN = 64;  // every tile is 64 columns wide (autotune.GMM_BN)
 
-template <typename T, int BM, int BK, int TM, int TN>
+// kTA: x is stored as its transpose, (E, d, cap) (element (m, k) at
+// k * cap + m); kTB: w is stored as its transpose, (E, f, d).  The backward
+// runs dW = X^T dY with kTA and dX = dY W^T with kTB on the saved x and w as
+// they lie; each tile load walks the operand's contiguous dim with
+// consecutive threads.
+template <typename T, int BM, int BK, int TM, int TN, bool kTA, bool kTB>
 __global__ void __launch_bounds__((BM / TM) * (kBN / TN))
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
            int cap, int d, int f) {
@@ -78,17 +101,27 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < d; k0 += BK) {
-    // x tile: consecutive threads walk k along a row of x (contiguous in d)
     for (int i = tid; i < BM * BK; i += NT) {
-      const int m = i / BK, k = i - (i / BK) * BK;
-      const int gm = m0 + m, gk = k0 + k;
-      xs[k][m] = (gm < cap && gk < d) ? to_f(xe[(size_t)gm * d + gk]) : 0.f;
+      if constexpr (kTA) {   // consecutive threads walk m along a row of x^T
+        const int k = i / BM, m = i - (i / BM) * BM;
+        const int gm = m0 + m, gk = k0 + k;
+        xs[k][m] = (gm < cap && gk < d) ? to_f(xe[(size_t)gk * cap + gm]) : 0.f;
+      } else {               // consecutive threads walk k along a row of x
+        const int m = i / BK, k = i - (i / BK) * BK;
+        const int gm = m0 + m, gk = k0 + k;
+        xs[k][m] = (gm < cap && gk < d) ? to_f(xe[(size_t)gm * d + gk]) : 0.f;
+      }
     }
-    // w tile: consecutive threads walk n along a row of w (contiguous in f)
     for (int i = tid; i < BK * kBN; i += NT) {
-      const int k = i / kBN, n = i - (i / kBN) * kBN;
-      const int gk = k0 + k, gn = n0 + n;
-      ws[k][n] = (gk < d && gn < f) ? to_f(we[(size_t)gk * f + gn]) : 0.f;
+      if constexpr (kTB) {   // consecutive threads walk k along a row of w^T
+        const int n = i / BK, k = i - (i / BK) * BK;
+        const int gk = k0 + k, gn = n0 + n;
+        ws[k][n] = (gk < d && gn < f) ? to_f(we[(size_t)gn * d + gk]) : 0.f;
+      } else {               // consecutive threads walk n along a row of w
+        const int k = i / kBN, n = i - (i / kBN) * kBN;
+        const int gk = k0 + k, gn = n0 + n;
+        ws[k][n] = (gk < d && gn < f) ? to_f(we[(size_t)gk * f + gn]) : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -119,12 +152,12 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out
   }
 }
 
-template <typename T, int BM, int BK, int TM, int TN>
+template <typename T, int BM, int BK, int TM, int TN, bool kTA, bool kTB>
 cudaError_t launch(const void* x, const void* w, void* out, int e, int cap, int d, int f,
                    cudaStream_t stream) {
   constexpr int threads = (BM / TM) * (kBN / TN);
   const dim3 grid((f + kBN - 1) / kBN, (cap + BM - 1) / BM, e);
-  gmm_kernel<T, BM, BK, TM, TN><<<grid, threads, 0, stream>>>(
+  gmm_kernel<T, BM, BK, TM, TN, kTA, kTB><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), cap, d, f);
   return cudaGetLastError();
 }
@@ -132,25 +165,39 @@ cudaError_t launch(const void* x, const void* w, void* out, int e, int cap, int 
 // The tile heights of autotune.GMM_BM, each with its k step and per-thread
 // block: 8 rows (decode) 128 threads of 1 x 4; 32 rows 256 threads of 2 x 4;
 // 64 rows 256 threads of 4 x 4; 128 rows 256 threads of 8 x 4.
-template <typename T>
+template <typename T, bool kTA, bool kTB>
 cudaError_t dispatch(const void* x, const void* w, void* out, int e, int cap, int d, int f,
                      int bm, cudaStream_t stream) {
   switch (bm) {
-    case 8: return launch<T, 8, 32, 1, 4>(x, w, out, e, cap, d, f, stream);
-    case 32: return launch<T, 32, 32, 2, 4>(x, w, out, e, cap, d, f, stream);
-    case 64: return launch<T, 64, 16, 4, 4>(x, w, out, e, cap, d, f, stream);
-    case 128: return launch<T, 128, 16, 8, 4>(x, w, out, e, cap, d, f, stream);
+    case 8: return launch<T, 8, 32, 1, 4, kTA, kTB>(x, w, out, e, cap, d, f, stream);
+    case 32: return launch<T, 32, 32, 2, 4, kTA, kTB>(x, w, out, e, cap, d, f, stream);
+    case 64: return launch<T, 64, 16, 4, 4, kTA, kTB>(x, w, out, e, cap, d, f, stream);
+    case 128: return launch<T, 128, 16, 8, 4, kTA, kTB>(x, w, out, e, cap, d, f, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// layout: 0 out = x @ w (the forward), 1 out = x @ w^T (w stored (E, f, d)),
+// 2 out = x^T @ w (x stored (E, d, cap)).
+template <typename T>
+cudaError_t dispatch_layout(const void* x, const void* w, void* out, int e, int cap, int d,
+                            int f, int bm, int layout, cudaStream_t stream) {
+  if (layout == 0) return dispatch<T, false, false>(x, w, out, e, cap, d, f, bm, stream);
+  if (layout == 1) return dispatch<T, false, true>(x, w, out, e, cap, d, f, bm, stream);
+  if (layout == 2) return dispatch<T, true, false>(x, w, out, e, cap, d, f, bm, stream);
+  return cudaErrorInvalidValue;
+}
+
 // The tensor-core tiles of autotune.GMM_TC_TILES, (bm, bn, bk): bk is the
-// 64-deep stage of hopper_gemm.cuh.
+// 64-deep stage of hopper_gemm.cuh.  The layouts as dispatch_layout's: the
+// forward reads x K-major and w MN-major; out = x @ w^T reads w K-major (B
+// K-major), out = x^T @ w reads x MN-major (A MN-major), each in place.
+template <bool kAMn, bool kBK>
 cudaError_t dispatch_tc(const void* x, const void* w, void* out, int e, int cap, int d, int f,
                         int bm, int bn, int bk, cudaStream_t stream) {
 #define TILE(BM, BN, BK)                                             \
   if (bm == BM && bn == BN && bk == BK)                              \
-    return hgemm::launch<BM, BN>(x, w, out, e, cap, f, d, stream);
+    return hgemm::launch<BM, BN, kAMn, kBK>(x, w, out, e, cap, f, d, stream);
   TILE(64, 64, 64)
   TILE(64, 128, 64)
   TILE(128, 128, 64)
@@ -161,23 +208,35 @@ cudaError_t dispatch_tc(const void* x, const void* w, void* out, int e, int cap,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); cudaErrorInvalidValue for an unsupported shape.
+// out (E, cap, f) = x @ w for x (E, cap, d) and w (E, d, f), or (layout 1)
+// x @ w^T for w stored (E, f, d), or (layout 2) x^T @ w for x stored
+// (E, d, cap); all contiguous.  dtype: 0 = float32, 1 = bfloat16.  Returns
+// cudaGetLastError() after the launch (0 on success); cudaErrorInvalidValue
+// for an unsupported shape or layout.
 extern "C" int grouped_matmul_launch(const void* x, const void* w, void* out, int e, int cap,
-                                     int d, int f, int bm, int dtype, void* stream) {
+                                     int d, int f, int bm, int dtype, int layout, void* stream) {
   if (e <= 0 || e > 65535 || cap <= 0 || d <= 0 || f <= 0 || bm <= 0 ||
       (cap + bm - 1) / bm > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(x, w, out, e, cap, d, f, bm, st);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(x, w, out, e, cap, d, f, bm, st);
+  if (dtype == 0) return (int)dispatch_layout<float>(x, w, out, e, cap, d, f, bm, layout, st);
+  if (dtype == 1)
+    return (int)dispatch_layout<__nv_bfloat16>(x, w, out, e, cap, d, f, bm, layout, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 on the tensor cores: d % 8 == 0, f % 8 == 0, x and w 16-byte
+// bf16 on the tensor cores, the layouts of grouped_matmul_launch: the
+// contiguous dim of each operand (d and f for the forward; f for layout 1,
+// d and f for layout 2) a multiple of 8, f a multiple of 8, x and w 16-byte
 // aligned.  Returns cudaGetLastError() after the launch (0 on success);
-// cudaErrorInvalidValue for a shape, tile or pointer the route does not take.
+// cudaErrorInvalidValue for a shape, tile, layout or pointer the route does
+// not take.
 extern "C" int grouped_matmul_tc_launch(const void* x, const void* w, void* out, int e, int cap,
-                                        int d, int f, int bm, int bn, int bk, void* stream) {
-  return (int)dispatch_tc(x, w, out, e, cap, d, f, bm, bn, bk, static_cast<cudaStream_t>(stream));
+                                        int d, int f, int bm, int bn, int bk, int layout,
+                                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (layout == 0) return (int)dispatch_tc<false, false>(x, w, out, e, cap, d, f, bm, bn, bk, st);
+  if (layout == 1) return (int)dispatch_tc<false, true>(x, w, out, e, cap, d, f, bm, bn, bk, st);
+  if (layout == 2) return (int)dispatch_tc<true, false>(x, w, out, e, cap, d, f, bm, bn, bk, st);
+  return (int)cudaErrorInvalidValue;
 }

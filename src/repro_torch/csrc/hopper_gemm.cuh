@@ -18,16 +18,20 @@
 //   * one block computes a (BM, BN) tile of out for one batch entry
 //     (blockIdx.z: the expert of the grouped matmul; 0 for the matmul);
 //   * a producer warp (one elected thread) issues TMA loads
-//     (cp.async.bulk.tensor.3d) of the A tile (BM x 64, K-major) and of
-//     the B tile (64 x BN as BN/64 boxes of 64 x 64, MN-major) into a ring
-//     of kStages shared-memory stages, each with a full and an empty
-//     mbarrier; the 128-byte swizzle that TMA writes is the one wgmma reads;
+//     (cp.async.bulk.tensor.3d) of the A tile (BM x 64) and of the B tile
+//     (64 x BN) into a ring of kStages shared-memory stages, each with a
+//     full and an empty mbarrier; the 128-byte swizzle that TMA writes is
+//     the one wgmma reads;
 //   * BM/64 consumer warpgroups, 64 rows each, issue
-//     wgmma.mma_async.m64nBNk16.f32.bf16.bf16 straight from shared memory
-//     (B through the instruction's transpose bit, so neither operand is
-//     transposed anywhere), keep one group of products in flight, and hand a
-//     stage back to the producer as soon as the products reading it are
-//     done; the sums stay in f32 registers;
+//     wgmma.mma_async.m64nBNk16.f32.bf16.bf16 straight from shared memory,
+//     keep one group of products in flight, and hand a stage back to the
+//     producer as soon as the products reading it are done; the sums stay
+//     in f32 registers;
+//   * either operand is read as it lies in memory, K-major or MN-major
+//     (gemm_kernel's template parameters; wgmma's transpose bits), so no
+//     operand is transposed anywhere: the forward products read A K-major
+//     and B MN-major, the grouped matmul's backward dX = dY W^T reads W
+//     K-major and dW = X^T dY reads X MN-major;
 //   * the epilogue rounds each sum once to bf16 and stores with masks.
 // Ragged edges cost nothing in the mainloop: TMA fills the part of a box
 // outside the tensor with zeros.  The descriptors are 3-D (inner dim, rows,
@@ -35,12 +39,13 @@
 // next expert's rows (0 x Inf would be NaN in the k direction).
 //
 // What TMA needs decides the route (autotune.matmul_route / gmm_route):
-// bf16, every row stride a multiple of 16 bytes (K and N multiples of 8)
-// and 16-byte aligned base pointers.  Other shapes and f32 run on the
+// bf16, every row stride a multiple of 16 bytes (the contiguous dim of each
+// operand, K and N for the forward products, a multiple of 8) and 16-byte
+// aligned base pointers.  Other shapes and f32 run on the
 // CUDA-core kernels of the two .cu files.
 //
-// The primitives (mbarriers, TMA, wgmma descriptors and fences, the tensor
-// map) are hopper.cuh's, shared with the flash-attention forward.
+// The primitives (mbarriers, TMA, wgmma descriptors, fences and products,
+// the tensor map) are hopper.cuh's, shared with flash attention.
 #pragma once
 
 #include <cuda.h>
@@ -90,127 +95,33 @@ struct Tile {
   static constexpr int kSmem = smem_bytes(BM, BN, kStages);
 };
 
-// d (f32, the m64nN fragment) += A (64 x 16, K-major) B (16 x N, MN-major:
-// the last immediate sets the transpose bit of B).  Written out for each N.
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31},"
-        " %32, %33, p, 1, 1, 0, 1;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39,"
-        "%40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55,"
-        "%56, %57, %58, %59, %60, %61, %62, %63},"
-        " %64, %65, p, 1, 1, 0, 1;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<256> {
-  __device__ __forceinline__ static void mma(float (&d)[128], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39,"
-        "%40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55,"
-        "%56, %57, %58, %59, %60, %61, %62, %63,"
-        "%64, %65, %66, %67, %68, %69, %70, %71,"
-        "%72, %73, %74, %75, %76, %77, %78, %79,"
-        "%80, %81, %82, %83, %84, %85, %86, %87,"
-        "%88, %89, %90, %91, %92, %93, %94, %95,"
-        "%96, %97, %98, %99, %100, %101, %102, %103,"
-        "%104, %105, %106, %107, %108, %109, %110, %111,"
-        "%112, %113, %114, %115, %116, %117, %118, %119,"
-        "%120, %121, %122, %123, %124, %125, %126, %127},"
-        " %128, %129, p, 1, 1, 0, 1;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-          "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(1)
-        : "memory");
-  }
-};
-
-template <int BM, int BN>
+// The operands' layouts are template parameters (the defaults are the
+// forward's, A K-major and B MN-major):
+//   * A K-major (kAMnMajor false): A (M, K) row-major, one BM x 64 box of a
+//     (K, M, batch) map a stage, BM rows of 128 bytes; A MN-major (true): A
+//     stored as its transpose (K, M), BM/64 boxes of 64 m x 64 k from an
+//     (M, K, batch) map, each 64 k rows of 128 bytes, read through the
+//     transpose bit (tnspA = 1);
+//   * B MN-major (kBKMajor false): B (K, N) row-major, BN/64 boxes of 64 n x
+//     64 k from an (N, K, batch) map, through the transpose bit (tnspB = 1);
+//     B K-major (true): B stored as its transpose (N, K), one 64 k x BN box
+//     of a (K, N, batch) map, BN rows of 128 bytes (tnspB = 0).
+// A stage holds BM x 64 of A and 64 x BN of B whichever the layout, and the
+// descriptors of the PTX ISA's 128-byte-swizzle canonical layouts: K-major,
+// 8-row groups 1024 bytes apart (stride byte offset) and a k16 step 32 bytes
+// along the swizzled row (the leading byte offset unused); MN-major, 8-k-row
+// groups 1024 bytes apart (stride) and 64-element boxes along m or n
+// 64 * 128 bytes apart (leading), a k16 step 16 rows of 128 bytes.
+template <int BM, int BN, bool kAMnMajor = false, bool kBKMajor = false>
 __global__ void __launch_bounds__(Tile<BM, BN>::kThreads, Tile<BM, BN>::kMinBlocks)
 gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_b,
             __nv_bfloat16* __restrict__ out, int M, int N, int K) {
   using T = Tile<BM, BN>;
   constexpr int S = T::kStages;
+  constexpr int kBoxBytes = kBK * 128;                     // one 64 x 64 box
   extern __shared__ uint8_t smem_raw[];
-  // stage s: the A tile at base + s * kStageBytes, then BN/64 B boxes of
-  // 64 k rows x 128 bytes; every tile starts on a 1024-byte boundary, the
-  // period of the 128-byte swizzle.
+  // stage s: the A tile at base + s * kStageBytes, then the B tile; every
+  // box starts on a 1024-byte boundary, the period of the 128-byte swizzle.
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t bars = base + S * T::kStageBytes;
   const int tid = threadIdx.x;
@@ -234,17 +145,28 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
         const uint32_t a = base + s * T::kStageBytes;
         const uint32_t full = bars + 8 * s;
         mbar_expect_tx(full, T::kStageBytes);
-        tma_load(a, &tma_a, full, kt * kBK, m0, z);
+        if constexpr (kAMnMajor) {
 #pragma unroll
-        for (int c = 0; c < BN / kBoxN; ++c)
-          tma_load(a + T::kABytes + c * (kBK * kBoxN * 2), &tma_b, full, n0 + c * kBoxN,
-                   kt * kBK, z);
+          for (int c = 0; c < BM / 64; ++c)
+            tma_load(a + c * kBoxBytes, &tma_a, full, m0 + c * 64, kt * kBK, z);
+        } else {
+          tma_load(a, &tma_a, full, kt * kBK, m0, z);
+        }
+        if constexpr (kBKMajor) {
+          tma_load(a + T::kABytes, &tma_b, full, kt * kBK, n0, z);
+        } else {
+#pragma unroll
+          for (int c = 0; c < BN / kBoxN; ++c)
+            tma_load(a + T::kABytes + c * (kBK * kBoxN * 2), &tma_b, full, n0 + c * kBoxN,
+                     kt * kBK, z);
+        }
       }
     }
     return;
   }
 
-  // a consumer warpgroup: rows wg * 64 ... + 63 of the tile
+  // a consumer warpgroup: rows wg * 64 ... + 63 of the tile (in either A
+  // layout its 64 rows start wg * 64 * 128 bytes into the stage)
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -255,12 +177,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
     const uint32_t b = base + s * T::kStageBytes + T::kABytes;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      // A: 8-row groups 1024 bytes apart, a k16 step 32 bytes along the
-      // swizzled row.  B: 8-k-row groups 1024 bytes apart (stride), 64-column
-      // boxes kBK * 128 bytes apart (leading), a k16 step 16 rows of 128 bytes.
-      Wgmma<BN>::mma(acc, desc(a + kk * 32, 16, 1024),
-                     desc(b + kk * 2048, kBK * kBoxN * 2, 1024));
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = kAMnMajor ? desc(a + kk * 2048, kBoxBytes, 1024)
+                                    : desc(a + kk * 32, 16, 1024);
+      const uint64_t db = kBKMajor ? desc(b + kk * 32, 16, 1024)
+                                   : desc(b + kk * 2048, kBK * kBoxN * 2, 1024);
+      WgmmaSS<BN, kAMnMajor ? 1 : 0, kBKMajor ? 0 : 1>::mma(acc, da, db);
+    }
     wgmma_commit();
     wgmma_wait<1>();                   // the products of stage kt - 1 are done
     if (kt > 0 && tid % 128 == 0) mbar_arrive(bars + 8 * (S + (kt - 1) % S));
@@ -286,24 +209,31 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
   }
 }
 
-// out[z] = a[z] @ b[z] for z < batch: a (batch, m, k), b (batch, k, n), out
-// (batch, m, n), all contiguous bf16.  Needs k % 8 == 0, n % 8 == 0 and
-// 16-byte aligned a and b (the callers' routes guarantee it).
-template <int BM, int BN>
+// out[z] = A[z] @ B[z] for z < batch: out (batch, m, n) contiguous bf16; a
+// is A (batch, m, k), or with kAMnMajor its transpose (batch, k, m); b is B
+// (batch, k, n), or with kBKMajor its transpose (batch, n, k); both
+// contiguous bf16.  Needs the contiguous (inner) dim of a and b and n to be
+// multiples of 8 and a and b 16-byte aligned (the callers' routes guarantee
+// it); k, and m or n as a row count, may be anything.
+template <int BM, int BN, bool kAMnMajor = false, bool kBKMajor = false>
 cudaError_t launch(const void* a, const void* b, void* out, int batch, int m, int n, int k,
                    cudaStream_t stream) {
   using T = Tile<BM, BN>;
-  if (batch <= 0 || batch > 65535 || m <= 0 || n <= 0 || k <= 0 || k % 8 != 0 || n % 8 != 0 ||
-      (m + BM - 1) / BM > 65535 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(b) % 16 != 0)
+  const int a_inner = kAMnMajor ? m : k, b_inner = kBKMajor ? k : n;
+  if (batch <= 0 || batch > 65535 || m <= 0 || n <= 0 || k <= 0 || a_inner % 8 != 0 ||
+      b_inner % 8 != 0 || n % 8 != 0 || (m + BM - 1) / BM > 65535 ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0)
     return cudaErrorInvalidValue;
-  auto kern = gemm_kernel<BM, BN>;
+  auto kern = gemm_kernel<BM, BN, kAMnMajor, kBKMajor>;
   static const cudaError_t attr =   // once per instantiation
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap ta, tb;
-  cudaError_t err = make_map(&ta, a, k, m, batch, kBK, BM);
-  if (err == cudaSuccess) err = make_map(&tb, b, n, k, batch, kBoxN, kBK);
+  cudaError_t err = kAMnMajor ? make_map(&ta, a, m, k, batch, 64, kBK)
+                              : make_map(&ta, a, k, m, batch, kBK, BM);
+  if (err == cudaSuccess)
+    err = kBKMajor ? make_map(&tb, b, k, n, batch, kBK, BN)
+                   : make_map(&tb, b, n, k, batch, kBoxN, kBK);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
   kern<<<grid, T::kThreads, T::kSmem, stream>>>(ta, tb, static_cast<__nv_bfloat16*>(out), m, n,

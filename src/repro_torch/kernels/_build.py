@@ -74,13 +74,20 @@ def log_path(name: str) -> Path:
     return lib_path(name).with_suffix(".log")
 
 
-def sass_counts(name: str, mnemonics=("HGMMA", "UTMALDG")) -> Dict[str, int]:
+def sass_counts(name: str, mnemonics=("HGMMA", "UTMALDG"),
+                function: str | None = None) -> Dict[str, int]:
     """How many instructions of each mnemonic the built library of ``name``
-    holds (``cuobjdump -sass``): HGMMA is wgmma, UTMALDG a TMA load."""
+    holds (``cuobjdump -sass``): HGMMA is wgmma, UTMALDG a TMA load,
+    WARPGROUP.DEPBAR a wait for wgmma (one after every HGMMA means ptxas
+    serialised the products).  With ``function``, only in the kernels whose
+    mangled name holds it."""
     tool = Path(nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(build([name])[name])], capture_output=True,
                           text=True, check=True).stdout
-    return {m: len(re.findall(rf"\b{m}\b", sass)) for m in mnemonics}
+    if function is not None:
+        parts = re.split(r"\n\s*Function : ", sass)[1:]
+        sass = "\n".join(p for p in parts if function in p.split("\n", 1)[0])
+    return {m: len(re.findall(rf"\b{re.escape(m)}\b", sass)) for m in mnemonics}
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:

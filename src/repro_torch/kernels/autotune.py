@@ -120,18 +120,39 @@ def flash_tc_smem_bytes(bq: int, bkv: int, d: int) -> int:
 
 
 # csrc/flash_attention_bwd.cu's CUDA-core route: head dim -> ((bq, bkv) of
-# the dK/dV kernel, (bq, bkv) of the dQ kernel), its ``BwdTiles`` (the
-# tensor-core route's tiles are 64 x 64 at D 64 and 128).  D 128 takes 32 query rows
-# a dK/dV tile, so that a thread's dK, dV, S^T and dP^T stay in registers.
+# the dK/dV kernel, (bq, bkv) of the dQ kernel), its ``BwdTiles``.  D 128
+# takes 32 query rows a dK/dV tile, so that a thread's dK, dV, S^T and dP^T
+# stay in registers.
 FLASH_BWD_TILES = {32: ((64, 64), (64, 64)), 64: ((64, 64), (64, 64)),
                    128: ((32, 64), (64, 64))}
+# its tensor-core route (namespace ``tc``): the head dims it is compiled for
+# (D 64, every model's training shape: one 128-byte TMA box a row; D 32 and
+# 128 run on the CUDA cores), the rows of every tile (keys or queries), the
+# consumer warpgroups of a dK/dV block (they take its steps in turn; a
+# producer warpgroup feeds them) and the stages of the dK/dV kernel's Q/dO
+# ring (two a consumer) and of the dQ kernel's K/V ring
+FLASH_BWD_TC_DIMS = (64,)
+FLASH_BWD_TC_ROWS = 64
+FLASH_BWD_TC_CONSUMERS = 2
+FLASH_BWD_TC_STAGES = (4, 2)
 
 
-def flash_bwd_tc_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one tensor-core backward block (dK/dV and dQ
-    alike, ``tc::Tiles::kSmem``): four bf16 tiles of 64 rows padded by 16
-    bytes, and 64 lse and Delta values."""
-    return 4 * 64 * (d + 8) * 2 + 2 * 64 * 4
+def flash_bwd_tc_smem_bytes(d: int) -> tuple:
+    """Dynamic shared memory of one tensor-core dK/dV block and one dQ block
+    (``tc::kKvSmem``, ``tc::kQSmem``): 1 KB to align the swizzled tiles;
+    the dK/dV block's two buffers of K and V tiles, each stage's Q and dO
+    tiles and its 64 lse and Delta values, the two consumer warpgroups'
+    hand-over of dK and dV (a 64 x D f32 fragment each), a full and an empty
+    barrier a K/V buffer and a stage;
+    the dQ block's Q and dO tiles, each stage's K and V tiles, a full and an
+    empty barrier a stage and the Q/dO one."""
+    tile = FLASH_BWD_TC_ROWS * d * 2
+    kv_stages, q_stages = FLASH_BWD_TC_STAGES
+    xfer = FLASH_BWD_TC_CONSUMERS * (d // 2) * 128 * 4
+    dkdv = (1024 + 2 * 2 * tile + kv_stages * 2 * tile + kv_stages * 2 * FLASH_BWD_TC_ROWS * 4
+            + xfer + 8 * (4 + 2 * kv_stages))
+    dq = 1024 + 2 * tile + q_stages * 2 * tile + 8 * (1 + 2 * q_stages)
+    return dkdv, dq
 
 
 def flash_bwd_smem_bytes(d: int) -> tuple:
@@ -189,6 +210,17 @@ def attention_route(sq: int, skv: int, d: int, dtype_bytes: int, aligned: bool =
     or two 128-byte TMA boxes) with q, k and v 16-byte ``aligned``; the CUDA
     cores for f32, D 32 and any other shape or pointer."""
     if aligned and dtype_bytes == 2 and d in FLASH_TC_DIMS and min(sq, skv) > 0:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def attention_bwd_route(sq: int, skv: int, d: int, dtype_bytes: int,
+                        aligned: bool = True) -> str:
+    """The route of the flash backward: the tensor cores for bf16 at a head
+    dim of ``FLASH_BWD_TC_DIMS`` with q, k, v, o, dO and lse 16-byte
+    ``aligned``; the CUDA cores for f32, D 32 and 128 and any other shape or
+    pointer."""
+    if aligned and dtype_bytes == 2 and d in FLASH_BWD_TC_DIMS and min(sq, skv) > 0:
         return TENSOR_CORES
     return CUDA_CORES
 
@@ -563,10 +595,12 @@ class GmmSchedule:
 
 @functools.lru_cache(maxsize=4096)
 def pom_gmm_schedule(e: int, cap: int, d: int, f: int, dtype_bytes: int = 2,
-                     spec: HopperSpec = H100, *, aligned: bool = True) -> GmmSchedule:
+                     spec: HopperSpec = H100, *, aligned: bool = True,
+                     route: str | None = None) -> GmmSchedule:
     """Tile for ``csrc/grouped_matmul.cu`` (one block per (expert, m tile,
     n tile)), from the tiles of the route ``gmm_route`` picks (with
-    ``aligned``): (bm, bn, bk)
+    ``aligned``; ``route`` names it instead, as ``gmm_bwd_schedules`` does
+    for products whose operands lie transposed): (bm, bn, bk)
     of ``GMM_TC_TILES`` on the tensor cores, a height bm of ``GMM_BM``
     (``GMM_BN`` wide) on the CUDA cores.
 
@@ -582,7 +616,8 @@ def pom_gmm_schedule(e: int, cap: int, d: int, f: int, dtype_bytes: int = 2,
     (taller tiles re-read the weights less), then to fewer padding rows,
     then to the smaller shared-memory footprint."""
     model = HopperModel(spec)
-    route = gmm_route(e, cap, d, f, dtype_bytes, aligned)
+    if route is None:
+        route = gmm_route(e, cap, d, f, dtype_bytes, aligned)
     tc = route == TENSOR_CORES
     if tc:
         tiles = GMM_TC_TILES
@@ -603,3 +638,17 @@ def pom_gmm_schedule(e: int, cap: int, d: int, f: int, dtype_bytes: int = 2,
             best, best_key = GmmSchedule(bm, terms, bn, bk, route, smem), key
     assert best is not None
     return best
+
+
+def gmm_bwd_schedules(e: int, cap: int, d: int, f: int, dtype_bytes: int = 2,
+                      spec: HopperSpec = H100, *, aligned: bool = True) -> tuple:
+    """The (dX, dW) schedules of the grouped matmul's backward for a forward
+    (e, cap, d) @ (e, d, f): dX = dY W^T, an (e, cap, f) @ (e, f, d)
+    product, and dW = X^T dY, an (e, d, cap) @ (e, cap, f) one.  Both read
+    x and w where they lie (W as a K-major operand, X as an MN-major one),
+    so both take the forward's route, ``gmm_route(e, cap, d, f)``: TMA needs
+    the contiguous dims d and f to be multiples of 8, and cap, dW's
+    contraction, only counts rows of boxes."""
+    route = gmm_route(e, cap, d, f, dtype_bytes, aligned)
+    return (pom_gmm_schedule(e, cap, f, d, dtype_bytes, spec, aligned=aligned, route=route),
+            pom_gmm_schedule(e, d, cap, f, dtype_bytes, spec, aligned=aligned, route=route))

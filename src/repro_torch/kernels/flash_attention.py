@@ -53,16 +53,23 @@ to the plain version ``ref.attention``.
   S 256, D 64, bf16, causal) reading q, k, v, o, dO, lse and writing dq,
   dk, dv (~21 MB) take longer at 3.35 TB/s than the five causal products
   (~2.5x the forward's operations) at the bf16 tensor-core rate: bytes.
-* Design: three kernels a call, deterministic and free of atomics: Delta
-  in f32, one warp a row; dK and dV with one block per (b, kv head, key
-  tile), K and V staged in shared memory, looping over the group's query
-  heads and the query tiles on or below the diagonal with dK and dV in f32
-  registers; dQ with one block per (b, q head, query tile) looping over the
-  key tiles.  Two routes, chosen by ``attention_route`` as the forward's:
-  the tensor cores (bf16, D 64 or 128, 16-byte aligned q, k, v, do): 64-row
-  tiles, four warps of 16 rows each, every product on mma.sync (f32 sums)
-  with P and dS rounded to bf16 in registers, as the forward rounds P;
-  the CUDA cores for the rest, in f32 (bf16 converted on load), tiles
+* Design: deterministic and free of atomics, on two routes chosen by
+  ``autotune.attention_bwd_route``.  The tensor cores (bf16 at D 64 with
+  16-byte aligned q, k, v, o, do and lse), two kernels on TMA and wgmma: dQ
+  with one block per (b, q head, 64-row query tile), Delta folded into its
+  prologue, a producer warp streaming K and V through a TMA ring and S, dP
+  and dQ += dS K on wgmma (dS from registers); then dK and dV on a
+  persistent grid (a block an SM) walking (b, kv head, 64-key tile) items,
+  the longest first, a producer warp loading each item's K and V and
+  streaming each step's Q, dO, lse and Delta through a four-stage ring,
+  and two consumer warpgroups taking an item's (query head, query tile)
+  steps in turn, whose sums meet in shared memory in a fixed order.  P and
+  dS round to bf16 as the forward rounds P.  The CUDA cores (f32, D 32 and
+  128, misaligned operands), three kernels: Delta in f32, one warp a row; dK and dV with
+  one block per (b, kv head, key tile), K and V staged in shared memory,
+  looping over the group's query heads and the query tiles on or below the
+  diagonal with dK and dV in f32 registers; dQ with one block per (b, q
+  head, query tile) looping over the key tiles; tiles
   ``autotune.FLASH_BWD_TILES``.  One ``launches_bwd`` count a call, and
   ``launches_bwd_tc`` of those on the tensor cores.
 """
@@ -75,7 +82,8 @@ import torch
 
 from . import _build
 from .autotune import (CUDA_CORES, FLASH_BKV, FLASH_BQ, FLASH_NAIVE, FLASH_TC_NAIVE,
-                       FLASH_TC_TILES, HEAD_DIMS, TENSOR_CORES, attention_route)
+                       FLASH_TC_TILES, HEAD_DIMS, TENSOR_CORES, attention_bwd_route,
+                       attention_route)
 from .ref import attention as flash_attention_plain
 from .ref import attention_backward as flash_attention_backward_plain
 from .ref import attention_lse as flash_attention_lse_plain
@@ -210,10 +218,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     input's dtype; a query head's share of dk, dv is summed into its kv
     head.
 
-    ``route``: the route ``attention_route`` picks for the shape, the dtype
-    and the alignment of q, k, v and do (the tensor cores for bf16 at D 64
-    or 128), or ``CUDA_CORES`` to force the CUDA-core kernels, as the tests
-    do; ``TENSOR_CORES`` where the route does not take the input raises."""
+    ``route``: the route ``attention_bwd_route`` picks for the shape, the
+    dtype and the alignment of q, k, v, o, do and lse (the tensor cores for
+    bf16 at D 64), or ``CUDA_CORES`` to force the CUDA-core kernels, as the
+    tests do; ``TENSOR_CORES`` where the route does not take the input
+    raises."""
     global launches_bwd, launches_bwd_tc
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal, scale=scale)
@@ -228,14 +237,14 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"need ({b}, {hq}, {sq}) float32")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_backward: head_dim {d} not among {HEAD_DIMS}")
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, do))
-    best = attention_route(sq, skv, d, q.element_size(), aligned)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do, lse))
+    best = attention_bwd_route(sq, skv, d, q.element_size(), aligned)
     if route is None:
         route = best
     if route not in (TENSOR_CORES, CUDA_CORES) or (route == TENSOR_CORES and best != route):
         raise ValueError(f"flash_attention_backward: route {route!r} for D {d} {q.dtype} "
-                         f"(16-byte aligned: {aligned}); the tensor cores need bf16, D 64 or "
-                         "128 and 16-byte aligned q, k, v and do")
+                         f"(16-byte aligned: {aligned}); the tensor cores need bf16, D 64 and "
+                         "16-byte aligned q, k, v, o, do and lse")
     tc = route == TENSOR_CORES
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     delta = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)

@@ -33,18 +33,22 @@ to the plain version ``ref.grouped_matmul``.
 
 The gradient (``GroupedMatmul``; no TPU counterpart: the reference lets XLA
 differentiate its pure-jnp grouped matmul) is two more grouped matmuls on
-the same kernels, dX = dY W^T and dW = X^T dY, each on a contiguous copy of
-its transposed operand and with the tile ``autotune.pom_gmm_schedule``
-picks for its shape (``grouped_matmul_backward``).  dW contracts over cap,
-a multiple of 8 (``models.moe.capacity``), so bf16 keeps the tensor cores.
+the same kernels, dX = dY W^T and dW = X^T dY (``grouped_matmul_backward``),
+each reading the saved x and w where they lie: the tensor-core route reads
+w as a K-major B operand and x as an MN-major A operand (wgmma's transpose
+bits), the CUDA-core route indexes them.  No transposed operand is copied.
+Both products take the forward's route (bf16 with d and f multiples of 8,
+x and w aligned: cap needs no multiple of 8, since dW's contraction over
+cap is a row count of TMA boxes) with the tiles of
+``autotune.gmm_bwd_schedules``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .autotune import (GMM_BM, GMM_NAIVE_BM, GMM_TC_NAIVE, GMM_TC_TILES, TENSOR_CORES, gmm_route,
-                       pom_gmm_schedule)
+from .autotune import (GMM_BM, GMM_NAIVE_BM, GMM_TC_NAIVE, GMM_TC_TILES, TENSOR_CORES,
+                       gmm_bwd_schedules, gmm_route, pom_gmm_schedule)
 from .ref import grouped_matmul as grouped_matmul_plain
 from .ref import grouped_matmul_backward as grouped_matmul_backward_plain
 
@@ -57,6 +61,9 @@ launches_bwd = 0
 launches_bwd_tc = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' operand layouts: out = x @ w, x @ w^T (w stored (E, f, d)),
+# x^T @ w (x stored (E, d, cap))
+_FORWARD, _W_T, _X_T = 0, 1, 2
 _FN = {}
 
 
@@ -69,10 +76,10 @@ def _kernel(tc: bool = False):
         p, i = ctypes.c_void_p, ctypes.c_int
         if tc:
             fn = lib.grouped_matmul_tc_launch
-            fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+            fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
         else:
             fn = lib.grouped_matmul_launch
-            fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
+            fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
         _FN[tc] = fn
     return _FN[tc]
@@ -104,9 +111,10 @@ def pom_tile(x: torch.Tensor, w: torch.Tensor) -> dict:
     return {"tile": (s.bm, s.bn, s.bk)} if s.route == TENSOR_CORES else {"bm": s.bm}
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, bm=None, tile=None) -> tuple:
-    """One launch on CUDA tensors (not counted): (out, whether it took the
-    tensor cores)."""
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raises on operands the kernels do not take: a device other than
+    cuda, shapes that do not chain, mixed or unsupported dtypes, an operand
+    on another device or not contiguous."""
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
@@ -118,6 +126,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bm=None, tile=None) -> tuple:
         raise ValueError(f"grouped_matmul: w on {w.device}, x on {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("grouped_matmul: x and w must be contiguous")
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, bm=None, tile=None) -> tuple:
+    """One launch on CUDA tensors (not counted): (out, whether it took the
+    tensor cores)."""
+    _check(x, w)
     e, cap, d = x.shape
     f = w.shape[2]
     aligned = not (x.data_ptr() % 16 or w.data_ptr() % 16)
@@ -144,17 +158,25 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bm=None, tile=None) -> tuple:
                              "of 8")
     elif bm not in GMM_BM:
         raise ValueError(f"grouped_matmul: bm {bm} not in {GMM_BM}")
-    out = torch.empty((e, cap, f), dtype=x.dtype, device=x.device)
+    return _run(x, w, e, cap, d, f, _FORWARD, tile if tc else None, bm), tc
+
+
+def _run(x: torch.Tensor, w: torch.Tensor, e: int, m: int, k: int, n: int, layout: int,
+         tile, bm) -> torch.Tensor:
+    """One launch of (e, m, k) @ (e, k, n) -> (e, m, n) in the operand
+    ``layout`` (x and w as they lie), on the tensor-core ``tile`` or, where
+    it is None, the CUDA-core height ``bm``."""
+    out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if tc:
-        rc = _kernel(True)(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, cap, d, f, *tile,
-                           stream)
+    if tile is not None:
+        rc = _kernel(True)(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, k, n, *tile,
+                           layout, stream)
     else:
-        rc = _kernel()(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, cap, d, f, bm,
-                       _DTYPES[x.dtype], stream)
+        rc = _kernel()(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, k, n, bm,
+                       _DTYPES[x.dtype], layout, stream)
     if rc != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {rc}")
-    return out, tc
+    return out
 
 
 def grouped_matmul_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
@@ -162,24 +184,36 @@ def grouped_matmul_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     """(dx, dw) of ``grouped_matmul(x, w)`` for the output gradient ``dy``
     (E, cap, f), in x's and w's dtypes (x's and w's must agree, as the
     forward requires), each None where ``needs`` (x, w) does not ask for it.
-    On the card dx = grouped_matmul(dy, w^T) and dw = grouped_matmul(x^T,
-    dy), each transposed operand copied to contiguous and each product on
-    the tile of ``pom_tile``; on the CPU ``ref.grouped_matmul_backward``."""
+    On the card dx = dy w^T and dw = x^T dy, one launch each on the tiles of
+    ``gmm_bwd_schedules``, reading x and w in place (dy is copied only where
+    it is not contiguous in x's dtype); on the CPU
+    ``ref.grouped_matmul_backward``."""
     global launches_bwd, launches_bwd_tc
     if x.device.type == "cpu":
         return tuple(g if need else None
                      for g, need in zip(grouped_matmul_backward_plain(x, w, dy), needs))
+    _check(x, w)
+    e, cap, d = x.shape
+    f = w.shape[2]
+    if dy.shape != (e, cap, f) or dy.device != x.device:
+        raise ValueError(f"grouped_matmul_backward: dy{tuple(dy.shape)} on {dy.device}, need "
+                         f"({e}, {cap}, {f}) on {x.device}")
     dy = dy.to(x.dtype).contiguous()
+    aligned = not (x.data_ptr() % 16 or w.data_ptr() % 16 or dy.data_ptr() % 16)
     grads = []
-    for need, lhs, rhs in ((needs[0], dy, w.transpose(1, 2)), (needs[1], x.transpose(1, 2), dy)):
+    # dX (e, cap, d) = dY (e, cap, f) W^T: w read as B K-major; dW (e, d, f) =
+    # X^T dY: x read as A MN-major
+    for need, lhs, rhs, (m, k, n), layout, sched in zip(
+            needs, (dy, x), (w, dy), ((cap, f, d), (d, cap, f)), (_W_T, _X_T),
+            gmm_bwd_schedules(e, cap, d, f, x.element_size(), aligned=aligned)):
         if not need:
             grads.append(None)
             continue
-        lhs, rhs = lhs.contiguous(), rhs.contiguous()
-        g, tc = _launch(lhs, rhs, **pom_tile(lhs, rhs))
+        tc = sched.route == TENSOR_CORES
+        grads.append(_run(lhs, rhs, e, m, k, n, layout, (sched.bm, sched.bn, sched.bk)
+                          if tc else None, sched.bm))
         launches_bwd += 1
         launches_bwd_tc += tc
-        grads.append(g)
     return tuple(grads)
 
 

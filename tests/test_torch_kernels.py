@@ -1046,8 +1046,12 @@ def test_every_flash_tensor_core_tile_fits(d):
 
 def test_flash_backward_tiles_match_the_source():
     """FLASH_BWD_TILES is ``BwdTiles`` of csrc/flash_attention_bwd.cu, its
-    head dims the ones ``dispatch_d`` launches, and ``flash_bwd_smem_bytes``
-    follows the source's two shared-memory layouts."""
+    head dims the ones the CUDA-core ``dispatch_d`` launches, and
+    ``flash_bwd_smem_bytes`` follows that route's two shared-memory layouts;
+    the tensor-core route's constants (``namespace tc``: head dim, tile rows,
+    consumer warpgroups, the two rings' stages) are FLASH_BWD_TC_*, its
+    entry point takes exactly D ``tc::kD``, and ``flash_bwd_tc_smem_bytes``
+    is its ``kKvSmem`` and ``kQSmem`` term for term."""
     import re
     from pathlib import Path
     text = (Path(autotune.__file__).resolve().parent.parent / "csrc" /
@@ -1066,18 +1070,36 @@ def test_flash_backward_tiles_match_the_source():
             (kbq, kbkv, qbq, qbkv)
     assert "return 2 * BKV * (D + 1) + 2 * BQ * (D + 1) + 2 * BKV * (BQ + 1) + 2 * BQ;" in text
     assert "return 2 * BQ * (D + 1) + 2 * BKV * (D + 1) + BQ * (BKV + 1) + 2 * BQ;" in text
-    # the tensor-core route: 64-row tiles, pitch D + 8, four tiles and lse, Delta
-    assert "constexpr int kRows = 64;" in text and "kPitch = D + 8;" in text
-    assert "kSmem = 4 * kTile * 2 + 2 * kRows * 4;" in text
-    assert re.findall(r"if \(d == (\d+)\)\s+return static_cast<int>\(tc::launch<", text) == \
-        [str(d) for d in autotune.FLASH_TC_DIMS]
+    # the tensor-core route
+    tc = text[text.index("namespace tc {"):text.index("}  // namespace tc")]
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", tc).group(1))
+    assert (const("kD"),) == autotune.FLASH_BWD_TC_DIMS
+    assert const("kRows") == autotune.FLASH_BWD_TC_ROWS
+    assert const("kKvConsumers") == autotune.FLASH_BWD_TC_CONSUMERS
+    assert (const("kKvStages"), const("kQStages")) == autotune.FLASH_BWD_TC_STAGES
+    assert "kTileBytes = kRows * kD * 2;" in tc and "kRowBytes = kRows * 4;" in tc
+    flat = " ".join(tc.split())
+    assert "kXferBytes = kKvConsumers * (kD / 2) * 128 * 4;" in tc
+    assert ("kKvSmem = 1024 + 2 * 2 * kTileBytes + kKvStages * 2 * kTileBytes + kKvStages * 2 * "
+            "kRowBytes + kXferBytes + 8 * (4 + 2 * kKvStages);") in flat
+    assert ("kQSmem = 1024 + 2 * kTileBytes + kQStages * 2 * kTileBytes + 8 * (1 + 2 * "
+            "kQStages);") in flat
+    entry = text[text.index('extern "C" int flash_attention_bwd_tc_launch('):]
+    assert "d != tc::kD" in entry
 
 
 @pytest.mark.parametrize("d", autotune.HEAD_DIMS)
 def test_flash_backward_tiles_fit(d):
-    """Both backward blocks fit a block's shared memory; their tiles split
-    over the 16 x 8 threads (rows by 16, columns by 8); at D 64, the
-    training shape's, two dK/dV blocks and two dQ blocks share an SM."""
+    """Both CUDA-core backward blocks fit a block's shared memory; their
+    tiles split over the 16 x 8 threads (rows by 16, columns by 8); at D 64,
+    the training shape's, two dK/dV blocks and two dQ blocks share an SM.
+    At the tensor-core route's head dims: both of its blocks fit (at most
+    227 KB), two dQ blocks share an SM, every tile is a whole number of
+    1024-byte swizzle periods and a stage's 64 lse or Delta values a whole
+    number of 128 bytes (TMA's destination alignment), and the dK/dV ring
+    gives each consumer warpgroup the same number of stages."""
     (kbq, kbkv), (qbq, qbkv) = autotune.FLASH_BWD_TILES[d]
     dkdv, dq = autotune.flash_bwd_smem_bytes(d)
     assert max(dkdv, dq) <= H100.smem_bytes
@@ -1085,10 +1107,50 @@ def test_flash_backward_tiles_fit(d):
     if d == 64:
         assert 2 * (dkdv + 1024) <= autotune.SMEM_PER_SM
         assert 2 * (dq + 1024) <= autotune.SMEM_PER_SM
-    if d in autotune.FLASH_TC_DIMS:
-        # the tensor-core blocks: at least two an SM; rows of 16-byte multiples
-        assert 2 * (autotune.flash_bwd_tc_smem_bytes(d) + 1024) <= autotune.SMEM_PER_SM
-        assert ((d + 8) * 2) % 16 == 0
+    if d in autotune.FLASH_BWD_TC_DIMS:
+        rows = autotune.FLASH_BWD_TC_ROWS
+        tc_dkdv, tc_dq = autotune.flash_bwd_tc_smem_bytes(d)
+        assert max(tc_dkdv, tc_dq) <= H100.smem_bytes <= 232_448
+        assert 2 * (tc_dq + 1024) <= autotune.SMEM_PER_SM
+        assert (rows * d * 2) % 1024 == 0 and (rows * 4) % 128 == 0 and d * 2 == 128
+        assert autotune.FLASH_BWD_TC_STAGES[0] % autotune.FLASH_BWD_TC_CONSUMERS == 0
+
+
+@pytest.mark.parametrize("sq, skv, d, xb, aligned, want", [
+    (256, 256, 64, 2, True, "tensor_cores"), (1, 7, 64, 2, True, "tensor_cores"),
+    (256, 256, 128, 2, True, "cuda_cores"), (256, 256, 32, 2, True, "cuda_cores"),
+    (256, 256, 64, 4, True, "cuda_cores"), (256, 256, 64, 2, False, "cuda_cores"),
+    (0, 256, 64, 2, True, "cuda_cores")])
+def test_attention_bwd_route(sq, skv, d, xb, aligned, want):
+    """The flash backward's route: the tensor cores only for bf16 at D 64
+    with aligned operands (D 128 runs its backward on the CUDA cores, while
+    its forward keeps the tensor cores)."""
+    assert autotune.attention_bwd_route(sq, skv, d, xb, aligned) == want
+    if d == 128 and xb == 2 and aligned:
+        assert autotune.attention_route(sq, skv, d, xb, aligned) == autotune.TENSOR_CORES
+
+
+@pytest.mark.parametrize("e, cap, d, f, xb, aligned", [
+    (32, 640, 1024, 512, 2, True), (32, 640, 512, 1024, 2, True), (32, 328, 1024, 512, 2, True),
+    (4, 37, 256, 128, 2, True), (4, 40, 100, 70, 2, True), (3, 130, 64, 129, 4, True),
+    (8, 200, 256, 128, 2, False)])
+def test_gmm_bwd_schedules(e, cap, d, f, xb, aligned):
+    """The backward's two products take the forward's route (bf16, d and f
+    multiples of 8, aligned: a cap that is no multiple of 8 keeps the tensor
+    cores, since the transposed operands are read in place), each with a
+    tile of that route scored on its own shape: dX (cap, f) @ (f, d), dW
+    (d, cap) @ (cap, f)."""
+    route = autotune.gmm_route(e, cap, d, f, xb, aligned)
+    sx, sw = autotune.gmm_bwd_schedules(e, cap, d, f, xb, aligned=aligned)
+    for s, (m, k, n) in ((sx, (cap, f, d)), (sw, (d, cap, f))):
+        assert s.route == route
+        if route == autotune.TENSOR_CORES:
+            assert (s.bm, s.bn, s.bk) in autotune.GMM_TC_TILES
+        else:
+            assert s.bm in autotune.GMM_BM
+        assert s == autotune.pom_gmm_schedule(e, m, k, n, xb, aligned=aligned, route=route)
+    if xb == 2 and aligned and d % 8 == 0 and f % 8 == 0:
+        assert route == autotune.TENSOR_CORES
 
 
 @pytest.mark.parametrize("op", ["matmul", "grouped_matmul", "jacobi2d", "attention",
@@ -1173,7 +1235,8 @@ def test_gpu_flash_matches_plain(case):
 
 # (B, Hq, Hkv, Sq, Skv, D, causal, dtype) of the backward: smollm_360m's
 # training shape in both dtypes, then ragged Sq and Skv, Sq < Skv, Sq > Skv
-# (rows that see no key), groups 1, 2, 4 and 8, non-causal, D 32, 64, 128
+# (rows that see no key), groups 1, 2, 4 and 8, non-causal, D 32, 64, 128;
+# the last two on the tensor cores: Sq < Skv and non-causal ragged at D 64
 FLASH_BWD_CASES = [
     (8, 15, 5, 256, 256, 64, True, "bfloat16"),
     (8, 15, 5, 256, 256, 64, True, "float32"),
@@ -1184,6 +1247,8 @@ FLASH_BWD_CASES = [
     (2, 8, 8, 77, 77, 32, True, "bfloat16"),
     (2, 8, 2, 300, 300, 128, True, "bfloat16"),
     (1, 16, 2, 96, 150, 128, False, "float32"),
+    (1, 4, 1, 64, 200, 64, True, "bfloat16"),
+    (2, 6, 2, 100, 150, 64, False, "bfloat16"),
 ]
 
 
@@ -1215,8 +1280,8 @@ def _bwd_rel(dtype):
 @pytest.mark.parametrize("case", FLASH_BWD_CASES)
 def test_gpu_flash_backward_matches_plain(case):
     """The backward kernels against ``ref.attention_backward`` on the same
-    q, k, v, o, lse and dO, on the route ``attention_route`` picks (the
-    tensor cores for bf16 at D 64 and 128) and on the CUDA cores; one
+    q, k, v, o, lse and dO, on the route ``attention_bwd_route`` picks (the
+    tensor cores for bf16 at D 64) and on the CUDA cores; one
     ``launches_bwd`` a call; a query row that sees no key gets dq 0; a
     second call gives the same bits (no atomics)."""
     dev = _cuda()
@@ -1224,7 +1289,7 @@ def test_gpu_flash_backward_matches_plain(case):
     q, k, v, do = _bwd_inputs(case, dev)
     o, lse = flash_mod.flash_attention(q, k, v, causal=causal, return_lse=True)
     want = tref.attention_backward(q, k, v, o, lse, do, causal=causal)
-    best = autotune.attention_route(sq, skv, d, q.element_size())
+    best = autotune.attention_bwd_route(sq, skv, d, q.element_size())
     for route in sorted({best, autotune.CUDA_CORES}):
         n0, ntc = flash_mod.launches_bwd, flash_mod.launches_bwd_tc
         got = flash_mod.flash_attention_backward(q, k, v, o, lse, do, causal=causal, route=route)
@@ -1995,14 +2060,19 @@ def test_gpu_ops_take_misaligned_and_transposed_operands(op):
 # --------------------------------------------------------------------------
 # on the card: the backward passes of the grouped matmul and the scan
 # --------------------------------------------------------------------------
-# (E, cap, d, f, dtype): granite_moe_1b's training shapes (8 x 256 tokens:
-# cap 640; wi/wg d 1024 -> f 512, wo 512 -> 1024), then ragged ones on the
-# CUDA cores (d 100: no TMA row) and in f32
+# (E, cap, d, f, dtype[, dy strided]): granite_moe_1b's training shapes (8 x
+# 256 tokens: cap 640; wi/wg d 1024 -> f 512, wo 512 -> 1024), then ragged
+# ones on the CUDA cores (d 100: no TMA row) and in f32, then on the tensor
+# cores cap 328 (a tail in every 64-, 128- or 256-row tile of cap) and a dy
+# that is a strided view (copied once to contiguous, never transposed)
 GMM_BWD_CASES = [
     (32, 640, 1024, 512, "bfloat16"),
     (32, 640, 512, 1024, "bfloat16"),
     (4, 40, 100, 70, "bfloat16"),
     (3, 130, 64, 129, "float32"),
+    (32, 328, 1024, 512, "bfloat16"),
+    (8, 200, 256, 128, "bfloat16", True),
+    (3, 130, 64, 129, "float32", True),
 ]
 
 
@@ -2011,27 +2081,62 @@ GMM_BWD_CASES = [
 def test_gpu_grouped_matmul_backward_matches_plain(case):
     """dX and dW against ``ref.grouped_matmul_backward`` (bf16 one rounding
     of the f32 sum; f32 sums of cap or f products in another order), two
-    ``launches_bwd`` a call, on the tensor cores where ``gmm_route`` takes
-    both shapes (bf16, every dim a multiple of 8)."""
+    ``launches_bwd`` a call, on the tensor cores where the forward's
+    ``gmm_route`` takes the shape (bf16, d and f multiples of 8: cap may be
+    anything), a second call bit-equal; a strided dy gives what its
+    contiguous copy gives."""
     dev = _cuda()
-    e, cap, d, f, dtype = case
+    e, cap, d, f, dtype, *strided = case
     g = torch.Generator(device=dev).manual_seed(cap + d)
     dt = getattr(torch, dtype)
     x = torch.randn(e, cap, d, generator=g, device=dev).to(dt)
     w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
     dy = torch.randn(e, cap, f, generator=g, device=dev).to(dt)
-    want = tref.grouped_matmul_backward(x, w, dy)
+    if strided:                                    # every other column of a wider buffer
+        wide = torch.randn(e, cap, 2 * f, generator=g, device=dev).to(dt)
+        dy = wide[:, :, ::2]
+        assert not dy.is_contiguous()
+    want = tref.grouped_matmul_backward(x, w, dy.contiguous())
     n0, ntc = gmm_mod.launches_bwd, gmm_mod.launches_bwd_tc
     got = gmm_mod.grouped_matmul_backward(x, w, dy)
+    again = gmm_mod.grouped_matmul_backward(x, w, dy)
     torch.cuda.synchronize()
-    tc = all(autotune.gmm_route(e, m, k, n, x.element_size()) == autotune.TENSOR_CORES
-             for m, k, n in ((cap, f, d), (d, cap, f)))
-    assert gmm_mod.launches_bwd == n0 + 2 and gmm_mod.launches_bwd_tc == ntc + 2 * tc
-    for gr, wt, name in zip(got, want, ("dx", "dw")):
+    tc = autotune.gmm_route(e, cap, d, f, x.element_size()) == autotune.TENSOR_CORES
+    assert gmm_mod.launches_bwd == n0 + 4 and gmm_mod.launches_bwd_tc == ntc + 4 * tc
+    for gr, wt, ag, name in zip(got, want, again, ("dx", "dw")):
         assert gr.dtype == wt.dtype and gr.shape == wt.shape, name
         scale = wt.float().abs().max().item()
         rel = 1e-2 if dtype == "bfloat16" else 1e-4
         assert (gr.float() - wt.float()).abs().max().item() <= rel * scale, name
+        assert torch.equal(gr, ag), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("product", ["dx", "dw"])
+def test_gpu_grouped_matmul_backward_layout_alone(product):
+    """Each of the backward's operand layouts alone on one expert, against
+    ``torch.matmul`` of the same bf16 values in f32: dX = dY W^T reads w as
+    a K-major B operand, dW = X^T dY reads x as an MN-major A operand (cap
+    200 leaves a tail in every tile of the contraction or the rows), both
+    on the tensor cores."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    cap, d, f = 200, 192, 136
+    x = torch.randn(1, cap, d, generator=g, device=dev).bfloat16()
+    w = (torch.randn(1, d, f, generator=g, device=dev) * d ** -0.5).bfloat16()
+    dy = torch.randn(1, cap, f, generator=g, device=dev).bfloat16()
+    needs = (product == "dx", product == "dw")
+    ntc = gmm_mod.launches_bwd_tc
+    got = gmm_mod.grouped_matmul_backward(x, w, dy, needs=needs)[0 if needs[0] else 1]
+    torch.cuda.synchronize()
+    assert gmm_mod.launches_bwd_tc == ntc + 1
+    if needs[0]:
+        want = torch.matmul(dy[0].float(), w[0].float().t())
+    else:
+        want = torch.matmul(x[0].float().t(), dy[0].float())
+    assert got.shape == (1, *want.shape) and got.dtype == torch.bfloat16
+    scale = want.abs().max().item()
+    assert (got[0].float() - want).abs().max().item() <= 1e-2 * scale
 
 
 @pytest.mark.gpu

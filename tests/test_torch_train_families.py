@@ -25,10 +25,6 @@ JAX's in the forward already (granite 9.2e-7, xlstm 3.1e-6).  A wrong
 gradient formula moves a gradient by O(1) of its size.
 """
 import dataclasses
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -47,7 +43,6 @@ from repro.kernels import ref as jref
 from repro.models import init_params as jinit_params
 from repro.models import loss_fn as jloss_fn
 from repro.optim import adamw_init as jadamw_init
-from repro_torch.checkpoint import latest_step
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import make_device_batch
 from repro_torch.distributed import step as step_mod
@@ -60,7 +55,6 @@ from repro_torch.models.convert import from_jax_params
 from repro_torch.models.model import num_blocks
 from repro_torch.optim import adamw_init
 
-ROOT = Path(__file__).resolve().parent.parent
 GRAD_REL = 1e-4
 LOSS_RTOL = 1e-5
 BF16_REL = 2 ** -8
@@ -400,34 +394,3 @@ def test_family_remat_full_is_bit_equal_to_none(family):
     assert torch.equal(runs["none"][0], runs["full"][0])
     for n, g in runs["none"][2].items():
         assert torch.equal(g, runs["full"][2][n]), n
-
-
-def _train_cli(arch, workdir, steps):
-    """``python -m repro_torch.launch.train --device cpu --reduced --arch
-    arch`` in a subprocess with one CPU thread (the multithreaded CPU
-    kernels differ from run to run in the last bit of f32 sums)."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--reduced",
-         "--arch", arch, "--steps", str(steps), "--batch", "2", "--seq", "32",
-         "--log-every", "1", "--ckpt-every", "2", "--workdir", str(workdir)],
-        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
-    assert out.returncode == 0, out.stderr
-    losses = {int(ln.split()[1]): ln.split()[3] for ln in out.stdout.splitlines()
-              if ln.startswith("step ")}
-    return out.stdout, losses
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_family_train_cli_resumes_bit_for_bit(arch, tmp_path):
-    """``launch/train.py --reduced --arch`` trains the family: 3 steps
-    (checkpoints at 2 and 3), then a resume to 4 in the same work dir, print
-    the losses of 4 steps straight (all finite)."""
-    out3, first = _train_cli(arch, tmp_path / "a", 3)
-    out4, second = _train_cli(arch, tmp_path / "a", 4)
-    _, straight = _train_cli(arch, tmp_path / "b", 4)
-    assert "fresh start" in out3 and "resumed from step 3" in out4
-    assert sorted(first) == [0, 1, 2] and sorted(second) == [3]
-    assert {**first, **second} == straight
-    assert all(np.isfinite(float(v)) for v in straight.values())
-    assert latest_step(str(tmp_path / "a" / "ckpt")) == 4

@@ -6,12 +6,15 @@ and the backward.
 
 ``--src`` is the ``src`` directory of the checkout to measure (default this
 checkout's), so that two checkouts compare in one call: run them in turns
-(older, newer, newer, older).  Times ``ops.attention`` (bf16, Hq 15, Hkv 5,
-D 64, causal; B 4 x S 512 and B 8 x S 256) with ``chip_smoke.time_ms``
-(CUDA events, L2 flushed, 100 calls); then ``flash_attention(...,
-return_lse=True)`` and ``flash_attention_backward`` (on its route and on the
-CUDA cores) at both shapes if the checkout defines them.  Prints the card's
-name and power limit first.
+(older, newer, newer, older).  Times ``ops.attention`` (bf16, D 64, causal)
+with ``chip_smoke.time_ms`` (CUDA events, L2 flushed, 100 calls) at
+smollm_360m's forward (B 4 x S 512, Hq 15, Hkv 5) and at the training
+shapes (B 8 x S 256) of smollm_360m (15 / 5), granite_moe_1b (16 / 8) and
+zamba2_1_2b (32 / 32); then ``flash_attention(..., return_lse=True)`` and
+``flash_attention_backward`` (on its route and on the CUDA cores) if the
+checkout defines them, and at the training shapes the backward's time by
+kernel (``torch.profiler``) and SDPA's backward alone on the same inputs.
+Prints the card's name and power limit first.
 
 Imports nothing of JAX.  Exits non-zero without a card.
 """
@@ -43,12 +46,13 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip())
     print(f"measuring {Path(repro_torch.__file__).parent}")
     g = torch.Generator(device="cuda").manual_seed(2)
-    hq, hkv, d, dt = 15, 5, 64, torch.bfloat16
-    for b, s in ((4, 512), (8, 256)):
+    d, dt = 64, torch.bfloat16
+    for b, s, hq, hkv in ((4, 512, 15, 5), (8, 256, 15, 5), (8, 256, 16, 8), (8, 256, 32, 32)):
         q = torch.randn(b, hq, s, d, generator=g, device="cuda").to(dt)
         k = torch.randn(b, hkv, s, d, generator=g, device="cuda").to(dt)
         v = torch.randn(b, hkv, s, d, generator=g, device="cuda").to(dt)
-        line = f"B {b} S {s}: forward {time_ms(lambda: ops.attention(q, k, v)):.5f} ms"
+        fwd_ms = time_ms(lambda: ops.attention(q, k, v))
+        line = f"B {b} S {s} Hq {hq} Hkv {hkv}: forward {fwd_ms:.5f} ms"
         if hasattr(fm, "flash_attention_backward"):
             do = torch.randn(b, hq, s, d, generator=g, device="cuda").to(dt)
             o, lse = fm.flash_attention(q, k, v, return_lse=True)
@@ -59,6 +63,15 @@ def main() -> None:
                 cc_ms = time_ms(lambda: fm.flash_attention_backward(q, k, v, o, lse, do,
                                                                     route="cuda_cores"))
                 line += f" (CUDA-core route {cc_ms:.5f} ms)"
+            if s == 256:
+                from scan_bench import by_kernel
+                line += (" [by kernel: " + by_kernel(
+                    lambda: fm.flash_attention_backward(q, k, v, o, lse, do)) + "]")
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, is_causal=True, enable_gqa=True)
+                sdpa_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+                line += f", SDPA backward alone {sdpa_ms:.5f} ms"
         print(line, flush=True)
 
 
