@@ -12,13 +12,14 @@ without the final ok line):
                 (HGMMA) and TMA-load (UTMALDG) instructions in the SASS of
                 matmul_pom, grouped_matmul and flash_attention and fails if
                 either is 0; counts the tensor-core (HMMA) instructions of
-                the ssm_scan library and fails if there are none; prints the
-                registers and spills of the f32 ring
+                the ssm_scan and ssm_scan_bwd libraries and fails if there
+                are none; prints the registers and spills of the f32 ring
                 (``strided_gemm_kernel``) in both libraries that include it,
                 of the decode kernels, of the four scan kernels, of the
                 two stencil kernels, of the flash backward's kernels and of
-                the scan's decay-gradient kernels, and fails if a scan,
-                stencil, flash-backward or decay-gradient kernel spills;
+                the scan backward's kernels (each one's registers and spills),
+                and fails if a scan, stencil, flash-backward or scan-backward
+                kernel spills;
                 counts HGMMA, UTMALDG and wgmma waits in each of the
                 backward's tensor-core kernels (the flash backward's dQ and
                 dK/dV kernels, the grouped matmul's two in-place operand
@@ -47,8 +48,10 @@ without the final ok line):
                 and the first call's peak allocation no more than dx, dw and
                 dy's copy (no transposed copy); the scan's backward (dx, da, db,
                 dc) at zamba2's, xlstm's and the normaliser's training
-                shapes and a ragged one with a non-zero dh_final, and the
-                decay-gradient kernel alone;
+                shapes and a ragged one with a non-zero dh_final, one
+                backward launch and one decay-gradient launch a call, a
+                second call bit-equal, and the decay gradient's sum kernel
+                alone;
   4. contraction vs plain -- the contraction kernel against its plain
                 version in f32 and bf16 on the compile path's schedules
                 (tiled gemm at n 256 and at the path's n 4096, unscheduled
@@ -84,8 +87,8 @@ without the final ok line):
                 an f32 copy), within TRAIN_GRAD_RTOL and TRAIN_LOSS_RTOL, with
                 exact counts a step (the forward kernels twice, the flash
                 backward once an attention layer, dX and dW a grouped
-                matmul, three scans a scan's backward, two for the
-                normaliser, one decay-gradient launch a scan; in bf16 every
+                matmul, one backward launch and one decay-gradient launch a
+                scan; in bf16 every
                 flash and grouped-matmul launch on the tensor cores); the
                 main path, ``launch/train.py``'s loop at full width with
                 the depth cut (granite 4 layers, zamba2 6, xlstm 8), 16
@@ -173,8 +176,9 @@ without the final ok line):
                 training shapes against SDPA's backward and the bound; the
                 grouped matmul's backward at granite's training shape (two
                 ``torch.bmm`` beside it), the scan's backward at
-                zamba2's (xlstm's and the normaliser's beside it) and the
-                decay-gradient kernel.  One ``{"kernels": [...]}`` JSON line.
+                zamba2's (xlstm's and the normaliser's beside it, each on the
+                forward's saved scratch) and the decay gradient's sum
+                kernel.  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
 the smollm forward, the smollm training loop, each family's training loop,
 serve and forward, the compile path as phases 8-11, the kernel library) and
@@ -258,8 +262,7 @@ GMM_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SCAN_BWD_RTOL = 2e-3
 # the scan's gradient at the training shapes (batch 8 x 256; B, S, H, P, N,
 # x dtype, B/C broadcast over heads, dh_final): zamba2's, xlstm's, the mLSTM
-# normaliser's (P 1: its role-swapped scans have N 1), and a ragged one with
-# a non-zero dh_final
+# normaliser's (P 1, f32), and a ragged one with a non-zero dh_final
 SCAN_BWD_SHAPES = {"zamba2": (8, 256, 32, 128, 64, torch.bfloat16, True, False),
                    "xlstm": (8, 256, 4, 512, 512, torch.bfloat16, False, False),
                    "normaliser": (8, 256, 4, 1, 512, torch.float32, False, False),
@@ -446,16 +449,17 @@ def build_phase() -> None:
             fail(f"{lib} {fn}: compiled without wgmma or TMA: {counts}")
         if counts["WARPGROUP.DEPBAR"] >= counts["HGMMA"]:
             fail(f"{lib} {fn}: ptxas serialised the wgmma products: {counts}")
-    counts = _build.sass_counts("ssm_scan", ("HMMA",))
-    print(f"sass ssm_scan: {counts}")
-    if not counts["HMMA"]:
-        fail(f"ssm_scan: compiled without tensor-core (mma.sync) instructions: {counts}")
+    for lib in ("ssm_scan", "ssm_scan_bwd"):
+        counts = _build.sass_counts(lib, ("HMMA",))
+        print(f"sass {lib}: {counts}")
+        if not counts["HMMA"]:
+            fail(f"{lib}: compiled without tensor-core (mma.sync) instructions: {counts}")
     # the f32 ring in both libraries that include it, and the decode kernels
     ring = "strided_gemm_kernel"
     for lib, entry in (("contraction", ring), ("matmul_pom", ring),
                        ("decode_attention", "decode_kernel"), ("ssm_scan", "ssm_scan_"),
                        ("stencil", "jacobi"), ("flash_attention_bwd", "flash_bwd_"),
-                       ("ssm_scan_bwd", "ssm_scan_da")):
+                       ("ssm_scan_bwd", "ssm_scan_")):
         found = ptxas_entries(_build.log_path(lib).read_text(), entry)
         if not found:
             fail(f"{lib}: ptxas compiled no {entry}")
@@ -463,7 +467,7 @@ def build_phase() -> None:
         spills = {n: sp for n, (_, sp) in found.items() if sp}
         print(f"ptxas {lib} {entry}: {len(found)} kernels, registers {regs}, spill bytes "
               + (", ".join(f"{n}: {sp}" for n, sp in spills.items()) if spills else "none"))
-        if len(found) <= 2:
+        if len(found) <= 2 or lib == "ssm_scan_bwd":
             for n, (r, sp) in found.items():
                 print(f"  {n}: {r} registers, {sp} bytes spilled")
         if spills and lib in ("ssm_scan", "stencil", "flash_attention_bwd", "ssm_scan_bwd"):
@@ -806,39 +810,50 @@ def _scan_bwd_inputs(g, b, s, h, p, n, dt, broadcast, tail):
 
 
 def scan_bwd_vs_plain(g) -> tuple:
-    """The scan's backward on the kernels (``ssm_scan.scan_backward``: three
-    runs of the scan kernels, two for x = 1's normaliser in the models but
-    three here, and the decay-gradient kernel) against the sequential
-    ``ref.ssm_scan_backward`` at SCAN_BWD_SHAPES, and the decay-gradient
-    kernel alone against ``ref.ssm_scan_da`` on the same dc and db.
-    Returns the worst max abs errors (backward, decay gradient)."""
+    """The scan's backward on the kernels (``ssm_scan.scan_backward`` on the
+    scratch a forward call saves, as ``SsmScan`` runs it: one
+    ``launches_bwd`` and one ``launches_da`` a call) against the sequential
+    ``ref.ssm_scan_backward`` at SCAN_BWD_SHAPES, a second call bit-equal,
+    and the decay gradient's sum kernel alone (``da_sum``) against
+    ``ref.ssm_scan_da_sum`` on the same per-step parts.  Returns the worst max
+    abs errors (backward, decay-gradient sum)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as scan_mod
     worst = worst_da = 0.0
     for label, (b, s, h, p, n, dt, bc, tail) in SCAN_BWD_SHAPES.items():
         x, a, bm, cm, dy, dh = _scan_bwd_inputs(g, b, s, h, p, n, dt, bc, tail)
         want = ref.ssm_scan_backward(x, a, bm, cm, dy, dh)
+        saved = scan_mod._launch(x, a, bm, cm, **scan_mod.pom_tile(x, bm, cm))[2]
         n0 = (scan_mod.launches_bwd, scan_mod.launches_da)
-        got = scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy, dh)
+        got = scan_mod.scan_backward(x, a, bm, cm, dy, dh, saved)
         torch.cuda.synchronize()
-        if (scan_mod.launches_bwd - n0[0], scan_mod.launches_da - n0[1]) != (3 + tail, 1):
-            fail(f"scan backward {label}: {scan_mod.launches_bwd - n0[0]} scans and "
-                 f"{scan_mod.launches_da - n0[1]} decay-gradient launches")
-        for name, gr, wt in zip(("dx", "da", "db", "dc"), got, want):
+        if (scan_mod.launches_bwd - n0[0], scan_mod.launches_da - n0[1]) != (1, 1):
+            fail(f"scan backward {label}: {scan_mod.launches_bwd - n0[0]} backward and "
+                 f"{scan_mod.launches_da - n0[1]} decay-gradient launches, expected 1 and 1")
+        again = scan_mod.scan_backward(x, a, bm, cm, dy, dh, saved)
+        torch.cuda.synchronize()
+        for name, gr, wt, ag in zip(("dx", "da", "db", "dc"), got, want, again):
             err = (gr.float() - wt.float()).abs().max().item()
             rel = _rel_tol(dt, SCAN_BWD_RTOL) if name == "dx" else SCAN_BWD_RTOL
             tol = rel * wt.float().abs().max().item()
-            print(f"scan backward {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]}"
-                  f"{' dh_final' if tail else ''} {name}: max abs err {err:.3g} "
+            print(f"scan backward {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]} chunk "
+                  f"{saved.chunk}{' dh_final' if tail else ''} {name}: max abs err {err:.3g} "
                   f"(tolerance {tol:.3g})")
             if not (bool(torch.isfinite(gr).all()) and err <= tol):
                 fail(f"scan backward {label} {name} disagrees with its plain version: {err}")
+            if not torch.equal(gr, ag):
+                fail(f"scan backward {label} {name}: a second call gave other bits")
             worst = max(worst, err)
-        # the decay-gradient kernel alone, on the plain dc and db
+        # the sum kernel alone, on the plain dots cut into two parts a step
+        # (as two N tiles leave them) and a bias in three
         _, _, db, dc = want
-        bias = None if dh is None else torch.randn(b, h, generator=g, device="cuda")
-        da = scan_mod.ssm_scan_da(cm, dc, bm, db, a, bias)
-        da_want = ref.ssm_scan_da(cm, dc, bm, db, a, bias)
+        half = max(n // 2, 1)
+        parts = [(cm[..., i:j] * dc[..., i:j]).sum(-1) - (bm[..., i:j] * db[..., i:j]).sum(-1)
+                 for i, j in ((0, half), (half, n))]
+        gp = torch.stack(parts, -1).transpose(1, 2).contiguous()
+        bias = None if dh is None else torch.randn(b, h, 3, generator=g, device="cuda")
+        da = scan_mod.da_sum(gp, a, bias)
+        da_want = ref.ssm_scan_da_sum(gp, a, bias)
         torch.cuda.synchronize()
         err = (da - da_want).abs().max().item()
         tol = 1e-4 * da_want.abs().max().item()
@@ -846,7 +861,7 @@ def scan_bwd_vs_plain(g) -> tuple:
         if not err <= tol:
             fail(f"ssm_scan_da {label} disagrees with its plain version: {err}")
         worst_da = max(worst_da, err)
-        del x, a, bm, cm, dy, dh, want, got
+        del x, a, bm, cm, dy, dh, want, got, again, saved
     return worst, worst_da
 
 
@@ -1178,9 +1193,8 @@ def expected_train_launches(cfg) -> dict:
     """Launches of one training step (remat "full": every block's forward
     runs twice), derived from the config as ``expected_launches``: the
     forward kernels, the flash backward once an attention layer, dX and dW a
-    grouped matmul, three scans a Mamba2 or mLSTM scan's backward (dx, db,
-    dc) and two the normaliser's (x = 1 asks for no dx), and one
-    decay-gradient launch a scan."""
+    grouped matmul, one backward launch and one decay-gradient launch a scan
+    (the Mamba2 scan, the mLSTM's y and its normaliser)."""
     fwd, _ = expected_launches(cfg)
     runs = 2 if cfg.remat == "full" else 1
     want = {k: runs * n for k, n in fwd.items() if n}
@@ -1190,8 +1204,7 @@ def expected_train_launches(cfg) -> dict:
     if gmm:
         want["grouped_matmul_bwd"] = 2 * gmm
     if scan:
-        want["ssm_scan_bwd"] = 3 * cfg.num_layers + (2 * cfg.num_layers
-                                                     if cfg.family == "ssm" else 0)
+        want["ssm_scan_bwd"] = scan
         want["ssm_scan_da"] = scan
     return want
 
@@ -2618,12 +2631,14 @@ def backward_rows(g, errs: dict, launches: dict) -> list:
     """The backward passes at the training shapes (batch 8 x 256): the
     grouped matmul's dX and dW at granite's wi/wg shape (E 32, cap 640, d
     1024, f 512, bf16), with two ``torch.bmm`` as its library call; the scan's backward at zamba2's
-    shape (xlstm's and the normaliser's beside it) and the decay-gradient
+    shape (xlstm's and the normaliser's beside it; each on a forward call's
+    saved scratch, as ``SsmScan`` runs it) and the decay gradient's sum
     kernel at zamba2's shape, neither with a library call.  Bounds: each
     input read once and each output written once; the grouped matmul's two
-    products at the bf16 tensor-core rate, the scan's three scans' products
-    at the TF32 rate (as the forward row), the decay gradient's dots at the
-    f32 rate."""
+    products at the bf16 tensor-core rate, the scan backward's at the TF32
+    rate, counted as three scans' products (the count of the backward that
+    ran three scans, so times of either design read against the same
+    bound), the sum's additions at the f32 rate."""
     from repro_torch.kernels import grouped_matmul as gmm_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as scan_mod
@@ -2663,19 +2678,23 @@ def backward_rows(g, errs: dict, launches: dict) -> list:
                 + 8 * b * s * h * n)
         bms, by = bound(byts, 3 * 4.0 * b * s * h * n * p, torch.float32, tf32=True)
         needs = (p > 1, True, True, True)          # the normaliser's x = 1 needs no dx
-        ms = time_ms(lambda: scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy,
-                                                    needs=needs), iters=20)
+        saved = scan_mod._launch(x, a, bm, cm, **scan_mod.pom_tile(x, bm, cm))[2]
+        ms = time_ms(lambda: scan_mod.scan_backward(x, a, bm, cm, dy, None, saved, needs=needs),
+                     iters=20)
         plain_ms = time_ms(lambda: ref.ssm_scan_backward(x, a, bm, cm, dy), iters=3, warmup=1)
-        print(f"ssm_scan_bwd {label} B{b} S{s} H{h} P{p} N{n} {str(sdt)[6:]}: {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}, TF32 rate)")
+        print(f"ssm_scan_bwd {label} B{b} S{s} H{h} P{p} N{n} {str(sdt)[6:]} chunk "
+              f"{saved.chunk}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}, "
+              "TF32 rate)")
         scan[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                        "shape": f"B {b}, S {s}, H {h}, P {p}, N {n}, x {str(sdt)[6:]}"}
         if label == "zamba2":
+            # the sum kernel on the parts the backward leaves (one N tile a step)
             _, _, db, dc = ref.ssm_scan_backward(x, a, bm, cm, dy)
-            byts = 4 * (2 * b * s * hb * n + 2 * b * s * h * n + 2 * b * s * h)
-            da_bms, da_by = bound(byts, 4.0 * b * s * h * n, torch.float32)
-            da_ms = time_ms(lambda: scan_mod.ssm_scan_da(cm, dc, bm, db, a))
-            da_plain = time_ms(lambda: ref.ssm_scan_da(cm, dc, bm, db, a), iters=20)
+            gp = ((cm * dc).sum(-1) - (bm * db).sum(-1)).transpose(1, 2)[..., None].contiguous()
+            byts = 4 * (gp.numel() + 2 * b * s * h)
+            da_bms, da_by = bound(byts, 2.0 * gp.numel(), torch.float32)
+            da_ms = time_ms(lambda: scan_mod.da_sum(gp, a))
+            da_plain = time_ms(lambda: ref.ssm_scan_da_sum(gp, a), iters=20)
             print(f"ssm_scan_da {label} B{b} S{s} H{h} N{n}: {da_ms:.4f} ms, plain "
                   f"{da_plain:.4f} ms, bound {da_bms:.5f} ms ({da_by})")
             rows.append({"name": "ssm_scan_da", "route": "cuda",
@@ -2684,12 +2703,14 @@ def backward_rows(g, errs: dict, launches: dict) -> list:
                          "ms": da_ms, "plain_ms": da_plain, "bound_ms": da_bms,
                          "bound_by": da_by, "library_ms": None,
                          "library": "none: no single PyTorch call computes it",
-                         "shape": f"B {b}, S {s}, H {h}, N {n}, b and c broadcast"})
-            del db, dc
-        del x, a, bm, cm, dy
+                         "shape": f"B {b}, S {s}, H {h}, one part a step (the dots come "
+                                  "from ssm_scan_bwd's epilogue)"})
+            del db, dc, gp
+        del x, a, bm, cm, dy, saved
     rows.insert(1, {"name": "ssm_scan_bwd", "route": "cuda",
-                    "source": "src/repro_torch/csrc/ssm_scan.cu + src/repro_torch/csrc/"
-                              "ssm_scan_bwd.cu (kernels/ssm_scan.py scan_backward)",
+                    "source": "src/repro_torch/csrc/ssm_scan_bwd.cu + "
+                              "src/repro_torch/csrc/ssm_scan.cuh (kernels/ssm_scan.py "
+                              "scan_backward)",
                     "replaces": NO_TPU, "launches": launches["ssm_scan_bwd"],
                     "max_abs_err": errs["ssm_scan_bwd"], **scan["zamba2"], "library_ms": None,
                     "library": "none: no single PyTorch call computes the scan",

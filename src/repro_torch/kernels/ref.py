@@ -18,7 +18,7 @@ Two deliberate differences from the JAX package's ``ref``:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -391,17 +391,121 @@ A_FLOOR = 1e-20
 
 def ssm_scan_da(c: torch.Tensor, dc: torch.Tensor, b: torch.Tensor, db: torch.Tensor,
                 a: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of ``csrc/ssm_scan_bwd.cu``: the decay's gradient from
-    the gradients of the readout and the input projection.  Per (batch,
-    head), g_u = c_u . dc_u - b_u . db_u (dots over N), then d log a_t =
-    sum_{u >= t} g_u (+ ``bias`` (B, H), the dh_final term) and da_t =
-    d log a_t / a_t, 0 where a_t < A_FLOOR (the forward's clamp: there the
-    scan does not depend on a_t).  The sums run in f64.  Returns (B, S, H)
-    f32."""
+    """The decay's gradient from the gradients of the readout and the input
+    projection.  Per (batch, head), g_u = c_u . dc_u - b_u . db_u (dots over
+    N), then d log a_t = sum_{u >= t} g_u (+ ``bias`` (B, H), the dh_final
+    term) and da_t = d log a_t / a_t, 0 where a_t < A_FLOOR (the forward's
+    clamp: there the scan does not depend on a_t).  The sums run in f64
+    (``ssm_scan_da_sum`` with one part a step).  Returns (B, S, H) f32."""
     g = (c.double() * dc.double()).sum(-1) - (b.double() * db.double()).sum(-1)
-    dlog = g.flip(1).cumsum(1).flip(1)
+    return ssm_scan_da_sum(g.transpose(1, 2)[..., None], a,
+                           None if bias is None else bias[..., None])
+
+
+def ssm_scan_da_sum(g: torch.Tensor, a: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``csrc/ssm_scan_bwd.cu``'s decay-gradient sum: from
+    the per-step parts g (B, H, S, K) and the parts of the dh_final term bias
+    (B, H, Kb) or None, d log a_t = sum_{u >= t} sum_k g[:, :, u, k] +
+    sum_k bias[..., k] and da_t = d log a_t / a_t, 0 where a_t < A_FLOOR, all
+    in f64.  a: (B, S, H).  Returns (B, S, H) f32."""
+    dlog = g.double().sum(-1).flip(-1).cumsum(-1).flip(-1)
     if bias is not None:
-        dlog = dlog + bias.double()[:, None, :]
+        dlog = dlog + bias.double().sum(-1)[..., None]
+    dlog = dlog.transpose(1, 2)
     af = a.double()
     da = torch.where(af >= A_FLOOR, dlog / torch.clamp(af, min=A_FLOOR), torch.zeros_like(dlog))
     return da.float()
+
+
+def _scan_chunk_dx(cc, bc, dyc, m, wrev, lam):
+    """dX = (G * M)^T dY + diag(exp(cL - cum)) B Lambda_c of every chunk
+    (``ssm_scan_backward_chunked``'s step 3 for x)."""
+    g = torch.einsum("bcthn,bcshn->bchts", cc, bc)
+    return (torch.einsum("bchts,bcthp->bcshp", g * m, dyc)
+            + wrev * torch.einsum("bcshn,bchnp->bcshp", bc, lam))
+
+
+def ssm_scan_backward_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                              c: torch.Tensor, dy: Optional[torch.Tensor],
+                              dh_final: Optional[torch.Tensor] = None, chunk: int = 64,
+                              needs: Tuple[bool, bool, bool, bool] = (True, True, True, True)):
+    """``ssm_scan_backward`` in ``csrc/ssm_scan_bwd.cu``'s decomposition, in
+    f32, each gradient None where ``needs`` (x, a, b, c) does not ask for it.
+    Per chunk of ``chunk`` steps (cum the inclusive cumsum of log max(a,
+    1e-20) within it, cL its last entry, M_ts = exp(cum_t - cum_s) for t >= s,
+    h_c the state entering chunk c, as ``ssm_scan_chunked`` makes them):
+
+    1. the reverse chunk states R_c = (C * exp(cum))^T dY;
+    2. the pass over the chunks in reverse: Lambda_last = dh_final (or 0),
+       Lambda_{c-1} = exp(cL_c) Lambda_c + R_c (Lambda_c: the gradient of the
+       state leaving chunk c);
+    3. with G = C B^T and D = dY X^T, dX = (G * M)^T dY + diag(exp(cL - cum))
+       B Lambda_c, dB = (D * M)^T C + diag(exp(cL - cum)) X Lambda_c^T, dC =
+       (D * M) B + diag(exp(cum)) dY h_c^T;
+    4. da from ``ssm_scan_da`` with the bias <dh_final, h_final>.
+
+    Any S (the tail chunk padded with a = 1, b = c = x = dy = 0); dy None is
+    0.  dx in x's dtype, da, db, dc in f32 (a broadcast b or c gets its
+    per-head gradient)."""
+    need_x, need_a, need_b, need_c = needs
+    bsz, s, nh, p = x.shape
+    n = b.shape[-1]
+    L = chunk
+    nc = -(-s // L)
+    pad = nc * L - s
+    if dy is None:
+        dy = torch.zeros_like(x)
+
+    def chunks(t: torch.Tensor, fill: float) -> torch.Tensor:
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_full((bsz, pad) + t.shape[2:], fill)], dim=1)
+        return t.reshape((bsz, nc, L) + t.shape[2:])
+
+    def unchunk(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape((bsz, nc * L) + t.shape[3:])[:, :s]
+
+    xc, ac, bc, cc, dyc = (chunks(x, 0.0), chunks(a, 1.0), chunks(b, 0.0), chunks(c, 0.0),
+                           chunks(dy, 0.0))
+    cum = torch.cumsum(torch.log(torch.clamp(ac, min=1e-20)), dim=2)        # (B, nc, L, H)
+    cl = cum[:, :, -1]                                                      # (B, nc, H)
+    wrev = torch.exp(cl[:, :, None] - cum)[..., None]                       # (B, nc, L, H, 1)
+    # the forward's chunk states and the states entering each chunk
+    states = torch.einsum("bclhn,bclhp->bchnp", bc * wrev, xc)
+    h = torch.zeros(bsz, nh, n, p, dtype=torch.float32, device=x.device)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(h)
+        h = torch.exp(cl[:, ci])[..., None, None] * h + states[:, ci]
+    # 1. the reverse chunk states
+    r = torch.einsum("bclhn,bclhp->bchnp", cc * torch.exp(cum)[..., None], dyc)
+    # 2. the pass over the chunks, in reverse
+    lam = (torch.zeros_like(h) if dh_final is None else dh_final.float())
+    lams = [lam] * nc
+    for ci in range(nc - 1, -1, -1):
+        lams[ci] = lam
+        lam = torch.exp(cl[:, ci])[..., None, None] * lam + r[:, ci]
+    dx = da = db = dc = None
+    if nc:
+        lam, hs = torch.stack(lams, dim=1), torch.stack(h_in, dim=1)       # (B, nc, H, N, P)
+        # 3. the gradients of each chunk
+        dt = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).permute(0, 1, 4, 2, 3)  # t, s
+        tri = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+        m = torch.where(tri, torch.exp(torch.where(tri, dt, torch.zeros_like(dt))), 0.0)
+        if need_x:
+            dx = unchunk(_scan_chunk_dx(cc, bc, dyc, m, wrev, lam)).to(x.dtype)
+        if need_a or need_b or need_c:
+            dm = torch.einsum("bcthp,bcshp->bchts", dyc, xc) * m
+            db = unchunk(torch.einsum("bchts,bcthn->bcshn", dm, cc)
+                         + wrev * torch.einsum("bcshp,bchnp->bcshn", xc, lam))
+            dc = unchunk(torch.einsum("bchts,bcshn->bcthn", dm, bc) + torch.exp(cum)[..., None]
+                         * torch.einsum("bcthp,bchnp->bcthn", dyc, hs))
+    else:
+        dx = torch.zeros_like(x) if need_x else None
+        db = dc = torch.zeros(bsz, 0, nh, n, dtype=torch.float32, device=x.device)
+    # 4. the decay
+    if need_a:
+        bias = None if dh_final is None else (dh_final.float() * h).sum((-1, -2))
+        da = ssm_scan_da(c, dc, b, db, a, bias)
+    return dx, da, db if need_b else None, dc if need_c else None

@@ -27,29 +27,30 @@ A CUDA tensor goes to the kernels (or the wrapper raises); a CPU tensor goes
 to the plain version ``ref.ssm_scan``.
 
 The gradient (``SsmScan``; no TPU counterpart: the reference lets XLA
-differentiate its pure-jnp scan) is ``scan_backward``: three more runs of
-the same forward kernels on time-reversed or role-swapped operands, and the
-decay's gradient from their outputs by one small kernel,
-``csrc/ssm_scan_bwd.cu`` (``ssm_scan_da``).
+differentiate its pure-jnp scan) is ``scan_backward``: one chunked reverse
+pass of ``csrc/ssm_scan_bwd.cu`` on the forward's saved G = C B^T, chunk
+states and cum (the reverse chunk states, a pass over the chunks, D = dY
+X^T once per (head, chunk), dX, and dB with dC in one kernel whose epilogue
+forms the decay gradient's per-step dots), and the decay gradient's f64
+reverse sum (``da_sum``).  Its plain mirror is
+``ref.ssm_scan_backward_chunked``.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 from .autotune import SCAN_NAIVE, SCAN_TILES, pom_scan_schedule, scan_smem_bytes
-from .ref import A_FLOOR
 from .ref import ssm_scan as ssm_scan_plain
 from .ref import ssm_scan_backward as ssm_scan_backward_plain
-from .ref import ssm_scan_da as ssm_scan_da_plain
+from .ref import ssm_scan_da_sum as ssm_scan_da_sum_plain
 from repro_torch.core.cost_model import H100
 
 # process-wide counts: forward calls through ``ssm_scan`` (four device kernels
-# each); calls of the same kernels made by a backward pass (``scan_backward``
-# on the card: up to three a gradient); calls of the decay-gradient kernels
-# (two each)
+# each); backward calls on the card (``scan_backward``: up to five kernels
+# each); calls of the decay gradient's sum kernel (``da_sum``)
 launches = 0
 launches_bwd = 0
 launches_da = 0
@@ -58,21 +59,41 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = {}
 
 
-def _kernel(name: str = "ssm_scan"):
-    """The C entry point of the scan (``ssm_scan``) or of the decay-gradient
-    kernel (``ssm_scan_bwd``)."""
-    if name not in _FN:
+class Saved(NamedTuple):
+    """What a forward call on the card leaves for the backward: the final h,
+    G = C B^T (the tiles on and below the diagonal), the chunk states (h_c,
+    the state entering chunk c, for c >= 1), each chunk's cum, and the chunk
+    length."""
+    h: torch.Tensor
+    gmat: torch.Tensor
+    states: torch.Tensor
+    cums: torch.Tensor
+    chunk: int
+
+
+def _kernel(entry: str = "ssm_scan_launch"):
+    """A C entry point: the forward (``ssm_scan_launch`` in
+    ``csrc/ssm_scan.cu``), the backward (``ssm_scan_bwd_launch``), the part
+    counts of its decay gradient (``ssm_scan_bwd_parts``) or the decay
+    gradient's sum (``ssm_scan_da_launch``, all three ``csrc/ssm_scan_bwd.cu``)."""
+    if entry not in _FN:
         import ctypes
         p, i, strides = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
-        if name == "ssm_scan":
-            fn = _build.load(name).ssm_scan_launch
-            fn.argtypes = [p, p, p, p, p, p, p, p, p, strides, i, i, i, i, i, i, i, i, i, p]
+        if entry == "ssm_scan_launch":
+            fn = _build.load("ssm_scan").ssm_scan_launch
+            fn.argtypes = [p] * 9 + [strides] + [i] * 9 + [p]
+        elif entry == "ssm_scan_bwd_launch":
+            fn = _build.load("ssm_scan_bwd").ssm_scan_bwd_launch
+            fn.argtypes = [p] * 17 + [strides] + [i] * 8 + [p]
+        elif entry == "ssm_scan_bwd_parts":
+            fn = _build.load("ssm_scan_bwd").ssm_scan_bwd_parts
+            fn.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 2
         else:
-            fn = _build.load(name).ssm_scan_da_launch
-            fn.argtypes = [p, p, p, p, p, p, p, strides, i, i, i, i, p]
+            fn = _build.load("ssm_scan_bwd").ssm_scan_da_launch
+            fn.argtypes = [p] * 4 + [strides] + [i] * 5 + [p]
         fn.restype = i
-        _FN[name] = fn
-    return _FN[name]
+        _FN[entry] = fn
+    return _FN[entry]
 
 
 def bc_groups(b: torch.Tensor, c: torch.Tensor) -> int:
@@ -96,34 +117,46 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              p_tile: int = SCAN_NAIVE[1]) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, H, P), a: (B, S, H), b/c: (B, S, H, N) -> (y (B, S, H, P) in
     x's dtype, final h (B, H, N, P) f32), from h = 0."""
+    return _forward(x, a, b, c, chunk, p_tile)[:2]
+
+
+def _forward(x, a, b, c, chunk: int, p_tile: int):
+    """(y, h, Saved) of one counted forward call (a CPU tensor: the plain
+    version's y and h, and None)."""
     global launches
     if x.device.type == "cpu":
-        return ssm_scan_plain(x, a, b, c)
+        return (*ssm_scan_plain(x, a, b, c), None)
     out = _launch(x, a, b, c, chunk, p_tile)
     launches += 1
     return out
 
 
-def _launch(x, a, b, c, chunk: int, p_tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One call of the four scan kernels on CUDA tensors (not counted)."""
+def _check(x, a, b, c, what: str) -> None:
+    """Raises on what the scan kernels do not take."""
     if x.device.type != "cuda":
-        raise ValueError(f"ssm_scan: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 4 or a.dim() != 3 or b.dim() != 4 or c.shape != b.shape \
             or a.shape != x.shape[:3] or b.shape[:3] != x.shape[:3]:
-        raise ValueError(f"ssm_scan: bad shapes x{tuple(x.shape)} a{tuple(a.shape)} "
+        raise ValueError(f"{what}: bad shapes x{tuple(x.shape)} a{tuple(a.shape)} "
                          f"b{tuple(b.shape)} c{tuple(c.shape)}")
-    bsz, s, nh, p = x.shape
-    n = b.shape[3]
     if x.dtype not in _DTYPES:
-        raise TypeError(f"ssm_scan: x is {x.dtype}; need float32 or bfloat16")
+        raise TypeError(f"{what}: x is {x.dtype}; need float32 or bfloat16")
     for name, t in (("a", a), ("b", b), ("c", c)):
         if t.dtype != torch.float32:
-            raise TypeError(f"ssm_scan: {name} is {t.dtype}; need float32")
+            raise TypeError(f"{what}: {name} is {t.dtype}; need float32")
         if t.device != x.device:
-            raise ValueError(f"ssm_scan: {name} on {t.device}, x on {x.device}")
+            raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
     for name, t in (("x", x), ("b", b), ("c", c)):
         if t.shape[3] > 1 and t.stride(3) != 1:
-            raise ValueError(f"ssm_scan: the last dim of {name} must be contiguous")
+            raise ValueError(f"{what}: the last dim of {name} must be contiguous")
+
+
+def _launch(x, a, b, c, chunk: int, p_tile: int):
+    """One call of the four scan kernels on CUDA tensors (not counted):
+    (y, h, Saved)."""
+    _check(x, a, b, c, "ssm_scan")
+    bsz, s, nh, p = x.shape
+    n = b.shape[3]
     if (chunk, p_tile) not in SCAN_TILES:
         raise ValueError(f"ssm_scan: (chunk {chunk}, P tile {p_tile}) not in {SCAN_TILES}")
     if scan_smem_bytes(chunk, p_tile) > H100.smem_bytes:
@@ -145,92 +178,41 @@ def _launch(x, a, b, c, chunk: int, p_tile: int) -> Tuple[torch.Tensor, torch.Te
                    bsz, nh, s, p, n, groups, chunk, p_tile, _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {rc}")
-    return y, h
+    return y, h, Saved(h, gmat, states, cums, chunk)
 
 
-def ssm_scan_da(c: torch.Tensor, dc: torch.Tensor, b: torch.Tensor, db: torch.Tensor,
-                a: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The decay's gradient (B, S, H) f32 from the gradients of the readout
-    and the input projection (``ref.ssm_scan_da`` says what it computes).
-    c, b: (B, S, H, N) f32, any batch, time and head strides (a head stride
-    of 0 broadcasts one group), the last dim contiguous; dc, db: (B, S, H, N)
-    f32, the same; a: (B, S, H) f32, any strides; bias: (B, H) f32 or None.
-
-    Two kernels of ``csrc/ssm_scan_bwd.cu`` a call (one ``launches_da``):
-    a warp a time step for the dots over N (16-byte loads where every row
-    allows them), then a block a (batch, head) for the reverse cumulative
-    sum in f64.  Bound on the H100: the bytes of c, dc, b and db."""
-    global launches_da
-    if c.device.type == "cpu":
-        return ssm_scan_da_plain(c, dc, b, db, a, bias)
-    if c.device.type != "cuda":
-        raise ValueError(f"ssm_scan_da: unsupported device {c.device}")
-    if c.dim() != 4 or a.dim() != 3 or a.shape != c.shape[:3] or \
-            any(t.shape != c.shape for t in (dc, b, db)):
-        raise ValueError(f"ssm_scan_da: bad shapes c{tuple(c.shape)} dc{tuple(dc.shape)} "
-                         f"b{tuple(b.shape)} db{tuple(db.shape)} a{tuple(a.shape)}")
-    bsz, s, nh, n = c.shape
-    if bias is not None and (bias.shape != (bsz, nh) or not bias.is_contiguous()):
-        raise ValueError(f"ssm_scan_da: bias{tuple(bias.shape)} must be a contiguous "
-                         f"({bsz}, {nh})")
-    named = (("c", c), ("dc", dc), ("b", b), ("db", db), ("a", a)) + \
-        ((("bias", bias),) if bias is not None else ())
-    for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssm_scan_da: {name} is {t.dtype}; need float32")
-        if t.device != c.device:
-            raise ValueError(f"ssm_scan_da: {name} on {t.device}, c on {c.device}")
-        if name != "a" and t.dim() == 4 and n > 1 and t.stride(3) != 1:
-            raise ValueError(f"ssm_scan_da: the last dim of {name} must be contiguous")
-    da = torch.empty((bsz, s, nh), dtype=torch.float32, device=c.device)
+def bwd_parts(n: int, p: int, chunk: int) -> Tuple[int, int]:
+    """The decay gradient's parts the backward kernels write at (N, P,
+    chunk), as ``csrc/ssm_scan_bwd.cu`` reports them: a step (one a dB/dC N
+    tile) and a (batch, head) (one a block of the reverse pass)."""
     import ctypes
-    strides = (ctypes.c_int64 * 15)(*[st for t in (c, dc, b, db, a) for st in t.stride()[:3]])
-    stream = torch.cuda.current_stream(c.device).cuda_stream
-    rc = _kernel("ssm_scan_bwd")(c.data_ptr(), dc.data_ptr(), b.data_ptr(), db.data_ptr(),
-                                 a.data_ptr(), bias.data_ptr() if bias is not None else None,
-                                 da.data_ptr(), strides, bsz, nh, s, n, stream)
+    kg, kb = ctypes.c_int(), ctypes.c_int()
+    rc = _kernel("ssm_scan_bwd_parts")(n, p, chunk, ctypes.byref(kg), ctypes.byref(kb))
     if rc != 0:
-        raise RuntimeError(f"ssm_scan_da kernel launch failed: CUDA error {rc}")
-    launches_da += 1
-    return da
+        raise ValueError(f"scan_backward: chunk {chunk} is not one the backward takes")
+    return kg.value, kb.value
 
 
-def _flip(t: torch.Tensor) -> torch.Tensor:
-    """t reversed in time (dim 1), contiguous; a (B, S, H, N) tensor that
-    broadcasts one group over the heads (head stride 0) stays such a view,
-    so the reversed scan still computes C B^T once a group."""
-    if t.dim() == 4 and t.shape[2] > 1 and t.stride(2) == 0:
-        return t[:, :, :1].flip(1).expand(t.shape)
-    return t.flip(1)
-
-
-def scan_backward(scan: Callable, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                  c: torch.Tensor, dy: Optional[torch.Tensor],
-                  dh_final: Optional[torch.Tensor] = None,
-                  h_final: Optional[torch.Tensor] = None,
+def scan_backward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                  dy: Optional[torch.Tensor], dh_final: Optional[torch.Tensor], saved: Saved,
                   needs: Tuple[bool, bool, bool, bool] = (True, True, True, True)):
     """Gradients (dx, da, db, dc) of ``ssm_scan(x, a, b, c)`` for the output
-    gradients ``dy`` (B, S, H, P; None: 0) and ``dh_final`` (B, H, N, P; None:
-    0), each None where ``needs`` (x, a, b, c) does not ask for it.
+    gradients ``dy`` (B, S, H, P) in x's dtype (None: 0) and ``dh_final`` (B,
+    H, N, P; None: 0), each None where ``needs`` (x, a, b, c) does not ask
+    for it: dx in x's dtype, da (B, S, H), db and dc (B, S, H, N) in f32 (for
+    a b or c that broadcasts one group over the heads, the per-head gradient:
+    autograd's ``expand`` sums it).
 
-    ``scan(x, a, b, c) -> (y, h)`` is a forward scan: the kernels on the card
-    (``_bwd_scan``), ``ref.ssm_scan_chunked`` in a CPU test.  With
-    ``flip`` reversing time and shift(a)_t = a_{t+1} (1 at the end), so that
-    the reverse state lambda_t = c_t (x) dy_t + a_{t+1} lambda_{t+1} is a
-    forward scan of the reversed sequence:
+    CUDA tensors only (``SsmScan.backward`` takes the plain version on the
+    CPU): one call of the kernels of ``csrc/ssm_scan_bwd.cu`` on ``saved``,
+    the forward call's ``Saved`` (one ``launches_bwd``; dx's kernel only
+    where dx is asked for), then, where da is asked for, ``da_sum`` on the
+    per-step dots their epilogue leaves.  The operands are read in place;
+    only a dy whose last dim is not contiguous, or a dh_final that is not a
+    contiguous f32 tensor, is copied (the models pass neither).
 
-    * dx_t = b_t . lambda_t: flip(scan(flip dy, flip shift a, flip c,
-      flip b).y), in x's dtype;
-    * db_t = lambda_t x_t: flip(scan(flip c, flip shift a, flip dy,
-      flip x).y), lambda transposed (the state's roles of N and P swap);
-    * dc_t = h_t dy_t: scan(b, a, x, dy).y, h transposed;
-    * da from the decay-gradient kernel ``ssm_scan_da``: d log a_t =
-      sum_{u >= t} (c_u . dc_u - b_u . db_u) + <dh_final, h_final>, and
-      da_t = d log a_t / a_t (0 where a_t < A_FLOOR, below which the forward
-      does not depend on a_t).
-
-    Proof of the identity for d log a.  With cum the inclusive cumsum of
-    log a, y_u = sum_{s <= u} (c_u . b_s) e^{cum_u - cum_s} x_s and h_final =
+    The decay's gradient.  With cum the inclusive cumsum of log a,
+    y_u = sum_{s <= u} (c_u . b_s) e^{cum_u - cum_s} x_s and h_final =
     sum_s e^{cum_{S-1} - cum_s} b_s (x) x_s.  log a_t enters the pair (s, u)
     iff s < t <= u, so with L = <dy, y> + <dh_final, h_final>,
     d log a_t = sum_{u >= t} sum_{s < t} dy_u . (c_u . b_s) e^{..} x_s
@@ -242,74 +224,128 @@ def scan_backward(scan: Callable, x: torch.Tensor, a: torch.Tensor, b: torch.Ten
     d log a_t = sum_{u >= t} (dy_u . y_u - x_u . dx_u) + <dh_final, h_final>.
     Both dots are traces of the state: dy_u . y_u = sum_{n,p} c_u[n] h_u[n,
     p] dy_u[p] = c_u . dc_u, and x_u . dx_u = sum_{n,p} b_u[n] lambda_u[n,
-    p] x_u[p] = b_u . db_u.  The kernel takes the N-wide form: dc and db
-    come out of their scans in f32 (y and dx of a bf16 x in bf16), and it
-    needs no dx, which the mLSTM normaliser (x = 1) does not ask for.
-
-    A non-zero dh_final adds e^{cum_{S-1} - cum_t} (b_t . dh_final) to dx_t
-    and e^{cum_{S-1} - cum_t} dh_final x_t to db_t, in plain PyTorch (no
-    model passes one); ``h_final`` is then the forward's final state (None:
-    recomputed)."""
-    need_x, need_a, need_b, need_c = needs
-    if dy is None:
-        dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    a_rev = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1).flip(1)
-    tail = dh_final is not None
-    if tail:
-        cum = torch.cumsum(torch.log(torch.clamp(a.float(), min=A_FLOOR)), dim=1)
-        decay = torch.exp(cum[:, -1:] - cum)[..., None]      # from step t + 1 to the end
-        dhf = dh_final.float()
-    dx = da = db = dc = None
-    if need_x:
-        dx = scan(_flip(dy.float() if tail else dy), a_rev, _flip(c), _flip(b))[0].flip(1)
-        if tail:
-            dx = dx + decay * torch.einsum("bshn,bhnp->bshp", b.float(), dhf)
-        dx = dx.to(x.dtype)
-    if need_a or need_b or need_c:
-        dyf, xf = dy.float().contiguous(), x.float().contiguous()
-    if need_a or need_b:
-        db = scan(_flip(c), a_rev, _flip(dyf), _flip(xf))[0].flip(1)
-        if tail:
-            db = db + decay * torch.einsum("bhnp,bshp->bshn", dhf, xf)
-    if need_a or need_c:
-        dc = scan(b, a, xf, dyf)[0]
-    if need_a:
-        bias = None
-        if tail:
-            if h_final is None:
-                h_final = scan(x, a, b, c)[1]
-            bias = (dhf * h_final.float()).sum((-1, -2)).contiguous()
-        da = ssm_scan_da(c, dc, b, db, a, bias)
-    return dx, da, db if need_b else None, dc if need_c else None
-
-
-def _bwd_scan(x, a, b, c) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernels as ``scan_backward`` runs them on the card, with
-    the schedule ``pom_scan_schedule`` picks for each operand shape (counted
-    in ``launches_bwd``)."""
+    p] x_u[p] = b_u . db_u (lambda_u the gradient of h_u).  The kernels take
+    the N-wide form, so da needs no dx, which the mLSTM normaliser (x = 1)
+    does not ask for: d log a_t = sum_{u >= t} (c_u . dc_u - b_u . db_u) +
+    <dh_final, h_final>, and da_t = d log a_t / a_t (0 where a_t < A_FLOOR,
+    below which the forward does not depend on a_t)."""
     global launches_bwd
-    out = _launch(x, a, b, c, **pom_tile(x, b, c))
+    need_x, need_a, need_b, need_c = needs
+    _check(x, a, b, c, "scan_backward")
+    if dy is None:
+        dy = torch.zeros_like(x)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"scan_backward: dy {tuple(dy.shape)} {dy.dtype} on {dy.device}; "
+                         f"need x's {tuple(x.shape)} {x.dtype} on {x.device}")
+    bsz, s, nh, p = x.shape
+    n, chunk = b.shape[3], saved.chunk
+    if p > 1 and dy.stride(3) != 1:
+        dy = dy.contiguous()
+    dh = None
+    if dh_final is not None:
+        if dh_final.shape != (bsz, nh, n, p):
+            raise ValueError(f"scan_backward: dh_final{tuple(dh_final.shape)}; need "
+                             f"{(bsz, nh, n, p)}")
+        dh = dh_final.to(device=x.device, dtype=torch.float32).contiguous()
+    nc = -(-s // chunk)
+    kg, kb = bwd_parts(n, p, chunk)
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device) if need_x else None
+    db = torch.empty((bsz, s, nh, n), **f32) if need_b else None
+    dc = torch.empty((bsz, s, nh, n), **f32) if need_c else None
+    lam = torch.empty((bsz * nh * nc * n * p,), **f32)
+    dd = torch.empty((bsz * nh * nc * chunk * chunk,), **f32) \
+        if need_a or need_b or need_c else None
+    gpart = torch.empty((bsz, nh, s, kg), **f32) if need_a else None
+    biasp = torch.empty((bsz, nh, kb), **f32) if need_a and dh is not None else None
+    import ctypes
+    strides = (ctypes.c_int64 * 15)(*[st for t in (x, a, b, c, dy) for st in t.stride()[:3]])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+    rc = _kernel("ssm_scan_bwd_launch")(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+        saved.gmat.data_ptr(), saved.states.data_ptr(), saved.cums.data_ptr(),
+        saved.h.data_ptr(), ptr(dh), lam.data_ptr(), ptr(dd), ptr(dx), ptr(db), ptr(dc),
+        ptr(gpart), ptr(biasp), strides, bsz, nh, s, p, n, bc_groups(b, c), chunk,
+        _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssm_scan backward kernel launch failed: CUDA error {rc}")
     launches_bwd += 1
-    return out
+    da = da_sum(gpart, a, biasp) if need_a else None
+    return dx, da, db, dc
+
+
+def da_sum(g: torch.Tensor, a: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The decay's gradient da (B, S, H) f32 from its per-step parts ``g`` (B,
+    H, S, K) f32 contiguous (the backward's N tiles' c_u . dc_u - b_u . db_u)
+    and the parts of <dh_final, h_final> ``bias`` (B, H, Kb) f32 contiguous
+    or None: d log a_t = sum_{u >= t} sum_k g[.., u, k] + sum_k bias[.., k],
+    da_t = d log a_t / a_t, 0 where a_t < A_FLOOR.  a: (B, S, H) f32, any
+    strides.
+
+    One kernel of ``csrc/ssm_scan_bwd.cu`` a call (one ``launches_da``): a
+    block a (batch, head), the parts summed in a fixed order and the reverse
+    cumulative sum in f64.  Bound on the H100: the bytes of g, a and da.  A
+    CPU tensor takes the plain version ``ref.ssm_scan_da_sum``."""
+    global launches_da
+    if g.device.type == "cpu":
+        return ssm_scan_da_sum_plain(g, a, bias)
+    if g.device.type != "cuda":
+        raise ValueError(f"da_sum: unsupported device {g.device}")
+    if g.dim() != 4 or a.dim() != 3 or a.shape != (g.shape[0], g.shape[2], g.shape[1]):
+        raise ValueError(f"da_sum: bad shapes g{tuple(g.shape)} a{tuple(a.shape)}")
+    bsz, nh, s, k = g.shape
+    if bias is not None and (bias.dim() != 3 or bias.shape[:2] != (bsz, nh)
+                             or not bias.is_contiguous()):
+        raise ValueError(f"da_sum: bias must be a contiguous ({bsz}, {nh}, Kb), not "
+                         f"{tuple(bias.shape)}")
+    for name, t in (("g", g), ("a", a)) + ((("bias", bias),) if bias is not None else ()):
+        if t.dtype != torch.float32:
+            raise TypeError(f"da_sum: {name} is {t.dtype}; need float32")
+        if t.device != g.device:
+            raise ValueError(f"da_sum: {name} on {t.device}, g on {g.device}")
+    if not g.is_contiguous():
+        raise ValueError("da_sum: g must be contiguous")
+    da = torch.empty((bsz, s, nh), dtype=torch.float32, device=g.device)
+    import ctypes
+    strides = (ctypes.c_int64 * 3)(*a.stride())
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = _kernel("ssm_scan_da_launch")(g.data_ptr(), a.data_ptr(),
+                                       bias.data_ptr() if bias is not None else None,
+                                       da.data_ptr(), strides, bsz, nh, s, k,
+                                       bias.shape[2] if bias is not None else 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"ssm_scan_da kernel launch failed: CUDA error {rc}")
+    launches_da += 1
+    return da
 
 
 class SsmScan(torch.autograd.Function):
-    """The scan with its gradient: the forward kernels, and ``scan_backward``
-    on the saved x, a, b, c and final h (on a CPU tensor ``ref.ssm_scan`` and
-    ``ref.ssm_scan_backward``).  ``SsmScan.apply(x, a, b, c, tile)`` returns
-    (y, h) as ``ssm_scan(x, a, b, c, **tile)`` does (``tile``: ``pom_tile``'s,
-    or {} for the fixed chunk and P tile)."""
+    """The scan with its gradient: the forward kernels, which keep their
+    scratch (``Saved``) where a gradient is asked for, and ``scan_backward``
+    on it (on a CPU tensor ``ref.ssm_scan`` and ``ref.ssm_scan_backward``).
+    ``SsmScan.apply(x, a, b, c, tile)`` returns (y, h) as ``ssm_scan(x, a, b,
+    c, **tile)`` does (``tile``: ``pom_tile``'s, or {} for the fixed chunk
+    and P tile)."""
 
     @staticmethod
     def forward(ctx, x, a, b, c, tile):
-        y, h = ssm_scan(x, a, b, c, **tile)
-        ctx.save_for_backward(x, a, b, c, h)
+        tile = {"chunk": SCAN_NAIVE[0], "p_tile": SCAN_NAIVE[1], **tile}
+        y, h, saved = _forward(x, a, b, c, tile["chunk"], tile["p_tile"])
+        if saved is not None and any(ctx.needs_input_grad[:4]):
+            ctx.chunk = saved.chunk
+            ctx.save_for_backward(x, a, b, c, h, saved.gmat, saved.states, saved.cums)
+        else:
+            ctx.chunk = None
+            ctx.save_for_backward(x, a, b, c, h)
         ctx.set_materialize_grads(False)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
-        x, a, b, c, h = ctx.saved_tensors
+        x, a, b, c, h, *scratch = ctx.saved_tensors
         needs = tuple(ctx.needs_input_grad[:4])
         if x.device.type == "cpu":
             if dy is None:
@@ -317,5 +353,6 @@ class SsmScan(torch.autograd.Function):
             grads = tuple(g if need else None for g, need in
                           zip(ssm_scan_backward_plain(x, a, b, c, dy, dh), needs))
         else:
-            grads = scan_backward(_bwd_scan, x, a, b, c, dy, dh, h, needs=needs)
+            grads = scan_backward(x, a, b, c, dy, dh, Saved(h, *scratch, ctx.chunk),
+                                  needs=needs)
         return (*grads, None)

@@ -732,6 +732,18 @@ def test_scan_tiles_match_the_source():
     assert _dispatched("ssm_scan.cu", r"SSM_CASE\((\d+), (\d+)\)") == set(autotune.SCAN_TILES)
 
 
+def test_scan_bwd_tiles_match_the_source():
+    """csrc/ssm_scan_bwd.cu dispatches every chunk the forward compiles, each
+    at the dB/dC N tile ``bwd_nt`` names for it, and ``ssm_scan_bwd_parts``
+    (from which the wrapper sizes the decay gradient's parts) takes exactly
+    those chunks."""
+    pairs = _dispatched("ssm_scan_bwd.cu", r"launch_bwd<T, (\d+), bwd_nt\((\d+)\)>\(")
+    assert pairs and all(c == nt_of for c, nt_of in pairs)
+    assert {c for c, _ in pairs} == {c for c, _ in autotune.SCAN_TILES}
+    taken = _dispatched("ssm_scan_bwd.cu", r"chunk != (\d+) && chunk != (\d+)\)")
+    assert len(taken) == 1 and set(next(iter(taken))) == {c for c, _ in pairs}
+
+
 def test_jacobi_tiles_match_the_source():
     """The multi-sweep tiles are the ones csrc/stencil.cu instantiates."""
     assert _dispatched("stencil.cu", r"launch_sweeps<T, (\d+), (\d+)>\(") == set(autotune.JACOBI_TILES)
@@ -2159,26 +2171,29 @@ def test_gpu_grouped_matmul_function_differentiates_through_the_kernels():
 
 
 # (B, S, H, P, N, x dtype, broadcast B/C, dh_final): zamba2's and xlstm's
-# training shapes (8 x 256), the mLSTM normaliser's (P 1; its role-swapped
-# scans have N 1), ragged S and widths, a non-zero dh_final
+# training shapes (8 x 256), the mLSTM normaliser's (P 1), ragged S and
+# widths, a non-zero dh_final, odd P and N (a bf16 x and dy copied element by
+# element, the states in 4-byte units)
 SCAN_BWD_CASES = [
     (8, 256, 32, 128, 64, "bfloat16", True, False),
     (2, 256, 4, 512, 512, "bfloat16", False, False),
     (2, 256, 4, 1, 512, "float32", False, False),
     (2, 200, 4, 48, 40, "float32", False, True),
     (1, 130, 3, 16, 8, "float32", True, True),
+    (1, 50, 1, 7, 15, "bfloat16", False, True),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", SCAN_BWD_CASES)
 def test_gpu_scan_backward_matches_plain(case):
-    """``scan_backward`` on the kernels (its scans counted in
-    ``launches_bwd``, the decay gradient in ``launches_da``) against the
-    sequential ``ref.ssm_scan_backward``: dx within 1e-2 (a bf16 x: one
-    rounding) or 2e-3, db, dc and da within 2e-3 of their largest value
-    (split-TF32 products, within a few f32 ulps, over S steps; da through a
-    sum over S of differences that nearly cancel)."""
+    """``scan_backward`` on the kernels, on the scratch of a forward call
+    at each chunk length the kernels take (64 and 128; one ``launches_bwd``
+    and one ``launches_da`` a call), against the sequential
+    ``ref.ssm_scan_backward``: dx within 1e-2 (a bf16 x: one rounding) or
+    2e-3, db, dc and da within 2e-3 of their largest value (split-TF32
+    products, within a few f32 ulps, over S steps; da through a sum over S
+    of differences that nearly cancel); a second call gives the same bits."""
     dev = _cuda()
     b, s, h, p, n, dtype, bc, tail = case
     x, a, bm, cm = _scan_inputs(b, s, h, p, n, dtype, dev, s + p + n, bc)
@@ -2186,23 +2201,51 @@ def test_gpu_scan_backward_matches_plain(case):
     dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
     dh = torch.randn(b, h, n, p, generator=g, device=dev) if tail else None
     want = tref.ssm_scan_backward(x, a, bm, cm, dy, dh)
-    n0 = (scan_mod.launches_bwd, scan_mod.launches_da)
-    got = scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy, dh)
+    for chunk in (64, 128):
+        saved = scan_mod._launch(x, a, bm, cm, chunk, 128)[2]
+        n0 = (scan_mod.launches_bwd, scan_mod.launches_da)
+        got = scan_mod.scan_backward(x, a, bm, cm, dy, dh, saved)
+        torch.cuda.synchronize()
+        assert (scan_mod.launches_bwd, scan_mod.launches_da) == (n0[0] + 1, n0[1] + 1)
+        again = scan_mod.scan_backward(x, a, bm, cm, dy, dh, saved)
+        for gr, wt, ag, name in zip(got, want, again, ("dx", "da", "db", "dc")):
+            assert gr.dtype == wt.dtype and gr.shape == wt.shape, (chunk, name)
+            assert torch.isfinite(gr).all(), (chunk, name)
+            rel = 1e-2 if (name == "dx" and dtype == "bfloat16") else 2e-3
+            scale = wt.float().abs().max().item()
+            assert (gr.float() - wt.float()).abs().max().item() <= rel * scale, (chunk, name)
+            assert torch.equal(gr, ag), (chunk, name)
+
+
+@pytest.mark.gpu
+def test_gpu_scan_backward_runs_no_dx_kernel_unasked():
+    """The mLSTM normaliser's backward (x = 1, P 1, f32, needs no dx):
+    no dX kernel runs, and da, db, dc match the full call's bits."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _cuda()
+    x, a, bm, cm = _scan_inputs(2, 256, 4, 1, 512, "float32", dev, 5)
+    x = torch.ones_like(x)
+    dy = torch.randn(x.shape, device=dev)
+    saved = scan_mod._launch(x, a, bm, cm, **scan_mod.pom_tile(x, bm, cm))[2]
+    full = scan_mod.scan_backward(x, a, bm, cm, dy, None, saved)
     torch.cuda.synchronize()
-    assert (scan_mod.launches_bwd, scan_mod.launches_da) == (n0[0] + 3 + tail, n0[1] + 1)
-    for gr, wt, name in zip(got, want, ("dx", "da", "db", "dc")):
-        assert gr.dtype == wt.dtype and gr.shape == wt.shape, name
-        assert torch.isfinite(gr).all(), name
-        rel = 1e-2 if (name == "dx" and dtype == "bfloat16") else 2e-3
-        scale = wt.float().abs().max().item()
-        assert (gr.float() - wt.float()).abs().max().item() <= rel * scale, name
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        part = scan_mod.scan_backward(x, a, bm, cm, dy, None, saved,
+                                      needs=(False, True, True, True))
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert part[0] is None
+    assert any("ssm_scan_bwd_dbc_kernel" in nm for nm in names), names
+    assert not any("ssm_scan_bwd_dx_kernel" in nm for nm in names), names
+    for gf, gp in zip(full[1:], part[1:]):
+        assert torch.equal(gf, gp)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gpu_scan_function_differentiates_through_the_kernels(dtype):
     """``ops.ssm_scan`` under autograd (zamba2's broadcast b and c, as the
-    model passes them): one forward call, three backward scans and one
+    model passes them): one forward call, one backward call and one
     decay-gradient launch; the gradient of the unexpanded b and c summed
     over the heads, against autograd through the plain version."""
     dev = _cuda()
@@ -2224,7 +2267,7 @@ def test_gpu_scan_function_differentiates_through_the_kernels(dtype):
     got = run(False)
     torch.cuda.synchronize()
     assert (scan_mod.launches, scan_mod.launches_bwd, scan_mod.launches_da) == \
-        (n0[0] + 1, n0[1] + 3, n0[2] + 1)
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
     for gr, wt in zip(got, run(True)):
         rel = 1e-2 if gr.dtype == torch.bfloat16 else 2e-3
         assert (gr.float() - wt.float()).abs().max() <= rel * wt.float().abs().max()
@@ -2232,23 +2275,21 @@ def test_gpu_scan_function_differentiates_through_the_kernels(dtype):
 
 @pytest.mark.gpu
 def test_gpu_ssm_scan_da_matches_plain():
-    """The decay-gradient kernel against ``ref.ssm_scan_da``: strided and
-    broadcast c and b, a bias, an a below the floor (0 there), N = 1 and
-    odd N (4-byte loads)."""
+    """The decay gradient's sum kernel (``ssm_scan.da_sum``) against
+    ``ref.ssm_scan_da_sum``: one part a step and several (the backward's N
+    tiles), a bias in parts, a strided a, an a below the floor (0 there), S
+    below and above the block's threads."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(11)
-    for bsz, s, h, n, bc in ((8, 256, 32, 64, True), (2, 256, 4, 512, False), (2, 70, 3, 1, False),
-                             (1, 1000, 2, 7, False)):
-        c, b = (torch.randn(bsz, s, 1 if bc else h, n, generator=g, device=dev).expand(
-            bsz, s, h, n) for _ in range(2))
-        dc, db = (torch.randn(bsz, s, h, n, generator=g, device=dev) for _ in range(2))
+    for bsz, s, h, k in ((8, 256, 32, 1), (8, 256, 4, 8), (2, 70, 3, 1), (1, 1000, 2, 3)):
+        gp = torch.randn(bsz, h, s, k, generator=g, device=dev)
         a = torch.rand(bsz, s, h, 2, generator=g, device=dev)[..., 1] * 0.9 + 0.1
         a[0, 3] = 1e-30
-        bias = torch.randn(bsz, h, generator=g, device=dev)
+        bias = torch.randn(bsz, h, 4, generator=g, device=dev)
         for bb in (None, bias):
-            want = tref.ssm_scan_da(c, dc, b, db, a, bb)
+            want = tref.ssm_scan_da_sum(gp, a, bb)
             n0 = scan_mod.launches_da
-            got = scan_mod.ssm_scan_da(c, dc, b, db, a, bb)
+            got = scan_mod.da_sum(gp, a, bb)
             torch.cuda.synchronize()
             assert scan_mod.launches_da == n0 + 1
             assert torch.all(got[0, 3] == 0)

@@ -7,9 +7,10 @@ families' whole train steps, on the same numpy inputs and weights
 (``use_pallas=False``) and lets ``jax.grad`` differentiate it; the port's
 ``GroupedMatmul`` and ``SsmScan`` take their plain versions on CPU tensors
 (``ref.grouped_matmul_backward``, ``ref.ssm_scan_backward``), and
-``ssm_scan.scan_backward`` (the composition the card runs: the forward scan
-on reversed and role-swapped operands and the decay-gradient kernel) is held
-here with the plain chunked scan as its forward scan.
+``ref.ssm_scan_backward_chunked`` (the plain mirror of the decomposition the
+card runs: reverse chunk states, a reverse pass over the chunks, dX, dB and
+dC per chunk, and the decay gradient from the per-step dots) is held here at
+the kernels' chunk lengths, 64 and 128.
 
 Tolerances: 1e-5 relative for losses, 1e-4 of each gradient's largest value
 (f32 sums in another order: the chunked scan against the sequential one,
@@ -129,8 +130,9 @@ def test_grouped_matmul_backward_skips_what_is_not_asked():
 # the scan's gradient
 # --------------------------------------------------------------------------
 # (B, S, H, P, N, x dtype, b/c broadcast over the heads, a's special values,
-# dh_final): small widths; S 200 is no multiple of the chunk (64) and 70
-# leaves a tail; P 1 is the mLSTM normaliser's
+# dh_final): small widths; no S is a multiple of the kernels' chunks (64,
+# 128): 70 and 130 leave a tail at both, 200 and 300 cross chunk
+# boundaries at both; P 1 is the mLSTM normaliser's
 SCAN_CASES = {
     "f32": (2, 70, 3, 8, 4, "float32", False, False, False),
     "bf16-x": (2, 70, 3, 8, 4, "bfloat16", False, False, False),
@@ -140,7 +142,10 @@ SCAN_CASES = {
     "a-0-1e-30-1": (2, 70, 3, 8, 4, "float32", False, True, False),
     "dh-final": (2, 70, 3, 8, 4, "float32", False, False, True),
     "broadcast-bc-dh-final": (2, 200, 3, 8, 4, "float32", True, False, True),
+    "S130": (1, 130, 2, 8, 8, "float32", False, False, False),
+    "S300-bf16-x-broadcast-bc-dh-final": (1, 300, 2, 16, 8, "bfloat16", True, False, True),
 }
+SCAN_CHUNKS = (64, 128)
 
 
 def _scan_case(case, seed):
@@ -169,16 +174,17 @@ def _scan_case(case, seed):
 
 @pytest.mark.parametrize("label", list(SCAN_CASES))
 def test_scan_backward_matches_autograd_and_jax(label):
-    """``scan_backward`` with the plain chunked scan as its forward (the
-    composition the card runs) and ``ref.ssm_scan_backward`` (the sequential
-    reverse recursion) against ``jax.grad`` of ``repro.kernels.ref.ssm_scan``
-    and autograd of the port's ``ref.ssm_scan``, for L = <dy, y> +
-    <dh_final, h_final>.  A broadcast b or c gets its per-head gradient
-    (``expand`` sums it).  Where a < 1e-20 (the forward kernel's floor:
-    there y does not depend on a) scan_backward's da is 0 and the reference's
-    sum(lambda_t h_{t-1}) is not; both agree there in a * da, which is what
-    reaches a parameter through a = exp(..) or a sigmoid (zamba2, xlstm), and
-    everywhere else in da itself."""
+    """``ref.ssm_scan_backward_chunked`` at each of SCAN_CHUNKS (the plain
+    mirror of the kernels' decomposition) and ``ref.ssm_scan_backward`` (the
+    sequential reverse recursion) against ``jax.grad`` of
+    ``repro.kernels.ref.ssm_scan`` and autograd of the port's
+    ``ref.ssm_scan``, for L = <dy, y> + <dh_final, h_final>.  A broadcast b
+    or c gets its per-head gradient (``expand`` sums it).  Where a < 1e-20
+    (the forward kernel's floor: there y does not depend on a) the chunked
+    da is 0 and the reference's sum(lambda_t h_{t-1}) is not; both agree
+    there in a * da, which is what reaches a parameter through a = exp(..)
+    or a sigmoid (zamba2, xlstm), and everywhere else in da itself.  The
+    chunked gradients are held against the sequential ones too."""
     case = SCAN_CASES[label]
     (x, a, bm, cm, dy, dh), targs, dt = _scan_case(case, seed=len(label))
     bsz, s, h, p, n = case[:5]
@@ -198,9 +204,6 @@ def test_scan_backward_matches_autograd_and_jax(label):
     ((y.float() * tdy.float()).sum() + ((hl * tdh).sum() if dh is not None else 0)).backward()
     auto = [_np(t.grad) for t in leaves]
     seq = [_np(g) for g in tref.ssm_scan_backward(*targs, tdy, tdh)]
-    comp = scan_mod.scan_backward(tref.ssm_scan_chunked, *targs, tdy, tdh)
-    assert comp[0].dtype == dt and all(g.dtype == torch.float32 for g in comp[1:])
-    comp = [_np(g) for g in comp]
     cut = a < tref.A_FLOOR
     for i, name in enumerate("xabc"):
         rel = BF16_REL if (name == "x" and dt == torch.bfloat16) else GRAD_REL
@@ -209,21 +212,34 @@ def test_scan_backward_matches_autograd_and_jax(label):
             w = np.broadcast_to(w, (bsz, s, h, n))
         _close_of_max(seq[i], auto[i], rel, f"sequential vs autograd {name}")
         _close_of_max(seq[i], w, rel, f"sequential vs jax {name}")
-        if name == "a" and cut.any():
-            assert np.all(comp[i][cut] == 0) and np.all(np.isfinite(comp[i]))
-            _close_of_max(comp[i] * a, w * a, rel, "composition vs jax a * da")
-            _close_of_max(np.where(cut, 0, comp[i]), np.where(cut, 0, w), rel,
-                          "composition vs jax da where a >= 1e-20")
-        else:
-            _close_of_max(comp[i], w, rel, f"composition vs jax {name}")
+    for chunk in SCAN_CHUNKS:
+        comp = tref.ssm_scan_backward_chunked(*targs, tdy, tdh, chunk=chunk)
+        assert comp[0].dtype == dt and all(g.dtype == torch.float32 for g in comp[1:])
+        comp = [_np(g) for g in comp]
+        for i, name in enumerate("xabc"):
+            rel = BF16_REL if (name == "x" and dt == torch.bfloat16) else GRAD_REL
+            w, sq = want[i], seq[i]
+            if name in "bc" and case[6]:
+                w = np.broadcast_to(w, (bsz, s, h, n))
+            what = f"chunked ({chunk})"
+            if name == "a" and cut.any():
+                assert np.all(comp[i][cut] == 0) and np.all(np.isfinite(comp[i]))
+                _close_of_max(comp[i] * a, w * a, rel, f"{what} vs jax a * da")
+                _close_of_max(comp[i] * a, sq * a, rel, f"{what} vs sequential a * da")
+                _close_of_max(np.where(cut, 0, comp[i]), np.where(cut, 0, w), rel,
+                              f"{what} vs jax da where a >= 1e-20")
+            else:
+                _close_of_max(comp[i], w, rel, f"{what} vs jax {name}")
+                _close_of_max(comp[i], sq, rel, f"{what} vs sequential {name}")
 
 
-def test_scan_function_takes_only_the_asked_gradients():
+def test_scan_function_takes_only_the_asked_gradients(monkeypatch):
     """``ops.ssm_scan`` under autograd goes through ``SsmScan`` with no
     launch on the CPU; its gradients equal ``ref.ssm_scan_backward``'s bit
     for bit; the mLSTM normaliser's x = 1 needs no gradient and gets none,
-    and ``scan_backward`` computes no dx when not asked (its da does not need
-    one)."""
+    and the plain mirror of the kernels' backward,
+    ``ref.ssm_scan_backward_chunked``, computes no dx when not asked (its da
+    does not need one)."""
     (_, _, _, _, dy, _), (x, a, bm, cm), _ = _scan_case(SCAN_CASES["P1"], seed=3)
     tdy = torch.from_numpy(dy)
     n0 = (scan_mod.launches, scan_mod.launches_bwd, scan_mod.launches_da)
@@ -236,20 +252,26 @@ def test_scan_function_takes_only_the_asked_gradients():
         assert torch.equal(leaf.grad, want)
     calls = []
 
-    def counting_scan(*args):
+    def counting_dx(*args):
         calls.append(args[0].shape)
-        return tref.ssm_scan_chunked(*args)
-    got = scan_mod.scan_backward(counting_scan, x, a, bm, cm, tdy, needs=(False, True, True, True))
-    assert got[0] is None and len(calls) == 2          # db and dc; no dx
+        return chunk_dx(*args)
+    chunk_dx = tref._scan_chunk_dx
+    monkeypatch.setattr(tref, "_scan_chunk_dx", counting_dx)
+    chunk = scan_mod.pom_tile(x, bm, cm)["chunk"]
+    got = tref.ssm_scan_backward_chunked(x, a, bm, cm, tdy, chunk=chunk,
+                                         needs=(False, True, True, True))
+    assert got[0] is None and len(calls) == 0          # da, db and dc; no dx
     _close_of_max(_np(got[1]), _np(da), GRAD_REL)
-    got = scan_mod.scan_backward(counting_scan, x, a, bm, cm, tdy,
-                                 needs=(True, False, False, False))
-    assert got[1:] == (None, None, None) and len(calls) == 3
+    got = tref.ssm_scan_backward_chunked(x, a, bm, cm, tdy, chunk=chunk,
+                                         needs=(True, False, False, False))
+    assert got[1:] == (None, None, None) and len(calls) == 1
+    _close_of_max(_np(got[0]), _np(tref.ssm_scan_backward(x, a, bm, cm, tdy)[0]), GRAD_REL)
 
 
 def test_scan_da_plain_is_the_reverse_sum():
-    """``ref.ssm_scan_da`` (the decay-gradient kernel's plain version) by
-    its definition, with a bias and the floor, on random inputs."""
+    """``ref.ssm_scan_da`` by its definition, with a bias and the floor, on
+    random inputs, and the sum kernel's wrapper ``ssm_scan.da_sum`` (on the
+    CPU its plain version) on the same dots and bias cut into parts."""
     rng = np.random.default_rng(0)
     c, dc, b, db = (torch.from_numpy(rng.standard_normal((2, 9, 3, 5)).astype(np.float32))
                     for _ in range(4))
@@ -263,7 +285,17 @@ def test_scan_da_plain_is_the_reverse_sum():
         want[:, t] = (g[:, t:].sum(1) + bias.double()).numpy() / a[:, t].double().numpy()
     want[0, 4, 1] = 0.0
     np.testing.assert_allclose(got, want, rtol=1e-6)
-    assert scan_mod.ssm_scan_da(c, dc, b, db, a, bias).equal(torch.from_numpy(got))
+    # the dots in two parts a step (N 2 + 3), the bias in three parts
+    parts = [(c[..., i:j].double() * dc[..., i:j].double()).sum(-1)
+             - (b[..., i:j].double() * db[..., i:j].double()).sum(-1) for i, j in ((0, 2), (2, 5))]
+    gp = torch.stack(parts, -1).transpose(1, 2).float().contiguous()      # (B, H, S, 2)
+    bp = torch.stack([bias * 0.25, bias * 0.5, bias * 0.25], -1)           # (B, H, 3)
+    gsum = gp.double().sum(-1).transpose(1, 2).numpy()                     # (B, S, H)
+    want = np.zeros((2, 9, 3))
+    for t in range(9):
+        want[:, t] = (gsum[:, t:].sum(1) + bp.double().sum(-1).numpy()) / a[:, t].double().numpy()
+    want[0, 4, 1] = 0.0
+    np.testing.assert_allclose(scan_mod.da_sum(gp, a, bp).numpy(), want, rtol=1e-6)
 
 
 # --------------------------------------------------------------------------

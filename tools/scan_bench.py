@@ -1,7 +1,7 @@
 """The selective scan and the Jacobi-2D stencil on one GPU, and the scan's
 share of zamba2_1_2b's and xlstm_1_3b's forwards.
 
-    python3 tools/scan_bench.py [--src PATH] [--no-forward] [--tiles] [--backward]
+    python3 tools/scan_bench.py [--src PATH] [--no-forward] [--tiles] [--backward] [--bits]
 
 ``--src`` is the ``src`` directory of the checkout to measure (default this
 checkout's), so that two checkouts compare in one call: run them in turns
@@ -18,11 +18,23 @@ names holding ``ssm_scan``).  ``--tiles`` (this checkout's kernels only)
 first times every (chunk, P tile) the scan is compiled for at the three
 shapes and every (sweeps a launch, tile) of the stencil at the two grids,
 beside each schedule's pick: the evidence for ``autotune``'s choices.
-``--backward`` (this checkout's kernels only) times the backward passes at
-the training shapes by kernel instead: the scan's ``scan_backward`` at
-``chip_smoke``'s SCAN_BWD_SHAPES (zamba2, xlstm, the normaliser) and the
-grouped matmul's at granite's (E 32, cap 640, d 1024, f 512, bf16), each
-with its plain PyTorch copies, casts and flips beside the kernels.
+``--backward`` times the backward passes at the training shapes by kernel
+instead (``--src`` too, so parent and change compare in one call): the
+scan's ``scan_backward`` at ``chip_smoke``'s SCAN_BWD_SHAPES (zamba2,
+xlstm, the normaliser; on a forward call's saved scratch where the
+checkout's backward reads one, as ``SsmScan`` runs it, else as that
+checkout's ``SsmScan`` runs it) and the grouped matmul's at granite's (E
+32, cap 640, d 1024, f 512, bf16), each with any plain PyTorch copies,
+casts and flips beside the kernels.  ``--bits`` first prints a hash of
+the forward's y and final h at every (chunk, P tile) the checkout compiles,
+at ``chip_smoke``'s SCAN_SHAPES and two odd shapes (a bf16 x copied element
+by element, a broadcast B/C group with odd widths), each from its own seed:
+two checkouts whose lines are equal give the same bits, e.g.
+
+    python3 tools/scan_bench.py --src OLD/src --bits --no-forward > old.txt
+    python3 tools/scan_bench.py --bits --no-forward > new.txt
+    diff <(grep ^bits old.txt) <(grep ^bits new.txt)
+
 Prints the card's name and power limit first.
 
 Imports nothing of JAX.  Exits non-zero without a card.
@@ -30,6 +42,7 @@ Imports nothing of JAX.  Exits non-zero without a card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import re
 import subprocess
 import sys
@@ -39,6 +52,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
+# (B, S, H, P, N, x dtype, broadcast B/C) beside chip_smoke's SCAN_SHAPES for
+# ``--bits``: odd P and N (a bf16 x copied element by element, the states in
+# 4-byte units) and a broadcast group at odd widths
+BITS_SHAPES = {"odd-bf16": (1, 50, 1, 7, 15, torch.bfloat16, False),
+               "odd-broadcast": (1, 130, 3, 16, 8, torch.float32, True)}
 
 
 def back_to_back_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -106,6 +124,26 @@ def tiles(g) -> None:
         del x
 
 
+def _digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def bits() -> None:
+    """A hash of the forward's y and h at every compiled (chunk, P tile)."""
+    from chip_smoke import SCAN_SHAPES, _scan_inputs
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import ssm_scan as scan_mod
+    for i, (label, (b, s, h, p, n, dt, bc)) in enumerate({**SCAN_SHAPES, **BITS_SHAPES}.items()):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        x, a, bm, cm = _scan_inputs(g, b, s, h, p, n, dt, bc)
+        for c, tile in sorted(autotune.SCAN_TILES):
+            y, hl = scan_mod.ssm_scan(x, a, bm, cm, chunk=c, p_tile=tile)
+            print(f"bits ssm_scan {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]} chunk {c} "
+                  f"P tile {tile}: y {_digest(y)} h {_digest(hl)}")
+        del x, a, bm, cm
+
+
 def backward(g) -> None:
     """The backward passes at the training shapes, by kernel."""
     from chip_smoke import SCAN_BWD_SHAPES, _randn, _scan_bwd_inputs, time_ms
@@ -115,12 +153,17 @@ def backward(g) -> None:
         b, s, h, p, n, dt, bc, tail = SCAN_BWD_SHAPES[label]
         x, a, bm, cm, dy, _ = _scan_bwd_inputs(g, b, s, h, p, n, dt, bc, tail)
         needs = (p > 1, True, True, True)          # the normaliser's x = 1 needs no dx
+        if hasattr(scan_mod, "Saved"):             # the chunked reverse pass
+            saved = scan_mod._launch(x, a, bm, cm, **scan_mod.pom_tile(x, bm, cm))[2]
 
-        def run():
-            scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy, needs=needs)
+            def run():
+                scan_mod.scan_backward(x, a, bm, cm, dy, None, saved, needs=needs)
+        else:                                      # three runs of the forward's kernels
+            def run():
+                scan_mod.scan_backward(scan_mod._bwd_scan, x, a, bm, cm, dy, needs=needs)
         print(f"scan_backward {label} B{b} S{s} H{h} P{p} N{n} {str(dt)[6:]}: "
               f"{time_ms(run, iters=20):.4f} ms; by kernel: {by_kernel(run)}")
-        del x, a, bm, cm, dy
+        del x, a, bm, cm, dy, run
     e, cap, d, f = 32, 640, 1024, 512
     x = _randn(g, e, cap, d, dtype=torch.bfloat16)
     w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).bfloat16()
@@ -139,6 +182,8 @@ def main() -> None:
     ap.add_argument("--tiles", action="store_true", help="time every compiled tile first")
     ap.add_argument("--backward", action="store_true",
                     help="time the scan's and the grouped matmul's backward by kernel instead")
+    ap.add_argument("--bits", action="store_true",
+                    help="first print a hash of the forward's outputs at every compiled tile")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     if not torch.cuda.is_available():
@@ -152,6 +197,8 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip())
     print(f"measuring {Path(repro_torch.__file__).parent}")
     g = torch.Generator(device="cuda").manual_seed(7)
+    if args.bits:
+        bits()
     if args.backward:
         backward(g)
         return
