@@ -152,7 +152,26 @@ without the final ok line):
                 library's ops on a misaligned bf16 operand (CUDA cores) and
                 a transposed one (copied to contiguous), each against its
                 plain version;
- 13. numbers -- per-kernel times with CUDA events (L2 flushed before every
+ 13. mesh 1x1 -- slice 13's main path, the sharded builders of
+                ``repro_torch.distributed.step`` over a one-rank NCCL group
+                (``make_mesh((1, 1), ("data", "model"))``; the NCCL version
+                printed): smollm_360m at full width and depth (3 steps) and
+                granite_moe_1b, zamba2_1_2b and xlstm_1_3b at full width with
+                their loops' cut depth (2 steps each), 8 x 256, remat "full",
+                bf16, through the sharded ``make_train_step(cfg,
+                ParallelConfig(), mc)`` and the one-card step from the same
+                seed and batches: each step's loss and grad norm, and after
+                the last every parameter and moment, bit for bit (the
+                vocab-parallel cross-entropy's logsumexp over one shard is
+                the value itself), and each step's launch counts exactly the
+                one-card step's; the collectives of a sharded step by kind
+                with their bytes; both steps' busy ms and their wall ms (5
+                of each, in turns); then
+                ``make_prefill_step`` (2 x 256) and ``make_decode_step`` (8
+                teacher-forced steps at batch 8) of the four models against
+                ``forward`` and ``decode_step``: bit-equal logits; and the
+                wall time of one collective over the one-rank group;
+ 14. numbers -- per-kernel times with CUDA events (L2 flushed before every
                 launch), each kernel's bound, the plain version's time and a
                 PyTorch yardstick on the same inputs (SDPA, ``torch.addmm``,
                 ``torch.add``, ``torch.bmm``, ``torch.matmul``; none for the
@@ -181,8 +200,9 @@ without the final ok line):
                 kernel.  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
 the smollm forward, the smollm training loop, each family's training loop,
-serve and forward, the compile path as phases 8-11, the kernel library) and
-read just after; the counts in the kernels line are their sums, and every
+serve and forward, the compile path as phases 8-11, the kernel library,
+each sharded step, prefill and decode call of the mesh phase) and read just
+after; the counts in the kernels line are their sums, and every
 one of the eight kernels and the four backward passes (``BACKWARD``) must
 have run.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -278,6 +298,13 @@ FAMILY_TRAIN = {"granite_moe_1b": dict(check_dtype="bfloat16", loop_layers=4),
                 "zamba2_1_2b": dict(check_dtype="float32", loop_layers=6),
                 "xlstm_1_3b": dict(check_dtype="float32", loop_layers=8)}
 FAMILY_STEPS, FAMILY_CKPT = 16, 8
+# mesh 1x1 (the sharded builders over a one-rank NCCL group): the train steps
+# held bit for bit against the one-card step (smollm at full depth, the
+# families at their loops' cut depth), and the decode steps of the prefill
+# and decode builders' check
+MESH_STEPS = {"smollm_360m": 3, "granite_moe_1b": 2, "zamba2_1_2b": 2, "xlstm_1_3b": 2}
+MESH_DECODE = 8
+MESH_TIMED = 5             # steps of each kind timed in turns, after the checks
 # the three families, at full width and depth: serve (batch, prompt, gen),
 # forward (batch, seq), for hybrid and ssm the teacher-forced decode held
 # against the forward on the same tokens (batch, seq; 170 = 5 x 32 + 10
@@ -1404,6 +1431,261 @@ def train_family_phase(arch: str) -> dict:
     del model, step_fn, holder
     torch.cuda.empty_cache()
     return {"train": out, "launches": launches}
+
+
+# --------------------------------------------------------------------------
+# 13. mesh 1x1: the sharded builders over a one-rank NCCL group
+# --------------------------------------------------------------------------
+def _count_collectives():
+    """Wraps ``torch.distributed``'s all_reduce / all_gather / reduce_scatter
+    to count each call and the bytes it hands over (all-gather: the
+    gathered output; the others: their input), by kind.  Returns (the
+    counts, a function that restores the originals)."""
+    import torch.distributed as dist
+    counts = {}
+    orig = {k: getattr(dist, k) for k in ("all_reduce", "all_gather", "reduce_scatter")}
+
+    def wrap(kind, fn):
+        def counted(*args, **kw):
+            t = args[0]
+            byts = sum(x.numel() * x.element_size() for x in t) if isinstance(t, list) \
+                else t.numel() * t.element_size()
+            if kind == "reduce_scatter":
+                byts = sum(x.numel() * x.element_size() for x in args[1])
+            c = counts.setdefault(kind, [0, 0])
+            c[0] += 1
+            c[1] += byts
+            return fn(*args, **kw)
+        return counted
+    for k, fn in orig.items():
+        setattr(dist, k, wrap(k, fn))
+    return counts, lambda: [setattr(dist, k, fn) for k, fn in orig.items()]
+
+
+def _same_state(label: str, one, opt1, two, opt2) -> None:
+    """Every parameter and both moments bit for bit."""
+    for (name, p), q in zip(one.named_parameters(), two.parameters()):
+        if not torch.equal(p, q):
+            fail(f"{label}: parameter {name} differs from the one-card step's")
+    for name in opt1.m:
+        if not (torch.equal(opt1.m[name], opt2.m[name]) and torch.equal(opt1.v[name],
+                                                                          opt2.v[name])):
+            fail(f"{label}: the moments of {name} differ from the one-card step's")
+    if not torch.equal(opt1.step, opt2.step):
+        fail(f"{label}: the step counts differ")
+
+
+def mesh_train(arch: str, mc, card: str) -> dict:
+    """``arch`` (smollm_360m at full width and depth; the families at full
+    width, depth cut as their loops: FAMILY_TRAIN), batch 8 x 256, remat
+    "full", bf16: MESH_STEPS[arch] steps through the sharded
+    ``make_train_step(cfg, ParallelConfig(), mc)`` and through the one-card
+    ``make_train_step(cfg, model)``, from the same seed and batches.  Each
+    step's loss and grad norm, and after the last every parameter and
+    moment, bit for bit; each step's launch counts exactly
+    ``expected_train_launches`` on both (the sharded step's summed into the
+    main path's); then the collectives a sharded step issues by kind with
+    their bytes, both steps' busy ms (``busy_share``) and their wall ms,
+    MESH_TIMED of each in turns."""
+    import dataclasses
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLM, make_device_batch
+    from repro_torch.distributed.step import init_opt_state, make_train_step, place_params
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    cfg = get_config(arch)
+    if arch in FAMILY_TRAIN:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_TRAIN[arch]["loop_layers"])
+    steps = MESH_STEPS[arch]
+    kw = dict(peak_lr=TRAIN_LR, warmup=train_mod.WARMUP, total_steps=steps)
+    ds = SyntheticLM(cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train"), seed=0)
+    one = init_params(cfg, seed=0, device="cuda")
+    step1 = make_train_step(cfg, one, **kw)
+    opt1 = adamw_init(dict(one.named_parameters()), cfg.optim_state_dtype,
+                      cfg.optim_second_dtype)
+    step2, (param_sh, opt_sh, batch_sh) = make_train_step(cfg, ParallelConfig(), mc, **kw)
+    two = place_params(init_params(cfg, seed=0, device="cuda"), param_sh)
+    opt2 = init_opt_state(two, opt_sh, cfg)
+    want = (expected_train_launches(cfg) if arch in FAMILY_TRAIN else
+            {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers})
+    label = f"mesh 1x1 {arch} ({cfg.num_layers} layers)"
+    launches, losses = {}, []
+    for i in range(steps):
+        zero_counts()
+        opt1, m1 = step1(opt1, make_device_batch(ds.batch_at(i), "cuda"))
+        torch.cuda.synchronize()
+        check_counts(f"{label} one-card step {i}", read_counts(), want)
+        zero_counts()
+        two, opt2, m2 = step2(two, opt2, make_device_batch(ds.batch_at(i), batch_sh))
+        torch.cuda.synchronize()
+        got = read_counts()
+        check_counts(f"{label} sharded step {i}", got, want)
+        check_train_routes(f"{label} sharded step {i}", want, True)
+        _add(launches, got)
+        same = (torch.equal(m1["loss"], m2["loss"]), torch.equal(m1["grad_norm"], m2["grad_norm"]))
+        print(f"{label} step {i}: loss {m1['loss'].item():.6f} / {m2['loss'].item():.6f}, "
+              f"grad norm {m1['grad_norm'].item():.6f} / {m2['grad_norm'].item():.6f} "
+              f"(one-card / sharded; bit-equal {same})")
+        if not all(same):
+            fail(f"{label} step {i}: loss or grad norm differs from the one-card step's")
+        losses.append(m2["loss"].item())
+    _same_state(label, one, opt1, two, opt2)
+    print(f"{label}: after {steps} steps every parameter and moment bit-equal; launches a "
+          f"step {want}")
+
+    counts, restore = _count_collectives()
+    try:
+        two, opt2, _ = step2(two, opt2, make_device_batch(ds.batch_at(steps), batch_sh))
+    finally:
+        restore()
+    print(f"{label}: collectives of a sharded step (calls, bytes): {counts}")
+    holder = {"o1": opt1, "o2": opt2, "m": two}
+
+    def run1():
+        holder["o1"], _ = step1(holder["o1"], make_device_batch(ds.batch_at(0), "cuda"))
+
+    def run2():
+        holder["m"], holder["o2"], _ = step2(holder["m"], holder["o2"],
+                                             make_device_batch(ds.batch_at(0), batch_sh))
+    kernels = ("flash_kernel_tc", "flash_bwd_", "gemm_kernel", "ssm_scan_", "nccl")
+    busy1 = busy_share(run1, 1, f"{label} one-card step", kernels)
+    busy2 = busy_share(run2, 1, f"{label} sharded step", kernels)
+    walls = {"one_card": [], "sharded": []}          # in turns: the host's clock drifts
+    for _ in range(MESH_TIMED):
+        for key, fn in (("one_card", run1), ("sharded", run2)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[key].append(1e3 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"{label}: wall ms, {MESH_TIMED} steps each in turns: one-card "
+          f"{[round(w, 1) for w in walls['one_card']]} (median {med['one_card']:.2f}), sharded "
+          f"{[round(w, 1) for w in walls['sharded']]} (median {med['sharded']:.2f}); busy ms "
+          f"one-card {busy1.get('device_busy_ms', float('nan')):.2f}, sharded "
+          f"{busy2.get('device_busy_ms', float('nan')):.2f} ({card})")
+    del one, two, opt1, opt2, holder
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "steps": steps, "losses": losses, "bit_equal": True,
+            "launches_per_step": want, "collectives_per_step": counts,
+            "wall_ms": walls, "wall_ms_median": med,
+            "one_card": busy1, "sharded": busy2, "launches": launches}
+
+
+def mesh_serve(arch: str, mc) -> dict:
+    """``make_prefill_step`` on 2 x 256 tokens and MESH_DECODE steps of
+    ``make_decode_step`` at batch 8 (teacher-forced), at mesh 1x1, against
+    ``forward`` and ``decode_step`` of the same weights: bit-equal logits;
+    the builders' launches summed into the main path's."""
+    import dataclasses
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.data import make_device_batch
+    from repro_torch.distributed.step import (init_sharded_cache, make_decode_step,
+                                              make_prefill_step, place_params)
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    cfg = get_config(arch)
+    if arch in FAMILY_TRAIN:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_TRAIN[arch]["loop_layers"])
+    host = np.random.default_rng(5).integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+    tokens = torch.from_numpy(host).cuda()
+    one = init_params(cfg, seed=0, device="cuda")
+    prefill, (param_sh, batch_sh) = make_prefill_step(cfg, ParallelConfig(), mc)
+    serve_step, (dec_sh, cache_sh, tok_sh) = make_decode_step(cfg, ParallelConfig(), mc,
+                                                              TRAIN_B, MESH_DECODE)
+    if dec_sh != param_sh:
+        fail(f"mesh 1x1 {arch}: the decode step's parameter shardings differ from prefill's")
+    two = place_params(init_params(cfg, seed=0, device="cuda"), param_sh)
+    launches = {}
+    with torch.no_grad():
+        want = forward(one, tokens=tokens[:2])[0]
+    zero_counts()
+    got = prefill(two, make_device_batch({"tokens": host[:2]}, batch_sh))
+    torch.cuda.synchronize()
+    _add(launches, read_counts())
+    if not torch.equal(got, want):
+        fail(f"mesh 1x1 {arch}: prefill logits differ from forward's "
+             f"(max {(got - want).abs().max().item()})")
+    c1 = init_cache(cfg, TRAIN_B, MESH_DECODE, device="cuda")
+    c2 = init_sharded_cache(cfg, TRAIN_B, MESH_DECODE, cache_sh)
+    for t in range(MESH_DECODE):
+        pos = torch.full((TRAIN_B,), t, dtype=torch.long, device="cuda")
+        want = decode_step(one, c1, tokens[:, t], pos)[0]
+        zero_counts()
+        got = serve_step(two, c2, tok_sh.local_slice(tokens[:, t]), tok_sh.local_slice(pos))[0]
+        torch.cuda.synchronize()
+        _add(launches, read_counts())
+        if not torch.equal(got, want):
+            fail(f"mesh 1x1 {arch}: decode step {t} logits differ from decode_step's")
+    print(f"mesh 1x1 {arch} ({cfg.num_layers} layers): prefill 2 x {TRAIN_S} and {MESH_DECODE} "
+          f"decode steps at batch {TRAIN_B} bit-equal to forward / decode_step; launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    del one, two, c1, c2
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "bit_equal": True, "launches": launches}
+
+
+def collective_cost(mc) -> dict:
+    """Wall time a call, host clock around 200 calls and one synchronise:
+    ``collectives.all_reduce`` (a clone and the NCCL call) and
+    ``collectives.all_gather`` of 4 KiB over the one-rank group, against a
+    clone alone."""
+    from repro_torch.distributed import collectives as C
+    x = torch.zeros(1024, device="cuda")
+    group = mc.group("data")
+
+    def per_call_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / n
+    out = {"all_reduce_us": per_call_us(lambda: C.all_reduce(x, group)),
+           "all_gather_us": per_call_us(lambda: C.all_gather(x, 0, group)),
+           "clone_us": per_call_us(lambda: x.clone())}
+    print(f"one-rank NCCL group, 4 KiB: all_reduce {out['all_reduce_us']:.1f} us a call, "
+          f"all_gather {out['all_gather_us']:.1f} us, a clone alone {out['clone_us']:.1f} us")
+    return out
+
+
+def mesh_phase(card: str) -> dict:
+    """Slice 13's main path: the sharded builders of
+    ``repro_torch.distributed.step`` at mesh 1x1 (``make_mesh((1, 1),
+    ("data", "model"))``: a one-rank NCCL group; every collective issued,
+    over one rank), each held bit for bit against the one-card path it
+    generalises (``mesh_train``, ``mesh_serve``): the vocab-parallel
+    cross-entropy takes each shard's ``torch.logsumexp`` and a logsumexp
+    over the shards, of one shard the value itself, so the losses too are
+    held bit for bit.  Counts set to 0 just before each sharded call, read
+    just after.  Prints the NCCL version; the group is destroyed at the
+    end."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import MeshContext
+    from repro_torch.launch.mesh import make_mesh
+    phase("mesh 1x1: the sharded train, prefill and decode steps over a one-rank NCCL group")
+    mc = MeshContext(make_mesh((1, 1), ("data", "model")))
+    nccl = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+    print(f"process group: backend {dist.get_backend()}, world {dist.get_world_size()}, "
+          f"NCCL {nccl}")
+    out, launches = {"nccl": nccl}, {}
+    try:
+        out["collective_cost"] = collective_cost(mc)
+        for arch in MESH_STEPS:
+            res = mesh_train(arch, mc, card)
+            _add(launches, res.pop("launches"))
+            out[f"train_{arch}"] = res
+        for arch in MESH_STEPS:
+            res = mesh_serve(arch, mc)
+            _add(launches, res.pop("launches"))
+            out[f"serve_{arch}"] = res
+    finally:
+        dist.destroy_process_group()
+    print(f"launches in the mesh 1x1 phase: {launches}")
+    return {"mesh": out, "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -2854,6 +3136,10 @@ def main() -> None:
     library = library_phase()
     errs.update(library["errs"])
     _add(launches, library["launches"])
+    # slice 13: the sharded builders at mesh 1x1 (each call's counts set to 0
+    # just before it)
+    meshed = mesh_phase(card)
+    _add(launches, meshed["launches"])
     print(f"launches on all paths: {launches}")
     for name in (*KERNEL_MODULES, *BACKWARD):
         if launches.get(name, 0) == 0:
@@ -2866,7 +3152,7 @@ def main() -> None:
                       "workloads_default_size": wl_default,
                       "kernel_library": {k: library[k] for k in
                                          ("wall_ms", "vs_compile_path_max_abs_err")},
-                      "card": card}))
+                      "mesh_1x1": meshed["mesh"], "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

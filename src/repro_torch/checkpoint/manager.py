@@ -11,8 +11,13 @@ A tree is nested dicts (and named tuples, such as ``AdamWState``) of
 tensors or arrays.  numpy has no bfloat16 (the reference relies on
 ml_dtypes), so a bf16 tensor is stored as its ``uint16`` bits and
 ``meta.json`` records its dtype.  ``restore_pytree`` puts each array back on
-its template tensor's device and dtype.  One card, one process: the
-reference's elastic re-sharding onto another mesh has no counterpart yet.
+its template tensor's device and dtype.
+
+Sharded trees (``shardings``: a matching tree of ``NamedSharding``s): a
+save gathers every shard to the whole array (a collective: every rank
+calls it) and rank 0 writes, in the unchanged format; a restore cuts each
+whole array to this rank's shard of the given shardings, whatever mesh
+wrote it (elastic: save at 2x2, restore at 4x1 or 1x4).
 """
 from __future__ import annotations
 
@@ -71,18 +76,34 @@ def _dtype_name(x) -> str:
     return np.asarray(x).dtype.name
 
 
-def snapshot(tree) -> Dict[str, Any]:
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no process group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def snapshot(tree, shardings=None) -> Dict[str, Any]:
     """Everything ``save_pytree`` writes, copied to the host now: later
-    in-place updates of the tree's tensors do not reach it."""
+    in-place updates of the tree's tensors do not reach it.  With
+    ``shardings`` every rank gathers each leaf whole, and only the writer
+    keeps the host copies (the others get an empty snapshot)."""
     flat = _flatten(tree)
+    if shardings is not None:
+        from repro_torch.distributed.collectives import gather_whole
+        sh = _flatten(shardings)
+        flat = {k: gather_whole(v, sh[k]) for k, v in flat.items()}
+        if not _writer():
+            return {"arrays": {}, "dtypes": {}}
     return {"arrays": {k: _to_host(v) for k, v in flat.items()},
             "dtypes": {k: _dtype_name(v) for k, v in flat.items()}}
 
 
-def save_pytree(tree, directory: str, step: int) -> str:
+def save_pytree(tree, directory: str, step: int, shardings=None) -> Optional[str]:
     """Writes ``tree`` as ``step_<step>`` through a temporary directory
-    renamed into place, then moves LATEST."""
-    return _write(snapshot(tree), directory, step)
+    renamed into place, then moves LATEST (with ``shardings``: gathered,
+    written by rank 0 alone; the others return None)."""
+    snap = snapshot(tree, shardings)
+    return _write(snap, directory, step) if _writer() else None
 
 
 def _write(snap: Dict[str, Any], directory: str, step: int) -> str:
@@ -128,11 +149,12 @@ def _rebuild(template, flat: Dict[str, Any], prefix: str = ""):
 
 
 def restore_pytree(template, directory: str, step: Optional[int] = None,
-                   verify: bool = True):
+                   shardings=None, verify: bool = True):
     """Restore into the structure of ``template`` (a tree of tensors): each
-    leaf a new tensor on its template's device and dtype.  Returns (tree,
-    step).  Raises ``FileNotFoundError`` without a checkpoint and ``IOError``
-    when the arrays do not match their digest."""
+    leaf a new tensor on its template's device and dtype; with ``shardings``
+    (a matching tree of ``NamedSharding``s) this rank's shard of it.
+    Returns (tree, step).  Raises ``FileNotFoundError`` without a checkpoint
+    and ``IOError`` when the arrays do not match their digest."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -146,6 +168,7 @@ def restore_pytree(template, directory: str, step: Optional[int] = None,
         if digest != meta["digest"]:
             raise IOError(f"checkpoint {d} digest mismatch (corrupt)")
     flat = {}
+    sh = _flatten(shardings) if shardings is not None else {}
     with np.load(os.path.join(d, "arrays.npz")) as data:
         for key, leaf in _flatten(template).items():
             arr = data[key]
@@ -153,6 +176,8 @@ def restore_pytree(template, directory: str, step: Optional[int] = None,
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr).to(_TORCH_DTYPES[meta["dtypes"][key]])
+            if key in sh:
+                t = sh[key].local_slice(t).contiguous()
             if isinstance(leaf, torch.Tensor):
                 t = t.to(device=leaf.device, dtype=leaf.dtype)
             flat[key] = t
@@ -169,11 +194,14 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self._last_error: Optional[BaseException] = None
 
-    def save(self, tree, step: int, block: bool = False):
+    def save(self, tree, step: int, block: bool = False, shardings=None):
         """Copies ``tree`` to the host before returning (a later optimiser
         step cannot change what is written), then writes it on a thread, or
-        here when ``block``."""
-        snap = snapshot(tree)
+        here when ``block``.  With ``shardings`` every rank calls this
+        (the gather is collective) and rank 0 alone writes."""
+        snap = snapshot(tree, shardings)
+        if not _writer():
+            return
 
         def work():
             try:
@@ -200,8 +228,8 @@ class CheckpointManager:
             e, self._last_error = self._last_error, None
             raise e
 
-    def restore(self, template, step: Optional[int] = None):
-        return restore_pytree(template, self.directory, step)
+    def restore(self, template, step: Optional[int] = None, shardings=None):
+        return restore_pytree(template, self.directory, step, shardings=shardings)
 
     def _gc(self):
         steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.directory)

@@ -1,10 +1,11 @@
 """Config system of the PyTorch port: model architectures and their registry.
 
-A copy of ``repro.configs.base`` with two changes: ``param_count`` counts the
-port's own module on the ``meta`` device, and the fields that only steer JAX
-compilation (``use_pallas``, ``scan_layers``, ``unroll_inner_scans``,
-``attn_chunk``) are gone -- the port always dispatches through
-``repro_torch.kernels.ops``, by the device of the tensors.
+A copy of ``repro.configs.base`` (``ParallelConfig`` field for field) with
+two changes: ``param_count`` counts the port's own module on the ``meta``
+device, and the fields that only steer JAX compilation (``use_pallas``,
+``scan_layers``, ``unroll_inner_scans``, ``attn_chunk``) are gone -- the
+port always dispatches through ``repro_torch.kernels.ops``, by the device
+of the tensors.
 """
 from __future__ import annotations
 
@@ -94,6 +95,19 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                      # 'train' | 'prefill' | 'decode'
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    dp: int = 1
+    tp: int = 1
+    pods: int = 1
+    zero1: bool = True             # shard optimizer state over data axis
+    fsdp: bool = True              # shard params+grads over data axis too
+    grad_compression: bool = False # int8 + error feedback DP sync
+    seq_shard_decode: bool = True  # shard long KV over model axis (SP)
+    pp_stages: int = 1             # GPipe over the pod axis when > 1
+    microbatches: int = 1
 
 
 ARCH_IDS = [

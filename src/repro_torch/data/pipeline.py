@@ -5,13 +5,14 @@ resumes at exactly the same sample without saved iterator state -- the
 fault-tolerance property that makes checkpoint/restart bitwise reproducible.
 A background prefetch thread hides host-side generation latency.
 ``SyntheticLM`` is pure numpy, a copy of the reference's, so its batches are
-bit-equal to the reference's; ``make_device_batch`` puts one on a device.
+bit-equal to the reference's; ``make_device_batch`` puts one on a device,
+or this rank's shard of it on the mesh's device.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Mapping
 
 import numpy as np
 import torch
@@ -73,7 +74,19 @@ class SyntheticLM:
             stop.set()
 
 
-def make_device_batch(batch: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
-    """The host batch as torch tensors on ``device`` (the reference's
-    sharding argument becomes the device: one card, no mesh)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+def make_device_batch(batch: Dict[str, np.ndarray], shardings="cuda") -> Dict[str, torch.Tensor]:
+    """The host batch as torch tensors: whole on a device (``shardings`` a
+    device), or, as the reference places a batch by its shardings (a dict
+    of ``NamedSharding``s from ``batch_shardings``), this rank's slice of
+    each array on the mesh's device."""
+    if not isinstance(shardings, Mapping):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(shardings)
+                for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        sh = shardings.get(k)
+        if sh is None:
+            raise KeyError(f"no sharding for batch entry {k!r}")
+        out[k] = sh.local_slice(t).contiguous().to(sh.mc.device)
+    return out

@@ -6,8 +6,8 @@ and copies each leaf into the port's module.  Layouts and names agree, so
 the only reshaping is the split of the stacked ``blocks`` leaves along their
 leading axis (layers; super-blocks of ``moe_every`` layers for the moe
 family, whose ``blocks.l{j}`` sub-trees map to ``blocks.{i}.l{j}``).
-zamba2's ``shared_attn`` is not stacked and maps as it is.  Nothing here
-imports JAX.
+zamba2's ``shared_attn`` is not stacked and maps as it is; ``jax_path``
+gives the reference's path of a port name.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -33,6 +33,15 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
     if tuple(t.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != port's {tuple(dst.shape)}")
     dst.copy_(t.to(dst.dtype))
+
+
+def jax_path(name: str) -> str:
+    """The reference's ``/``-joined path of the port's parameter ``name``,
+    its block index dropped: ``blocks.3.attn.wq`` -> ``blocks/attn/wq``."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        del parts[1]
+    return "/".join(parts)
 
 
 def _leaves(tree: Mapping, prefix: str = ""):

@@ -7,6 +7,17 @@ The port of ``repro.models.layers`` (dense parts).  Parameters live in
 ``(B, H, S, D)``.  The layer functions are plain functions on tensors.
 Attention always goes through ``repro_torch.kernels.ops``, which picks the
 CUDA kernel or the plain version by the device of the tensors.
+
+Inside a mesh context (``distributed.sharding.use_mesh``) each layer runs on
+this rank's shard (``distributed/collectives.py``): attention on its heads
+(the ``wq``/``wk``/``wv`` columns, the ``wo`` rows), the MLP on its columns,
+the embedding and unembedding on a vocab range, every parameter gathered
+over ``data`` where it is used.  Where the reference's shard splits a head
+(``logical_to_sharding`` tests divisibility on the flattened dimension:
+smollm_360m's 15 query and 5 KV heads of 64 at ``model`` 2), attention
+gathers its weights over ``model`` too and computes replicated.  The kernels
+see plain local tensors.  With no mesh context every function computes
+exactly what it did before.
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -47,11 +59,13 @@ class RMSNorm(nn.Module):
         nn.init.ones_(self.scale)
 
 
-def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5, tp=None) -> torch.Tensor:
+    """Over the last dim; with ``tp`` local, ``x`` and the scale are that
+    dim's model shard and the mean is taken over every shard."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = C.mean_over_model(torch.mean(xf * xf, dim=-1, keepdim=True), tp)
     out = xf * torch.rsqrt(var + eps)
-    return (out * p.scale.float()).to(x.dtype)
+    return (out * C.param(p.scale, tp).float()).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -98,15 +112,26 @@ class Attention(nn.Module):
                 nn.init.zeros_(getattr(self, name))
 
 
-def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def _attention_tp(p: Attention, cfg: ModelConfig):
+    """The layer's ``TP``: local on whole query and KV heads."""
+    cols = [(p.wq, 1), (p.wk, 1), (p.wv, 1), (p.wo, 0)]
+    if cfg.qkv_bias:
+        cols += [(p.bq, 0), (p.bk, 0), (p.bv, 0)]
+    return C.tp(*cols, divides=(cfg.num_heads, cfg.num_kv_heads))
+
+
+def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, tp):
+    """(q, k, v) of this rank's heads, rope applied; ``x`` already through
+    f where the layer is local."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    n = tp.size if tp is not None else 1
+    q, k, v = x @ C.param(p.wq, tp), x @ C.param(p.wk, tp), x @ C.param(p.wv, tp)
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, cfg.num_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
+        q, k, v = q + C.param(p.bq, tp), k + C.param(p.bk, tp), v + C.param(p.bv, tp)
+    q = q.reshape(b, s, cfg.num_heads // n, hd).transpose(1, 2)
+    k = k.reshape(b, s, cfg.num_kv_heads // n, hd).transpose(1, 2)
+    v = v.reshape(b, s, cfg.num_kv_heads // n, hd).transpose(1, 2)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
@@ -114,10 +139,11 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor) -> torch.Tensor:
     """Full (train/prefill) causal attention through the flash kernel."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
+    tp = _attention_tp(p, cfg)
+    q, k, v = _qkv(p, C.copy_to_model(x, tp), cfg, positions, tp)
     o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
-    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    return o @ p.wo
+    o = o.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.resolved_head_dim)
+    return C.reduce_from_model(o @ C.param(p.wo, tp), tp)
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -127,16 +153,21 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
 
     The new k/v are written at ``pos`` in place, into ``cache_k`` and
     ``cache_v`` themselves (the JAX package rewrites the whole cache through
-    a one-hot select, since its arrays are immutable)."""
+    a one-hot select, since its arrays are immutable).  In a mesh context
+    the cache holds this rank's KV heads where the layer is local."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    tp = _attention_tp(p, cfg)
+    q, k, v = _qkv(p, C.copy_to_model(x, tp), cfg, pos[:, None], tp)
+    if k.shape[1] != cache_k.shape[1]:
+        raise ValueError(f"the cache holds {cache_k.shape[1]} KV heads, the layer {k.shape[1]}")
     rows = torch.arange(b, device=x.device)
     cache_k[rows, :, pos] = k[:, :, 0, :].to(cache_k.dtype)
     cache_v[rows, :, pos] = v[:, :, 0, :].to(cache_v.dtype)
     length = (pos + 1).to(torch.int32)
     o = ops.decode_attention(q[:, :, 0, :].contiguous(), cache_k, cache_v, length=length)
-    return o.reshape(b, 1, cfg.num_heads * hd) @ p.wo, cache_k, cache_v
+    o = o.reshape(b, 1, q.shape[1] * hd) @ C.param(p.wo, tp)
+    return C.reduce_from_model(o, tp), cache_k, cache_v
 
 
 # --------------------------------------------------------------------------
@@ -165,11 +196,14 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    cols = [(p.wi, 1), (p.wo, 0)] + ([(p.wg, 1)] if p.wg is not None else [])
+    tp = C.tp(*cols)
+    x = C.copy_to_model(x, tp)
     if p.wg is not None:
-        h = F.silu(x @ p.wg) * (x @ p.wi)
+        h = F.silu(x @ C.param(p.wg, tp)) * (x @ C.param(p.wi, tp))
     else:
-        h = F.gelu(x @ p.wi, approximate="tanh")    # jax.nn.gelu's default
-    return h @ p.wo
+        h = F.gelu(x @ C.param(p.wi, tp), approximate="tanh")    # jax.nn.gelu's default
+    return C.reduce_from_model(h @ C.param(p.wo, tp), tp)
 
 
 # --------------------------------------------------------------------------
@@ -193,18 +227,31 @@ class Embed(nn.Module):
                 w.copy_(_normal(w.shape, 0.02, w.dtype, w.device, generator))
 
 
+def vocab_tp(p: Embed, out: bool = False):
+    """The ``TP`` of the embedding (``out``: the unembedding) table: local
+    on a vocab range."""
+    w = p.out if out and p.out is not None else p.tok
+    return C.tp((w, 0))
+
+
 def embed_apply(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return p.tok[tokens]
+    tp = vocab_tp(p)
+    if tp is not None and tp.local:
+        return C.vocab_embed(C.param(p.tok, tp), tokens, tp)
+    return C.param(p.tok, tp)[tokens]
 
 
 def unembed_apply(p: Embed, x: torch.Tensor, vocab_size: int,
                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Logits (B, S, Vpad) in f32; padded vocab columns are -1e30."""
-    w = p.out if p.out is not None else p.tok
+    """Logits (B, S, Vpad) in f32; padded vocab columns are -1e30.  In a
+    mesh context: this rank's vocab range (B, S, Vpad / model)."""
+    tp = vocab_tp(p, out=True)
+    w = C.param(p.out if p.out is not None else p.tok, tp)
+    x = C.copy_to_model(x, tp)
     logits = (x.to(compute_dtype) @ w.to(compute_dtype).T).float()
-    vpad = w.shape[0]
-    if vpad != vocab_size:
-        logits[..., vocab_size:] = NEG_INF
+    first = tp.rank * w.shape[0] if tp is not None else 0
+    if first + w.shape[0] > vocab_size:
+        logits[..., max(vocab_size - first, 0):] = NEG_INF
     return logits
 
 

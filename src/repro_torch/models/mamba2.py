@@ -4,6 +4,16 @@ The port of ``repro.models.mamba2``.  The forward runs the chunked scan
 (``ops.ssm_scan``: the CUDA kernel on the card, its plain version on the
 CPU) with the single B/C group broadcast over the heads by a stride-0 view;
 decode keeps (h, conv) states and does O(1) work per token.
+
+Inside a mesh context the block runs on this rank's ``ssm_heads`` when
+``model`` divides them: ``conv``, ``w_dt``, ``a_log``, ``dt_bias``, the
+norm and the ``w_out`` rows are its shards, and the norm's mean over the
+inner width is all-reduced over ``model``.  ``w_in`` is gathered over
+``model`` and applied replicated: its columns are ``z`` followed by ``x``,
+so the reference's ``("embed", "mlp")`` shard is not whole heads (at
+``model`` 2, rank 0 would hold all of ``z``); each rank then takes its
+heads' part of ``z`` and ``x``.  ``w_b`` and ``w_c`` are replicated, their
+products consumed by this rank's heads (f after them).
 """
 from __future__ import annotations
 
@@ -14,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from .layers import RMSNorm, _normal, dtype_of, rmsnorm
 
@@ -63,24 +74,51 @@ def _causal_conv(xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return sum(pads[:, i:i + s, :] * w[i] for i in range(CONV_W))
 
 
-def _gates(p: Mamba2, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    dt = F.softplus(x.float() @ p.w_dt.float() + p.dt_bias)      # (B, S, nh)
-    return dt, torch.exp(-dt * torch.exp(p.a_log))                # decay in (0, 1]
+def _tp(p: Mamba2, cfg: ModelConfig):
+    """The block's ``TP``: local on whole ``ssm_heads``."""
+    _, nh, _, _ = dims(cfg)
+    return C.tp((p.conv, 1), (p.w_dt, 1), (p.a_log, 0), (p.dt_bias, 0), (p.w_out, 0),
+                (p.norm.scale, 0), divides=(nh,))
+
+
+def _in_proj(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, tp):
+    """(z, xin) of this rank's heads: ``x @ w_in``, replicated (``w_in``
+    gathered), then each half's local columns."""
+    din = dims(cfg)[0]
+    zx = C.copy_to_model(x @ C.param(p.w_in), tp)
+    z, xin = zx[..., :din], zx[..., din:]
+    if tp is not None and tp.size > 1:
+        n = din // tp.size
+        z, xin = z[..., tp.rank * n:(tp.rank + 1) * n], xin[..., tp.rank * n:(tp.rank + 1) * n]
+    return z, xin
+
+
+def _gates(p: Mamba2, x: torch.Tensor, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = C.copy_to_model(x, tp)
+    dt = F.softplus(x.float() @ C.param(p.w_dt, tp).float() + C.param(p.dt_bias, tp))
+    return dt, torch.exp(-dt * torch.exp(C.param(p.a_log, tp)))   # decay in (0, 1]
+
+
+def _bc(p: Mamba2, x: torch.Tensor, tp) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (C.copy_to_model(x @ C.param(p.w_b), tp).float(),
+            C.copy_to_model(x @ C.param(p.w_c), tp).float())
 
 
 def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, _ = x.shape
     din, nh, ph, n = dims(cfg)
-    zx = x @ p.w_in
-    z, xin = zx[..., :din], zx[..., din:]
-    xin = F.silu(_causal_conv(xin, p.conv))
-    dt, a = _gates(p, x)
-    bmat = (x @ p.w_b).float()[:, :, None, :].expand(b, s, nh, n)   # one group, stride 0
-    cmat = (x @ p.w_c).float()[:, :, None, :].expand(b, s, nh, n)
-    xh = xin.reshape(b, s, nh, ph) * dt[..., None].to(xin.dtype)
+    tp = _tp(p, cfg)
+    m = tp.size if tp is not None else 1
+    z, xin = _in_proj(p, x, cfg, tp)
+    xin = F.silu(_causal_conv(xin, C.param(p.conv, tp)))
+    dt, a = _gates(p, x, tp)
+    bmat, cmat = _bc(p, x, tp)
+    bmat = bmat[:, :, None, :].expand(b, s, nh // m, n)              # one group, stride 0
+    cmat = cmat[:, :, None, :].expand(b, s, nh // m, n)
+    xh = xin.reshape(b, s, nh // m, ph) * dt[..., None].to(xin.dtype)
     y, _ = ops.ssm_scan(xh, a, bmat, cmat)
-    y = rmsnorm(p.norm, y.reshape(b, s, din), cfg.norm_eps) * F.silu(z)
-    return y @ p.w_out
+    y = rmsnorm(p.norm, y.reshape(b, s, din // m), cfg.norm_eps, tp) * F.silu(z)
+    return C.reduce_from_model(y @ C.param(p.w_out, tp), tp)
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, layers: int, device) -> State:
@@ -95,21 +133,23 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, layers: int, device) -> Stat
 def mamba2_decode(p: Mamba2, x: torch.Tensor, h_state: torch.Tensor, conv_state: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """x: (B, 1, d) -> out (B, 1, d).  ``h_state`` (B, nh, N, ph) and
-    ``conv_state`` (B, CONV_W - 1, din) are updated in place."""
+    ``conv_state`` (B, CONV_W - 1, din) are updated in place (this rank's
+    heads in a mesh context)."""
     b = x.shape[0]
     din, nh, ph, _ = dims(cfg)
-    zx = x @ p.w_in
-    z, xin = zx[..., :din], zx[..., din:]
+    tp = _tp(p, cfg)
+    m = tp.size if tp is not None else 1
+    z, xin = _in_proj(p, x, cfg, tp)
     window = torch.cat([conv_state, xin.float()], dim=1)           # (B, CONV_W, din)
-    conv_out = sum(window[:, i, :] * p.conv[i].float() for i in range(CONV_W))
+    conv = C.param(p.conv, tp)
+    conv_out = sum(window[:, i, :] * conv[i].float() for i in range(CONV_W))
     xin1 = F.silu(conv_out)[:, None, :]
-    dt, a = _gates(p, x)                                            # (B, 1, nh)
-    bmat = (x @ p.w_b).float()
-    cmat = (x @ p.w_c).float()
-    xh = (xin1.reshape(b, nh, ph) * dt[:, 0, :, None]).float()
+    dt, a = _gates(p, x, tp)                                        # (B, 1, nh)
+    bmat, cmat = _bc(p, x, tp)
+    xh = (xin1.reshape(b, nh // m, ph) * dt[:, 0, :, None]).float()
     h = h_state * a[:, 0, :, None, None] + bmat[:, 0, None, :, None] * xh[:, :, None, :]
-    y = torch.einsum("bn,bhnp->bhp", cmat[:, 0], h).reshape(b, 1, din)
-    y = rmsnorm(p.norm, y.to(x.dtype), cfg.norm_eps) * F.silu(z)
+    y = torch.einsum("bn,bhnp->bhp", cmat[:, 0], h).reshape(b, 1, din // m)
+    y = rmsnorm(p.norm, y.to(x.dtype), cfg.norm_eps, tp) * F.silu(z)
     h_state.copy_(h)
     conv_state.copy_(window[:, 1:, :])
-    return y @ p.w_out
+    return C.reduce_from_model(y @ C.param(p.w_out, tp), tp)

@@ -23,6 +23,14 @@ Training: parameters are made with ``requires_grad=False`` (serving records
 nothing); a trainer calls ``model.requires_grad_(True)``.  ``forward`` is
 differentiable and ``loss_fn`` is the reference's loss; ``decode_step``
 stays under ``torch.no_grad()``.
+
+Inside a mesh context the model's parameters are this rank's shards
+(``distributed.step.place_params``), the batch and caches its batch shard,
+and each layer issues its collectives (``models/layers.py``, ``moe.py``,
+``mamba2.py``); ``shard_hint`` stands at the reference's sites.  The loss
+is global: ``sum(nll * mask)`` over ``sum(mask)``, both summed over the
+batch shards, with the cross-entropy over a vocab-sharded axis
+(``collectives.vocab_nll``).
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import shard_hint
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
@@ -143,8 +153,8 @@ def _attn_ffn(bp: Block, x: torch.Tensor, cfg: ModelConfig, positions: torch.Ten
     h = L.rmsnorm(bp.ln2, x, cfg.norm_eps)
     if hasattr(bp, "moe"):
         y, aux = MOE.moe_apply(bp.moe, h, cfg)
-        return x + y, aux
-    return x + L.mlp_apply(bp.mlp, h), None
+        return shard_hint(x + y, ("batch", "seq", "embed")), aux
+    return shard_hint(x + L.mlp_apply(bp.mlp, h), ("batch", "seq", "embed")), None
 
 
 def _every(i: int, k: int) -> bool:
@@ -176,7 +186,7 @@ def _hybrid_block(bp: Block, x: torch.Tensor, cfg: ModelConfig, positions: torch
     x = x + M.mamba2_apply(bp.mamba, L.rmsnorm(bp.ln, x, cfg.norm_eps), cfg)
     if shared is not None:
         x, _ = _attn_ffn(shared, x, cfg, positions)
-    return x
+    return shard_hint(x, ("batch", "seq", "embed"))
 
 
 def _xlstm_block(bp: Block, x: torch.Tensor, cfg: ModelConfig, with_slstm: bool) -> torch.Tensor:
@@ -184,7 +194,7 @@ def _xlstm_block(bp: Block, x: torch.Tensor, cfg: ModelConfig, with_slstm: bool)
     x = x + XL.mlstm_apply(bp.mlstm, L.rmsnorm(bp.ln, x, cfg.norm_eps), cfg)
     if with_slstm:
         x = x + XL.slstm_apply(bp.slstm, L.rmsnorm(bp.ln_s, x, cfg.norm_eps), cfg)
-    return x
+    return shard_hint(x, ("batch", "seq", "embed"))
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -224,6 +234,7 @@ def forward(model: Model, tokens: Optional[torch.Tensor] = None,
         x = L.embed_apply(model.embed, tokens).to(L.dtype_of(cfg.dtype))
         b, s = tokens.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    x = shard_hint(x, ("batch", "seq", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     for i, bp in enumerate(model.blocks):
@@ -239,7 +250,7 @@ def forward(model: Model, tokens: Optional[torch.Tensor] = None,
             x = dense_block(bp, x, cfg, positions)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     logits = L.unembed_apply(model.embed, x, cfg.vocab_size, L.dtype_of(cfg.logits_dtype))
-    return logits, aux
+    return shard_hint(logits, ("batch", "seq", "vocab")), aux
 
 
 def loss_fn(model: Model, batch: Dict[str, torch.Tensor]
@@ -249,12 +260,17 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]
     "ppl_log"}), the metrics detached 0-d tensors."""
     logits, aux = forward(model, tokens=batch.get("tokens"), embeds=batch.get("embeds"))
     labels = batch["labels"].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = lse - gold
+    tp = L.vocab_tp(model.embed, out=True)
+    if tp is not None and tp.local:
+        nll = C.vocab_nll(logits, labels, tp)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = lse - gold
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = C.batch_sum(torch.sum(nll * mask)) / torch.clamp(C.batch_sum(torch.sum(mask)),
+                                                            min=1.0)
     total = loss + 0.01 * aux
     loss = loss.detach()
     return total, {"loss": loss, "aux": aux.detach(), "ppl_log": loss}

@@ -11,6 +11,20 @@ the card ``index_add_`` adds with atomics in no fixed order, and with a
 near-uniform router the last bit of one sum can flip a later layer's expert
 choice.  The expert computation is three ``ops.grouped_matmul``
 calls, which pick the CUDA kernel or its plain version by device.
+
+Inside a mesh context the layer keeps the reference's global semantics, as
+GSPMD computes its sharded ``moe_apply``: the router's outputs are gathered
+over the batch shards, so the capacity is ``capacity(B * S)`` of the global
+batch, the stable sort and the ranks run over the global token order and
+the aux loss takes global means.  Each rank adds its own tokens into the
+(E, cap, d) buffer, which the all-reduce over the batch shards makes the
+reference's buffer, replicated over ``data``: the slots are disjoint, so
+the sum is exact.  With ``experts`` sharded over ``model`` each rank keeps
+the slots of its experts only and runs the grouped matmuls on them; the
+combine's partial sums are all-reduced over ``model``.  The gradient of a
+buffer row comes only from the same row of the expert outputs (the grouped
+matmul and the gating are row-wise), so the buffer's all-reduce passes the
+gradient back unchanged.
 """
 from __future__ import annotations
 
@@ -22,6 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels import ops
 from .layers import _normal, dtype_of
 
@@ -76,7 +92,7 @@ def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig
     the lower expert id (a stable sort); with k > 1 the values are
     renormalised over the k."""
     k = cfg.experts_per_token
-    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+    probs = torch.softmax(xf.float() @ C.param(p.router), dim=-1)
     ranked = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_ids = ranked.values[:, :k], ranked.indices[:, :k]
     if k > 1:
@@ -85,49 +101,75 @@ def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out (B, S, d), load-balance aux loss (f32 scalar))."""
+    """x: (B, S, d) -> (out (B, S, d), load-balance aux loss (f32 scalar)).
+    In a mesh context x is this rank's batch shard (the module docstring
+    says how the layer keeps the global semantics)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
     xf = x.reshape(t, d)
     probs, gate_vals, gate_ids = route(p, xf, cfg)
+    tp = C.tp((p.wi, 0), (p.wg, 0), (p.wo, 0), divides=(e,))
+    part, parts = C.batch_place()                 # this rank's token range
+    lo = part * t
+    probs_all, ids_all = C.gather_batch(probs), C.gather_batch(gate_ids)
+    tg = t * parts
 
     # load-balance auxiliary loss (Switch-style)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(gate_ids[:, 0], e).float().mean(dim=0)
+    me = probs_all.mean(dim=0)
+    ce = F.one_hot(ids_all[:, 0], e).float().mean(dim=0)
     aux = e * torch.sum(me * ce)
 
-    # sort-based dispatch
-    cap = capacity(t, cfg)
-    flat_e = gate_ids.reshape(-1)                                   # (T*k,)
-    flat_g = gate_vals.reshape(-1)
-    flat_src = torch.arange(t, device=x.device).repeat_interleave(k)
+    # sort-based dispatch over the global token order
+    cap = capacity(tg, cfg)
+    flat_e = ids_all.reshape(-1)                                    # (T*k,)
+    flat_g = C.gather_batch(gate_vals).reshape(-1)
+    flat_src = torch.arange(tg, device=x.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     se, sg, ssrc = flat_e[order], flat_g[order], flat_src[order]
     starts = torch.searchsorted(se, torch.arange(e, device=x.device), side="left")
-    rank = torch.arange(t * k, device=x.device) - starts[se]
+    rank = torch.arange(tg * k, device=x.device) - starts[se]
     keep = rank < cap
-    slot = torch.where(keep, se * cap + rank, torch.full_like(se, e * cap))
+    # this rank's entries: its own tokens, and with experts over ``model``
+    # its own experts; every other entry goes to the overflow row
+    el = e // tp.size if tp is not None else e
+    e0 = tp.rank * el if tp is not None else 0
+    if parts > 1:
+        keep = keep & (ssrc >= lo) & (ssrc < lo + t)
+    if el < e:
+        keep = keep & (se >= e0) & (se < e0 + el)
+    slot = torch.where(keep, (se - e0) * cap + rank, torch.full_like(se, el * cap))
+    src = (ssrc - lo).clamp(0, t - 1) if parts > 1 else ssrc
+    xd = C.copy_to_model(xf, tp)
 
-    buf = torch.zeros(e * cap + 1, d, dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot, torch.where(keep[:, None], xf[ssrc], torch.zeros((), dtype=x.dtype,
-                                                                             device=x.device)))
-    buf = buf[:-1].reshape(e, cap, d)
+    buf = torch.zeros(el * cap + 1, d, dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot, torch.where(keep[:, None], xd[src], torch.zeros((), dtype=x.dtype,
+                                                                           device=x.device)))
+    buf = C.batch_sum(buf[:-1].reshape(el, cap, d))
+    buf = shard_hint(buf, ("experts", "expert_cap", "embed"))
 
     # expert computation (grouped matmuls)
-    h = F.silu(ops.grouped_matmul(buf, p.wg)) * ops.grouped_matmul(buf, p.wi)
-    y = ops.grouped_matmul(h.to(x.dtype), p.wo)
-    yflat = torch.cat([y.reshape(e * cap, d), y.new_zeros(1, d)], dim=0)
+    wg, wi, wo = (C.param(w, tp) for w in (p.wg, p.wi, p.wo))
+    h = F.silu(ops.grouped_matmul(buf, wg)) * ops.grouped_matmul(buf, wi)
+    y = ops.grouped_matmul(h.to(x.dtype), wo)
+    y = shard_hint(y, ("experts", "expert_cap", "embed"))
+    yflat = torch.cat([y.reshape(el * cap, d), y.new_zeros(1, d)], dim=0)
 
     # combine, in f32: each token's k contributions back in choice order and
     # summed in that order (no atomics, so a run on the card is repeatable)
-    contrib = yflat[slot].float() * (sg * keep.float())[:, None]
+    contrib = yflat[slot].float() * (C.copy_to_model(sg, tp) * keep.float())[:, None]
     unsorted = torch.empty_like(contrib)
     unsorted[order] = contrib
-    out = unsorted.reshape(t, k, d).sum(dim=1).to(x.dtype).reshape(b, s, d)
+    if parts > 1:
+        unsorted = unsorted[lo * k:(lo + t) * k]
+    out = C.reduce_from_model(unsorted.reshape(t, k, d).sum(dim=1), tp)
+    out = out.to(x.dtype).reshape(b, s, d)
 
     if p.shared is not None:
         sp = p.shared
-        hs = F.silu(xf @ sp.wg) * (xf @ sp.wi)
-        out = out + (hs @ sp.wo).reshape(b, s, d)
+        stp = C.tp((sp.wi, 1), (sp.wg, 1), (sp.wo, 0))
+        local = (tp is not None and tp.local, stp is not None and stp.local)
+        xs = xd if local[0] == local[1] else C.copy_to_model(xf, stp)   # one f where both are
+        hs = F.silu(xs @ C.param(sp.wg, stp)) * (xs @ C.param(sp.wi, stp))
+        out = out + C.reduce_from_model(hs @ C.param(sp.wo, stp), stp).reshape(b, s, d)
     return out, aux

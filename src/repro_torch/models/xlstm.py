@@ -9,6 +9,10 @@ normaliser on its sequential reference; here it takes the kernel on the
 card like any other scan).  The sLSTM is a data-dependent scalar recurrence
 with no chunked form: a plain PyTorch loop over time, as the reference's
 ``lax.scan``.
+
+Inside a mesh context the blocks are replicated over ``model`` (the
+reference's ``mlstm``/``slstm`` rule, ``partition._axes_for``): each
+weight is gathered over ``data`` where it is used and nothing else changes.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from .layers import RMSNorm, _normal, dtype_of, rmsnorm
 
@@ -70,10 +75,10 @@ class SLSTM(nn.Module):
 def _mlstm_qkvif(p: MLSTM, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = (x @ p.wq).reshape(b, s, h, hd)
-    k = (x @ p.wk).reshape(b, s, h, hd) * hd ** -0.5
-    v = (x @ p.wv).reshape(b, s, h, hd)
-    gif = (x @ p.wif).float().reshape(b, s, h, 2)
+    q = (x @ C.param(p.wq)).reshape(b, s, h, hd)
+    k = (x @ C.param(p.wk)).reshape(b, s, h, hd) * hd ** -0.5
+    v = (x @ C.param(p.wv)).reshape(b, s, h, hd)
+    gif = (x @ C.param(p.wif)).float().reshape(b, s, h, 2)
     return q, k, v, _sigmoid(gif[..., 0]), _sigmoid(gif[..., 1])
 
 
@@ -81,8 +86,8 @@ def _mlstm_out(p: MLSTM, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig) -> 
     """y: (B, S, h * hd) normalised cell output -> the block's output."""
     d = cfg.d_model
     y = rmsnorm(p.norm, y.to(x.dtype), cfg.norm_eps)
-    up = x @ p.wup
-    return (y * F.silu(up[..., :d])) @ p.wo
+    up = x @ C.param(p.wup)
+    return (y * F.silu(up[..., :d])) @ C.param(p.wo)
 
 
 def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -126,8 +131,8 @@ def mlstm_decode(p: MLSTM, x: torch.Tensor, C: torch.Tensor, n: torch.Tensor,
 def _slstm_gates(p: SLSTM, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
-    z = torch.tanh((x @ p.wz).float()).reshape(b, s, h, hd)
-    g = (x @ p.wg).float().reshape(b, s, h, 3)
+    z = torch.tanh((x @ C.param(p.wz)).float()).reshape(b, s, h, hd)
+    g = (x @ C.param(p.wg)).float().reshape(b, s, h, 3)
     return z, _sigmoid(g[..., 0]), _sigmoid(g[..., 1]), _sigmoid(g[..., 2])
 
 
@@ -143,7 +148,7 @@ def slstm_apply(p: SLSTM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         n = f[:, t] * n + i[:, t]
         ys.append(o[:, t, :, None] * c / torch.clamp(n[..., None], min=1.0))
     y = torch.stack(ys, dim=1).reshape(b, s, h * hd).to(x.dtype)
-    return y @ p.wo
+    return y @ C.param(p.wo)
 
 
 def slstm_init_state(cfg: ModelConfig, batch: int, layers: int, device) -> State:
@@ -162,4 +167,4 @@ def slstm_decode(p: SLSTM, x: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
     c.mul_(f[..., None]).add_(i[..., None] * z)
     n.mul_(f).add_(i)
     y = o[..., None] * c / torch.clamp(n[..., None], min=1.0)
-    return y.reshape(b, 1, h * hd).to(x.dtype) @ p.wo
+    return y.reshape(b, 1, h * hd).to(x.dtype) @ C.param(p.wo)

@@ -10,10 +10,15 @@ the reference (whose arrays are immutable) it writes the new parameters and
 moments into the existing tensors, so a step allocates no second copy of
 either.  ``step``, ``grad_norm`` and the learning rate stay 0-d device
 tensors: nothing here waits for the device.
+
+Sharded (``distributed/step.py``): the tensors are this rank's shards, and
+the squared norm of each gradient is summed over the mesh axes it is
+sharded on (``reduce``), and only those, before the global norm is taken;
+the update itself is elementwise on the shards.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,12 +43,19 @@ def adamw_init(params: Mapping[str, torch.Tensor], state_dtype: str = "float32",
     return AdamWState(torch.zeros((), dtype=torch.int32, device=device), m, v)
 
 
+Reduce = Callable[[Tree], Tree]
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
-                        ) -> Tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        reduce: Optional[Reduce] = None) -> Tuple[Tree, torch.Tensor]:
     """(grads scaled so that their global f32 norm is at most ``max_norm``,
-    each in its own dtype; the norm before clipping, 0-d f32)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+    each in its own dtype; the norm before clipping, 0-d f32).  ``reduce``
+    maps each gradient's local squared norm to its global one (shards)."""
+    sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
+    if reduce is not None:
+        sq = reduce(sq)
+    gn = torch.sqrt(sum(sq.values()))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, gn
 
@@ -52,12 +64,13 @@ def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
 def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
                  params: Mapping[str, torch.Tensor], *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
-                 max_grad_norm: float = 1.0) -> Tuple[Mapping[str, torch.Tensor], AdamWState,
-                                                      Dict[str, torch.Tensor]]:
+                 max_grad_norm: float = 1.0, reduce: Optional[Reduce] = None
+                 ) -> Tuple[Mapping[str, torch.Tensor], AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step on ``params`` (updated in place, and returned), with
     the moments of ``state`` updated in place.  Returns (params, the new
-    state, {"grad_norm": the norm before clipping})."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    state, {"grad_norm": the norm before clipping}).  ``reduce``: as
+    ``clip_by_global_norm``'s."""
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm, reduce)
     step = state.step + 1
     b1c = 1.0 - b1 ** step.float()
     b2c = 1.0 - b2 ** step.float()

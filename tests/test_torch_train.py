@@ -552,7 +552,8 @@ def test_train_main_defaults_and_refusals():
     args = train_mod.build_parser().parse_args([])
     assert (args.device, args.reduced, args.arch, args.batch, args.seq) == \
         ("cuda", False, "smollm_360m", 8, 256)
-    with pytest.raises(NotImplementedError, match="1x1"):
+    # a mesh other than 1x1 runs under torchrun with that many processes
+    with pytest.raises(RuntimeError, match=r"mesh \(2, 1\) needs 2 devices, found 1"):
         train_mod.main(["--device", "cpu", "--reduced", "--mesh", "2x1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
