@@ -30,7 +30,9 @@ without the final ok line):
                 8192), granite's and zamba2's (S 1024), group 8 and ragged
                 ones, with rows at length 0 (must be 0), every split count
                 1-8 forced on three shapes, and a second run that must give
-                the same bits; flash attention at smollm's shapes and ragged ones
+                the same bits, each shape's lse (``return_lse``) within
+                DECODE_LSE_ATOL of the plain version's with the output's
+                bits unchanged; flash attention at smollm's shapes and ragged ones
                 (in bf16 on every tensor-core tile too: a ragged Sq,
                 Sq < Skv, Sq > Skv with rows that see no key, group 4 and
                 1, non-causal, D 128, and D 32 on the CUDA cores), the
@@ -171,7 +173,31 @@ without the final ok line):
                 teacher-forced steps at batch 8) of the four models against
                 ``forward`` and ``decode_step``: bit-equal logits; and the
                 wall time of one collective over the one-rank group;
- 14. numbers -- per-kernel times with CUDA events (L2 flushed before every
+ 14. long context -- slice 14's main path over the same one-rank group:
+                zamba2_1_2b (6 shared-attention sites, 32 KV heads of 64)
+                and xlstm_1_3b at full width and depth, bf16, batch 1,
+                through ``make_decode_step(cfg, ParallelConfig(), mc, 1,
+                524288, long_context=True)``: 4 steps at positions
+                524,284-524,287 of a cache of 524,288 positions filled with
+                seeded random values (zamba2's 25.8 GB), bit-equal to
+                ``decode_step`` on the same cache and each step's logits
+                within 5% of the largest under ``ops.plain_versions()``
+                (one cache serves every run: the slots a step writes are
+                restored); the decode kernel 6 times a zamba2 step; a step's
+                wall and busy ms and tokens/s, the peak memory; the decode
+                kernel alone at one zamba2 site (S 524,288) against its
+                plain version with its lse, at the full length and at
+                300,000, and the SP merge (``collectives.decode_partial``,
+                ``merge_partials``) of 4 S-ranges of that site at 300,000
+                (one range partial, one empty) against the whole-cache
+                kernel; its time against the 1.28 ms bytes bound, the plain
+                version's and SDPA's, with the splits chosen.  Then
+                ``python -m repro_torch.launch.dryrun --arch zamba2_1_2b
+                --shape long_500k`` at mesh 1x1 and at 16x16 (fake process
+                groups, ``meta`` tensors), each in a subprocess: both
+                ``ok``, and the 1x1 report's argument bytes the bytes of
+                the parameters, cache, token and pos placed on the card;
+ 15. numbers -- per-kernel times with CUDA events (L2 flushed before every
                 launch), each kernel's bound, the plain version's time and a
                 PyTorch yardstick on the same inputs (SDPA, ``torch.addmm``,
                 ``torch.add``, ``torch.bmm``, ``torch.matmul``; none for the
@@ -197,11 +223,13 @@ without the final ok line):
                 ``torch.bmm`` beside it), the scan's backward at
                 zamba2's (xlstm's and the normaliser's beside it, each on the
                 forward's saved scratch) and the decay gradient's sum
-                kernel.  One ``{"kernels": [...]}`` JSON line.
+                kernel; the decode row carries phase 14's numbers at S
+                524,288.  One ``{"kernels": [...]}`` JSON line.
 Every launch count is set to 0 just before each path run (the smollm serve,
 the smollm forward, the smollm training loop, each family's training loop,
 serve and forward, the compile path as phases 8-11, the kernel library,
-each sharded step, prefill and decode call of the mesh phase) and read just
+each sharded step, prefill and decode call of the mesh phase, each model's
+long-context decode steps) and read just
 after; the counts in the kernels line are their sums, and every
 one of the eight kernels and the four backward passes (``BACKWARD``) must
 have run.
@@ -213,6 +241,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -305,6 +334,24 @@ FAMILY_STEPS, FAMILY_CKPT = 16, 8
 MESH_STEPS = {"smollm_360m": 3, "granite_moe_1b": 2, "zamba2_1_2b": 2, "xlstm_1_3b": 2}
 MESH_DECODE = 8
 MESH_TIMED = 5             # steps of each kind timed in turns, after the checks
+# the long-context decode (ShapeConfig long_500k: batch 1 against a cache of
+# 524,288 positions): LONG_STEPS steps at the last positions of a cache
+# filled with seeded random values, through make_decode_step(long_context=
+# True) at mesh 1x1; the SP merge of LONG_CHUNKS S-ranges of one site at a
+# length that leaves a range partial and one empty
+LONG_ARCHS = ("zamba2_1_2b", "xlstm_1_3b")
+LONG_S, LONG_STEPS, LONG_CHUNKS, LONG_RAGGED = 524_288, 4, 4, 300_000
+LONG_TIMED = 7             # unprofiled steps whose median wall time is reported
+# the decode kernel's o (and the SP merge's) against its plain version, as a
+# share of the plain output's largest magnitude: at S 524,288 over a cache of
+# N(0, 1) values |o| is ~1e-2 at most, so an absolute 2e-2 would pass zeros.
+# bf16 rounds to 2^-8..2^-7 of the largest value, each side rounds about
+# once, so 2e-2 of it is 2.5 ulps or more; an output that is zero, reads the
+# wrong V or weighs the ranges wrongly errs by about the scale itself
+DECODE_O_RTOL_OF_SCALE = 2e-2
+# the decode kernel's lse against its plain version's (natural-log units):
+# f32 sums of up to 524,288 exp2 terms in another order, ex2.approx's 2 ulp
+DECODE_LSE_ATOL = 1e-3
 # the three families, at full width and depth: serve (batch, prompt, gen),
 # forward (batch, seq), for hybrid and ssm the teacher-forced decode held
 # against the forward on the same tokens (batch, seq; 170 = 5 x 32 + 10
@@ -527,6 +574,15 @@ def _tol(dtype):
     return 2e-2 if dtype == torch.bfloat16 else 2e-4
 
 
+def lse_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |lse difference|; inf unless the rows with no valid key (-inf)
+    are the same in both."""
+    empty = torch.isinf(want)
+    if not torch.equal(empty, torch.isinf(got)) or bool((got[empty] != -math.inf).any()):
+        return math.inf
+    return (got[~empty] - want[~empty]).abs().max().item() if bool((~empty).any()) else 0.0
+
+
 def _randn(g, *shape, dtype):
     return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
@@ -583,6 +639,15 @@ def kernel_phase() -> dict:
             # the split merge runs in a fixed order: a second run, same bits
             if how.startswith("pom") and not torch.equal(run(), got):
                 fail(f"decode_attention {how}: a second run on the same inputs gave other bits")
+        # the partial (o, lse): the same o, and lse against the plain version's
+        got, lse = ops.decode_attention(q, k, v, length=length, return_lse=True)
+        want_lse = ref.decode_attention(q, k, v, length=length, return_lse=True)[1]
+        lse_err = lse_error(lse, want_lse)
+        print(f"decode B{b} Hq{hq} Hkv{hkv} S{s} D{d} with lse: max lse err {lse_err:.3g}")
+        if not torch.equal(got, ops.decode_attention(q, k, v, length=length)):
+            fail("decode_attention: return_lse changed the output's bits")
+        if not lse_err <= DECODE_LSE_ATOL:
+            fail(f"decode_attention: lse disagrees with its plain version: {lse_err}")
 
     # (B, Hq, Hkv, Sq, Skv, D, causal, dtype); bf16 at D 64 and 128 takes the
     # tensor cores (its tile is run directly too), D 32 and f32 the CUDA cores
@@ -956,12 +1021,13 @@ def serve_phase(model) -> dict:
     return {"serve": out, "launches": launches}
 
 
-def busy_share(fn, per: int, label: str, kernels) -> dict:
-    """Wall time of ``fn`` (unprofiled) and the card's busy time over the
-    same work (``torch.profiler``), both divided by ``per`` units: how far
-    the host holds the card back, and the device time of each of the port's
-    ``kernels`` (names matched as substrings; one name or a tuple).  Returns
-    {} when the profiler records no device activity."""
+def busy_share(fn, per: int, label: str, kernels, reps: int = 1) -> dict:
+    """Wall time of ``fn`` (unprofiled; the median of ``reps`` runs) and the
+    card's busy time over the same work (``torch.profiler``), both divided
+    by ``per`` units: how far the host holds the card back, and the device
+    time of each of the port's ``kernels`` (names matched as substrings; one
+    name or a tuple).  Returns {} when the profiler records no device
+    activity."""
     kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -971,9 +1037,12 @@ def busy_share(fn, per: int, label: str, kernels) -> dict:
         torch.cuda.synchronize()
 
     run()
-    t0 = time.perf_counter()
-    run()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / per
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        walls.append(1e3 * (time.perf_counter() - t0) / per)
+    wall_ms = sorted(walls)[reps // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -985,13 +1054,15 @@ def busy_share(fn, per: int, label: str, kernels) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + 1e-3 * e.time_range.elapsed_us() / per
     busy_ms = sum(by_name.values())
     kernel_ms = {k: sum(ms for name, ms in by_name.items() if k in name) for k in kernels}
-    print(f"{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    print(f"{label}: wall {wall_ms:.3f} ms" + (f" (median of {reps})" if reps > 1 else "")
+          + f", device busy {busy_ms:.3f} ms "
           f"(share {busy_ms / wall_ms:.3f}), {len(events) / per:.0f} kernels; the port's "
           + ", ".join(f"{k} {ms:.4f} ms" for k, ms in kernel_ms.items()))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {ms:.4f} ms  {name[:100]}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"wall_ms": wall_ms, **({"wall_ms_runs": walls} if reps > 1 else {}),
+            "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms, "kernels": len(events) / per,
             **{f"{k}_ms": ms for k, ms in kernel_ms.items()},
             "top": [[name[:100], ms] for name, ms in top]}
@@ -1436,32 +1507,6 @@ def train_family_phase(arch: str) -> dict:
 # --------------------------------------------------------------------------
 # 13. mesh 1x1: the sharded builders over a one-rank NCCL group
 # --------------------------------------------------------------------------
-def _count_collectives():
-    """Wraps ``torch.distributed``'s all_reduce / all_gather / reduce_scatter
-    to count each call and the bytes it hands over (all-gather: the
-    gathered output; the others: their input), by kind.  Returns (the
-    counts, a function that restores the originals)."""
-    import torch.distributed as dist
-    counts = {}
-    orig = {k: getattr(dist, k) for k in ("all_reduce", "all_gather", "reduce_scatter")}
-
-    def wrap(kind, fn):
-        def counted(*args, **kw):
-            t = args[0]
-            byts = sum(x.numel() * x.element_size() for x in t) if isinstance(t, list) \
-                else t.numel() * t.element_size()
-            if kind == "reduce_scatter":
-                byts = sum(x.numel() * x.element_size() for x in args[1])
-            c = counts.setdefault(kind, [0, 0])
-            c[0] += 1
-            c[1] += byts
-            return fn(*args, **kw)
-        return counted
-    for k, fn in orig.items():
-        setattr(dist, k, wrap(k, fn))
-    return counts, lambda: [setattr(dist, k, fn) for k, fn in orig.items()]
-
-
 def _same_state(label: str, one, opt1, two, opt2) -> None:
     """Every parameter and both moments bit for bit."""
     for (name, p), q in zip(one.named_parameters(), two.parameters()):
@@ -1535,11 +1580,9 @@ def mesh_train(arch: str, mc, card: str) -> dict:
     print(f"{label}: after {steps} steps every parameter and moment bit-equal; launches a "
           f"step {want}")
 
-    counts, restore = _count_collectives()
-    try:
+    from repro_torch.distributed.collectives import count_collectives
+    with count_collectives() as counts:
         two, opt2, _ = step2(two, opt2, make_device_batch(ds.batch_at(steps), batch_sh))
-    finally:
-        restore()
     print(f"{label}: collectives of a sharded step (calls, bytes): {counts}")
     holder = {"o1": opt1, "o2": opt2, "m": two}
 
@@ -1672,20 +1715,296 @@ def mesh_phase(card: str) -> dict:
     print(f"process group: backend {dist.get_backend()}, world {dist.get_world_size()}, "
           f"NCCL {nccl}")
     out, launches = {"nccl": nccl}, {}
-    try:
-        out["collective_cost"] = collective_cost(mc)
-        for arch in MESH_STEPS:
-            res = mesh_train(arch, mc, card)
-            _add(launches, res.pop("launches"))
-            out[f"train_{arch}"] = res
-        for arch in MESH_STEPS:
-            res = mesh_serve(arch, mc)
-            _add(launches, res.pop("launches"))
-            out[f"serve_{arch}"] = res
-    finally:
-        dist.destroy_process_group()
+    out["collective_cost"] = collective_cost(mc)
+    for arch in MESH_STEPS:
+        res = mesh_train(arch, mc, card)
+        _add(launches, res.pop("launches"))
+        out[f"train_{arch}"] = res
+    for arch in MESH_STEPS:
+        res = mesh_serve(arch, mc)
+        _add(launches, res.pop("launches"))
+        out[f"serve_{arch}"] = res
     print(f"launches in the mesh 1x1 phase: {launches}")
-    return {"mesh": out, "launches": launches}
+    return {"mesh": out, "launches": launches, "mc": mc}
+
+
+# --------------------------------------------------------------------------
+# 14. the long-context decode: batch 1 against 524,288 positions
+# --------------------------------------------------------------------------
+def _kv_leaves(cache, max_seq: int) -> list:
+    """The cache's KV leaves (L, B, H, S, D) of ``max_seq`` positions."""
+    from repro_torch.distributed.partition import tree_leaves
+    return [t for t in tree_leaves(cache) if t.dim() == 5 and t.shape[3] == max_seq]
+
+
+class _Slots:
+    """What LONG_STEPS decode steps write into a cache: the KV slots at
+    their positions and every recurrent state; ``restore()`` puts them back,
+    so one cache serves every run (two would not fit beside the plain
+    versions' f32 copies)."""
+
+    def __init__(self, cache, positions: torch.Tensor):
+        from repro_torch.distributed.partition import tree_leaves
+        self.kv = _kv_leaves(cache, LONG_S)
+        self.states = [t for t in tree_leaves(cache) if not any(t is k for k in self.kv)]
+        self.pos = positions
+        self.saved = ([t[:, :, :, positions].clone() for t in self.kv],
+                      [t.clone() for t in self.states])
+
+    def restore(self) -> None:
+        for t, v in zip(self.kv, self.saved[0]):
+            t[:, :, :, self.pos] = v
+        for t, v in zip(self.states, self.saved[1]):
+            t.copy_(v)
+
+
+def long_decode(arch: str, mc, card: str, before_timing=None) -> dict:
+    """``arch`` at full width and depth, bf16, seeded random weights, batch
+    1: LONG_STEPS steps through ``make_decode_step(cfg, ParallelConfig(),
+    mc, 1, LONG_S, long_context=True)`` (the main path, counts set to 0 just
+    before and read just after) at positions LONG_S - LONG_STEPS .. LONG_S -
+    1 of a cache filled with seeded random values; the same steps through
+    the one-card ``decode_step``, bit for bit; and under
+    ``ops.plain_versions()``, each step's logits within LOGITS_RTOL_OF_SCALE
+    of the plain run's largest.  Then ``before_timing(placed bytes)``, where
+    given (its result under "before_timing"), and a step's wall ms (the
+    median of LONG_TIMED) and busy ms, tokens/s and the peak memory; for
+    zamba2 the decode kernel alone at one site."""
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.distributed.partition import tree_leaves
+    from repro_torch.distributed.step import (init_sharded_cache, make_decode_step,
+                                              place_params)
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_params
+    cfg = get_config(arch)
+    label = f"long context {arch} (batch 1, S {LONG_S})"
+    torch.cuda.reset_peak_memory_stats()
+    serve_step, (param_sh, cache_sh, tok_sh) = make_decode_step(
+        cfg, ParallelConfig(), mc, 1, LONG_S, long_context=True)
+    model = place_params(init_params(cfg, seed=0, device="cuda"), param_sh)
+    cache = init_sharded_cache(cfg, 1, LONG_S, cache_sh)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for t in tree_leaves(cache):
+        t.normal_(generator=g)
+    host = np.random.default_rng(14).integers(0, cfg.vocab_size, (LONG_STEPS, 1))
+    tokens = torch.from_numpy(host).to(device="cuda", dtype=torch.int32)
+    positions = torch.arange(LONG_S - LONG_STEPS, LONG_S, device="cuda", dtype=torch.int32)
+    slots = _Slots(cache, positions.long())
+    placed = {"params": sum(p.numel() * p.element_size() for p in model.parameters()),
+              "cache": sum(t.numel() * t.element_size() for t in tree_leaves(cache)),
+              "token": 4, "pos": 4}
+    print(f"{label}: parameters {placed['params']} B, cache {placed['cache']} B "
+          f"({len(_kv_leaves(cache, LONG_S))} KV leaves), cache specs "
+          f"{ {k: v.spec for k, v in cache_sh.get('shared_kv', {}).items()} }")
+
+    def steps(fn) -> list:
+        out = []
+        for t in range(LONG_STEPS):
+            out.append(fn(tok_sh.local_slice(tokens[t]), tok_sh.local_slice(positions[t:t + 1]))
+                       [0].clone())
+        torch.cuda.synchronize()
+        slots.restore()
+        return out
+
+    zero_counts()
+    got = steps(lambda tok, pos: serve_step(model, cache, tok, pos))
+    launches = read_counts()
+    hybrid = cfg.family == "hybrid"
+    check_counts(f"{label} sharded steps", launches,
+                 {"decode_attention": cfg.num_layers // cfg.attn_every * LONG_STEPS}
+                 if hybrid else {})
+    one = steps(lambda tok, pos: decode_step(model, cache, tok, pos))
+    for t, (a, b) in enumerate(zip(got, one)):
+        if not torch.equal(a, b):
+            fail(f"{label}: step {t}'s logits differ from the one-card decode_step's")
+    with ops.plain_versions():
+        plain = steps(lambda tok, pos: decode_step(model, cache, tok, pos))
+    checks = [logits_check(f"{label} step {t} vs plain versions", a, b, cfg.vocab_size)
+              for t, (a, b) in enumerate(zip(got, plain))]
+    print(f"{label}: {LONG_STEPS} steps at positions {LONG_S - LONG_STEPS}..{LONG_S - 1} "
+          f"bit-equal to decode_step; launches {launches}")
+
+    out = {"layers": cfg.num_layers, "bit_equal": True, "logits": checks,
+           "launches": launches, "placed_bytes": placed}
+    if before_timing is not None:
+        out["before_timing"] = before_timing(placed)
+
+    def one_step():
+        serve_step(model, cache, tok_sh.local_slice(tokens[0]),
+                   tok_sh.local_slice(positions[-1:]))
+    kernels = ("decode_kernel", "nccl") if hybrid else ("nccl",)
+    busy = busy_share(one_step, 1, f"{label} sharded step", kernels, reps=LONG_TIMED)
+    slots.restore()
+    busy_one = busy_share(lambda: decode_step(model, cache, tokens[0], positions[-1:]), 1,
+                          f"{label} one-card step", kernels, reps=LONG_TIMED)
+    slots.restore()
+    out.update(sharded_step=busy, one_card_step=busy_one,
+               tokens_per_s=1e3 / busy["wall_ms"] if busy else None)
+    if hybrid:
+        out["kernel"] = long_kernel(cache, cfg, card)
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: {out['tokens_per_s']:.2f} tokens/s, peak memory "
+          f"{out['peak_memory_gib']:.2f} GiB ({card})")
+    del model, cache, slots
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_kernel(cache, cfg, card: str) -> dict:
+    """The decode kernel alone at the first shared-attention site (B 1, 32
+    heads, S 524,288, D 64, bf16) against its plain version, o (within
+    DECODE_O_RTOL_OF_SCALE of the plain output's largest magnitude) and lse,
+    at the full length and at LONG_RAGGED; the SP merge of LONG_CHUNKS
+    S-ranges at LONG_RAGGED (a partial range, an empty one) against the
+    whole-cache kernel, to the same share of its scale; then its time
+    against the bytes bound, the plain version's and SDPA's, with the splits
+    the schedule chose.  Two controls show that the o checks can fail: the
+    kernel on the second site's V, and the merge with every non-empty range
+    weighed alike, must both miss the tolerance."""
+    import torch.nn.functional as F
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import autotune, ops, ref
+    site = cache["shared_kv"]
+    k, v = site["k"][0], site["v"][0]
+    b, hkv, s, d = k.shape
+    hq = cfg.num_heads
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q = _randn(g, b, hq, d, dtype=k.dtype)
+    out = {}
+
+    def held(got, want, label):
+        """(max abs error, the tolerance DECODE_O_RTOL_OF_SCALE of max|want|)."""
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = DECODE_O_RTOL_OF_SCALE * scale
+        print(f"{label}: max abs err {err:.3g}, max|want| {scale:.3g}, tolerance {tol:.3g} "
+              f"({err / scale:.4f} of the scale)")
+        return err, tol, scale
+
+    for n in (s, LONG_RAGGED):
+        length = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        o, lse = ops.decode_attention(q, k, v, length=length, return_lse=True)
+        want, want_lse = ref.decode_attention(q, k, v, length=length, return_lse=True)
+        lse_err = lse_error(lse, want_lse)
+        err, tol, scale = held(o, want, f"decode B{b} Hq{hq} Hkv{hkv} S{s} length {n} o")
+        print(f"decode B{b} Hq{hq} Hkv{hkv} S{s} length {n}: max lse err {lse_err:.3g}")
+        if not err <= tol or not lse_err <= DECODE_LSE_ATOL:
+            fail(f"decode_attention at S {s}, length {n}: o {err} (tolerance {tol}), "
+                 f"lse {lse_err} off")
+        out[f"length_{n}"] = {"max_abs_err": err, "tolerance": tol, "plain_max_abs": scale,
+                              "lse_max_abs_err": lse_err}
+    # control: another site's V gives the same softmax over other values
+    other = ops.decode_attention(q, k, site["v"][1], length=length)
+    c_err, c_tol, _ = held(other, want, f"control: the kernel on site 1's V, length {n}")
+    if not c_err > c_tol:
+        fail(f"the o check cannot tell site 1's V from site 0's ({c_err} <= {c_tol})")
+    out["control_wrong_v_err"] = c_err
+    length = torch.full((b,), LONG_RAGGED, dtype=torch.int32, device="cuda")
+    step = s // LONG_CHUNKS
+    parts = [C.decode_partial(q, k[:, :, r * step:(r + 1) * step],
+                              v[:, :, r * step:(r + 1) * step], length, r * step)
+             for r in range(LONG_CHUNKS)]
+
+    def reduce(t, op):                    # the ranges stacked on dim 0, on one card
+        return t.amax(0, keepdim=True) if op == C.dist.ReduceOp.MAX else t.sum(0, keepdim=True)
+    merged = C.merge_partials(torch.stack([o for o, _ in parts]),
+                              torch.stack([lse for _, lse in parts]), reduce)[0]
+    whole = ops.decode_attention(q, k, v, length=length)
+    empty = [r for r, (_, lse) in enumerate(parts) if bool(torch.isinf(lse).all())]
+    sp_err, sp_tol, sp_scale = held(
+        merged, whole, f"SP merge of {LONG_CHUNKS} ranges at length {LONG_RAGGED} (ranges "
+        f"{empty} empty) against the whole-cache kernel")
+    if not sp_err <= sp_tol or not empty:
+        fail(f"the SP merge disagrees with the whole-cache kernel ({sp_err}, tolerance "
+             f"{sp_tol}) or no range was empty")
+    # control: every non-empty range weighed alike (lse 0), the empty one still 0
+    flat = [torch.where(torch.isinf(lse), lse, torch.zeros_like(lse)) for _, lse in parts]
+    alike = C.merge_partials(torch.stack([o for o, _ in parts]), torch.stack(flat), reduce)[0]
+    a_err, a_tol, _ = held(alike, whole, "control: the merge weighing the ranges alike")
+    if not a_err > a_tol:
+        fail(f"the SP merge check cannot tell equal weights from exp(lse - m) ({a_err})")
+    out["sp_merge"] = {"max_abs_err": sp_err, "tolerance": sp_tol, "whole_max_abs": sp_scale,
+                       "control_equal_weights_err": a_err, "ranges": LONG_CHUNKS,
+                       "empty": empty}
+    full = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    byts = 2 * s * hkv * d * 2 + 2 * b * hq * d * 2 + 4 * b
+    bms, by = bound(byts, 4.0 * s * hq * d, k.dtype)
+    sch = autotune.pom_decode_schedule(b * hkv, s, hq // hkv, d, k.element_size())
+    ms = time_ms(lambda: ops.decode_attention(q, k, v, length=full), iters=20)
+    plain_ms = time_ms(lambda: ref.decode_attention(q, k, v, length=full), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], k, v), iters=20)
+    print(f"decode_attention B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16 (splits {sch.splits}, heads "
+          f"{sch.heads}): {ms:.4f} ms ({bms / ms:.3f} of the bound), plain {plain_ms:.3f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}) ({card})")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+               splits=sch.splits, heads=sch.heads,
+               shape=f"B {b}, Hq {hq}, Hkv {hkv}, S {s}, D {d}, bf16")
+    return out
+
+
+def start_dryruns() -> dict:
+    """``python -m repro_torch.launch.dryrun --arch zamba2_1_2b --shape
+    long_500k`` at mesh 1x1 and at the production 16x16, each in a
+    subprocess started now (they need no card: fake process groups on
+    ``meta`` tensors), so they run beside the long-context decode's checks;
+    ``finish_dryruns`` waits for them before any step is timed."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    for mesh in ("1x1", "16x16"):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "zamba2_1_2b",
+               "--shape", "long_500k"] + (["--mesh", mesh] if mesh == "1x1" else [])
+        procs[mesh] = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    return procs
+
+
+def finish_dryruns(procs: dict, placed: dict) -> dict:
+    """The dry runs' reports: both ``ok``, and the 1x1 report's argument
+    bytes the bytes phase 14 placed on the card (parameters, cache, token
+    and pos)."""
+    out = {}
+    for mesh, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"the dry run at {mesh} failed:\n{stderr[-3000:]}")
+        rep = json.loads(stdout)
+        print(f"dry run zamba2_1_2b long_500k at {rep['mesh']}: {json.dumps(rep)}")
+        if rep.get("status") != "ok" or rep["mesh"] != mesh:
+            fail(f"the dry run at {mesh} gave status {rep.get('status')} at {rep['mesh']}")
+        out[mesh] = rep
+    args = out["1x1"]["memory"]["argument_size_in_bytes"]
+    if args != sum(placed.values()):
+        fail(f"the 1x1 dry run's argument bytes {args} differ from the {sum(placed.values())} "
+             f"placed on the card ({placed})")
+    print(f"dry run 1x1 argument bytes {args} = the placed parameters, cache, token and pos")
+    return out
+
+
+def long_context_phase(card: str, mc) -> dict:
+    """Slice 14's main path: the long-context decode of zamba2_1_2b and
+    xlstm_1_3b at full width (``long_decode``), with the dry runs of
+    zamba2's long_500k cell beside zamba2's checks (``start_dryruns``) and
+    ended before its first timed step (``finish_dryruns``), so that no
+    other process shares the host while a step is timed; every process it
+    starts ends before it returns."""
+    phase("long context: batch 1 against 524,288 positions at mesh 1x1, and the dry run")
+    out, launches = {}, {}
+    procs = start_dryruns()
+    try:
+        for arch in LONG_ARCHS:
+            wait = (lambda placed: finish_dryruns(procs, placed)) if arch == LONG_ARCHS[0] else None
+            res = long_decode(arch, mc, card, before_timing=wait)
+            _add(launches, res.pop("launches"))
+            if wait is not None:
+                out["dryrun"] = res.pop("before_timing")
+            out[arch] = res
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"launches in the long-context phase: {launches}")
+    return {"long": out, "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -3137,22 +3456,33 @@ def main() -> None:
     errs.update(library["errs"])
     _add(launches, library["launches"])
     # slice 13: the sharded builders at mesh 1x1 (each call's counts set to 0
-    # just before it)
-    meshed = mesh_phase(card)
-    _add(launches, meshed["launches"])
+    # just before it); slice 14: the long-context decode over the same group
+    import torch.distributed as dist
+    try:
+        meshed = mesh_phase(card)
+        _add(launches, meshed["launches"])
+        longc = long_context_phase(card, meshed.pop("mc"))
+        _add(launches, longc["launches"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print(f"launches on all paths: {launches}")
     for name in (*KERNEL_MODULES, *BACKWARD):
         if launches.get(name, 0) == 0:
             fail(f"{name} was never launched on the main path")
     rows = (numbers_phase(errs, launches) + compile_numbers_phase(errs, launches)
             + lm_numbers_phase(errs, launches) + library_numbers_phase(errs, launches))
+    # the decode row carries its time at S 524,288 (phase 14)
+    next(r for r in rows if r["name"] == "decode_attention")["at_S524288"] = \
+        longc["long"]["zamba2_1_2b"]["kernel"]
     print(json.dumps({"serve": served["serve"], "forward": fwd["forward"],
                       "train": trained["train"], "train_families": trained_families,
                       "families": families, "compile_path": pom, "workloads": wl,
                       "workloads_default_size": wl_default,
                       "kernel_library": {k: library[k] for k in
                                          ("wall_ms", "vs_compile_path_max_abs_err")},
-                      "mesh_1x1": meshed["mesh"], "card": card}))
+                      "mesh_1x1": meshed["mesh"], "long_context": longc["long"],
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -97,6 +97,15 @@ class ShapeConfig:
     kind: str                      # 'train' | 'prefill' | 'decode'
 
 
+# the four assigned LM shapes (one set for all ten archs)
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
     dp: int = 1

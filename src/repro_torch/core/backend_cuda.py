@@ -895,17 +895,56 @@ def _build_step(fn: Function, ast, device: torch.device):
     return step
 
 
+def _probe_card(device: torch.device) -> None:
+    """The probe kernel on ``device``; raises ``CudaLowerError`` unless it
+    gives x + 1."""
+    x = torch.arange(8, dtype=torch.float32, device=device)
+    o = _probe(x)
+    if not torch.equal(o.cpu(), torch.arange(8.0) + 1):
+        raise CudaLowerError(f"the probe kernel on {device} returned {o.cpu().tolist()}")
+
+
 class BatchedRunner:
     """The whole-program step over buffers with a leading batch dimension:
     one call serves a batch of invocations.  A program the step cannot
     express runs lane by lane through ``CudaProgram.__call__``: on the numpy
-    oracle on the CPU, and not at all on a card (the call raises)."""
+    oracle on the CPU, and not at all on a card (the call raises).
 
-    def __init__(self, program: "CudaProgram", batch_size: Optional[int], step):
+    Over cards (the reference's ``shard_map`` over ``jax.local_devices()``):
+    where the program's device is a card, the host holds more than one
+    (``torch.cuda.device_count()``) and they divide ``batch_size``, each
+    card runs its own step (lowered for it, after the probe kernel passed
+    on it) on its share of the lanes, and the results are gathered on the
+    program's device.  ``devices`` says how many served.  Nothing falls
+    back: a card whose probe, lowering or step fails raises.  ``devices=``
+    gives the device list in place of the host's cards (the tests' seam:
+    two CPU devices)."""
+
+    def __init__(self, program: "CudaProgram", batch_size: Optional[int], step,
+                 devices: Optional[List[torch.device]] = None):
         self.program = program
         self.batch_size = batch_size
         self._sequential = step is None
         self._step = step
+        self._steps = None                 # [(device, step)] where the batch splits
+        self.devices = 1
+        if step is None:
+            return
+        if devices is None:
+            dev = program.device
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if dev.type == "cuda" else [dev])
+        devices = [torch.device(d) for d in devices]
+        n = len(devices)
+        if n > 1 and batch_size and batch_size % n == 0:
+            steps = []
+            for d in devices:
+                if d.type == "cuda":
+                    _probe_card(d)
+                steps.append((d, step if d == program.device else
+                              _build_step(program.fn, program.ast, d)))
+            self._steps = steps
+            self.devices = n
 
     def _infer_batch(self, arrays: Dict[str, Any]) -> int:
         if arrays:
@@ -931,8 +970,13 @@ class BatchedRunner:
         bufs = prog._batch_bufs(arrays, b)
         with telemetry.span("backend.execute", _cat="backend",
                             backend="cuda_batched", fn=prog.fn.name,
-                            batch=b):
-            return self._step(bufs, batch=b)
+                            batch=b, devices=self.devices):
+            if self._steps is None:
+                return self._step(bufs, batch=b)
+            n = b // self.devices
+            outs = [step({k: v[i * n:(i + 1) * n].to(dev) for k, v in bufs.items()}, batch=n)
+                    for i, (dev, step) in enumerate(self._steps)]
+            return {k: torch.cat([o[k].to(prog.device) for o in outs]) for k in outs[0]}
 
 
 class CudaProgram:

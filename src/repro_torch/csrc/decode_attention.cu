@@ -39,9 +39,12 @@
 //   the output is the same bits from run to run.
 //
 // Layouts (all contiguous, 16-byte aligned): q (B, Hq, D), k/v (B, Hkv, S,
-// D), length (B,) int32, out (B, Hq, D) in q's dtype.  Query head h uses kv
-// head h / (Hq / Hkv).  Positions at or past length[b] contribute nothing; a
-// row with length 0 has no valid key and returns 0.
+// D), length (B,) int32, out (B, Hq, D) in q's dtype, and where asked lse
+// (B, Hq) f32: each row's log-sum-exp of its scaled scores over the valid
+// keys, in natural-log units (the partial (o, lse) that a sequence-parallel
+// decode merges across ranks).  Query head h uses kv head h / (Hq / Hkv).
+// Positions at or past length[b] contribute nothing; a row with length 0
+// has no valid key and returns o = 0, lse = -inf.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +60,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplits = 8;      // the portable cluster size
 constexpr int kMaxHeads = 8;
+constexpr float kLn2 = 0.69314718055994530942f;
 
 // 16 bytes of a row as E floats
 template <typename T> struct Row;
@@ -106,8 +110,8 @@ __device__ __forceinline__ float weight(float m, float mx) {
 template <typename T, int D, int HG>
 __global__ void __launch_bounds__(kThreads, HG <= 4 ? 2 : 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ length, T* __restrict__ out, int hq, int hkv, int s,
-              int splits, float qscale) {
+              const int* __restrict__ length, T* __restrict__ out, float* __restrict__ lse,
+              int hq, int hkv, int s, int splits, float qscale) {
   constexpr int E = Row<T>::E;            // elements a lane holds of a row
   constexpr int LPR = D / E;              // lanes a row
   constexpr int RPW = 32 / LPR;           // rows a warp step
@@ -283,7 +287,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       rm[r] = r < splits ? *cluster.map_shared_rank(&cm[g], r) : -INFINITY;
       mx = fmaxf(mx, rm[r]);
     }
-    float o = 0.f;
+    float o = 0.f, lg = -INFINITY;
     if (mx != -INFINITY) {              // length 0: no valid key, the output is 0
       float a = 0.f, sum = 0.f;
 #pragma unroll
@@ -295,8 +299,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         }
       }
       o = a / sum;
+      // the running max is in base 2 (scores pre-scaled by log2(e)): back to
+      // natural-log units once, here
+      lg = (mx + log2f(sum)) * kLn2;
     }
     out[((size_t)b * hq + h0 + g) * D + d] = from_f<T>(o);
+    if (lse != nullptr && d == 0) lse[(size_t)b * hq + h0 + g] = lg;
   }
   cluster.sync();                       // no CTA leaves while its partial is read
 }
@@ -356,13 +364,14 @@ struct Launch {
 
 // dtype: 0 = float32, 1 = bfloat16.  `heads` query heads a CTA (a divisor of
 // hq / hkv, at most 8), `splits` CTAs a cluster (1 to 8), qscale = scale *
-// log2(e).  Returns cudaGetLastError() after the launch (0 on success);
+// log2(e).  `lse` (B, Hq) f32, or null where the caller does not ask for it.
+// Returns cudaGetLastError() after the launch (0 on success);
 // cudaErrorInvalidValue for a shape, split or pointer the kernel does not
 // take.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* length, void* out, int b, int hq, int hkv,
-                                       int s, int d, int heads, int splits, float qscale,
-                                       int dtype, void* stream) {
+                                       const void* length, void* out, void* lse, int b,
+                                       int hq, int hkv, int s, int d, int heads, int splits,
+                                       float qscale, int dtype, void* stream) {
   if (b <= 0 || hkv <= 0 || hq % hkv != 0 || s <= 0 || heads < 1 || heads > kMaxHeads ||
       (hq / hkv) % heads != 0 || splits < 1 || splits > kMaxSplits ||
       (long long)b * hkv * splits > 2147483647LL)
@@ -373,7 +382,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   const void* fn = pick(dtype, d, heads);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   Launch l(dim3(b * hkv * splits, hq / hkv / heads), splits, static_cast<cudaStream_t>(stream));
-  void* args[] = {&q, &k, &v, &length, &out, &hq, &hkv, &s, &splits, &qscale};
+  void* args[] = {&q, &k, &v, &length, &out, &lse, &hq, &hkv, &s, &splits, &qscale};
   const cudaError_t err = cudaLaunchKernelExC(&l.cfg, fn, args);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -21,6 +21,7 @@ operator, for a sum whose consumers are sharded (Mamba2's norm).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -219,8 +220,12 @@ def mean_over_model(v: torch.Tensor, tp_: Optional[TP]) -> torch.Tensor:
 # the batch axes (pod x data)
 # --------------------------------------------------------------------------
 def batch_group(mc: MeshContext):
+    """The group over the batch axes present (None without one, or where
+    the batch is replicated: ``MeshContext.with_replicated_batch``)."""
     axes = tuple(a for a in BATCH_AXES if a in mc.shape)
-    return mc.group(axes) if axes else None
+    if not axes or mc.replicated_batch:
+        return None
+    return mc.group(axes)
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -247,7 +252,7 @@ def gather_batch(x: torch.Tensor) -> torch.Tensor:
 def batch_place() -> tuple:
     """(this rank's index, the number of batch shards)."""
     mc = current()
-    if mc is None:
+    if mc is None or mc.replicated_batch:
         return 0, 1
     axes = tuple(a for a in BATCH_AXES if a in mc.shape)
     return mc.index(axes), mc.size(axes)
@@ -283,3 +288,93 @@ def vocab_nll(logits: torch.Tensor, labels: torch.Tensor, tp_: TP) -> torch.Tens
     gold = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])[..., 0]
     gold = torch.where(inside, gold, torch.zeros((), dtype=gold.dtype, device=gold.device))
     return lse - reduce_from_model(gold, tp_)
+
+
+# --------------------------------------------------------------------------
+# the sequence-parallel decode
+# --------------------------------------------------------------------------
+def decode_partial(q: torch.Tensor, k_range: torch.Tensor, v_range: torch.Tensor,
+                   length: torch.Tensor, offset: int):
+    """The partial (o, lse) of the cache positions [offset, offset + S_r)
+    that ``k_range`` / ``v_range`` (B, Hkv, S_r, D) hold: the decode kernel
+    with ``return_lse`` at the local length clamp(length - offset, 0, S_r).
+    A range wholly past ``length`` gives o = 0, lse = -inf."""
+    from repro_torch.kernels import ops
+    local = (length.to(torch.int64) - offset).clamp(0, k_range.shape[2]).to(torch.int32)
+    return ops.decode_attention(q, k_range, v_range, length=local, return_lse=True)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
+    """Flash-decoding's merge of partial (o, lse) over the ranges:
+    ``reduce(t, op)`` combines ``t`` over them (``op`` a ``ReduceOp``, MAX
+    or SUM).  m = max lse, w = exp(lse - m), out = sum(w o) / sum(w), in
+    f32, returned in o's dtype.  A range with no valid key (lse = -inf)
+    weighs 0; a row with none in any range gives 0."""
+    m = reduce(lse, dist.ReduceOp.MAX)
+    # an empty row everywhere has m = -inf: weigh it against 0 instead, so
+    # that exp gives 0 and not NaN
+    w = torch.exp(lse - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    num = reduce(o.float() * w[..., None], dist.ReduceOp.SUM)
+    den = reduce(w, dist.ReduceOp.SUM)
+    # den >= 1 wherever a key is valid (the range at the max weighs 1); 0
+    # elsewhere, where num is 0 too
+    return (num / den.clamp(min=1.0)[..., None]).to(o.dtype)
+
+
+def decode_attention_sp(q: torch.Tensor, k_shard: torch.Tensor, v_shard: torch.Tensor,
+                        length: Optional[torch.Tensor], group) -> torch.Tensor:
+    """Decode attention over a KV cache whose sequence is split over
+    ``group``: rank r holds the contiguous positions [r S_l, (r + 1) S_l) of
+    the cache in ``k_shard`` / ``v_shard`` (B, Hkv, S_l, D); q (B, Hq, D)
+    and ``length`` (B,) int32 (None: every position) are the same on every
+    rank.  Returns the whole cache's (B, Hq, D) on every rank, in q's dtype.
+
+    Each rank takes its ``decode_partial``, then ``merge_partials`` over the
+    group: an all-reduce MAX of lse, all-reduce SUMs of exp(lse - m) o and
+    of exp(lse - m) in f32, a division.  This is what GSPMD does for
+    ``ref.decode_attention`` on an S-sharded cache
+    (``tests/helpers/dist_checks.py`` ``check_decode_sp_longcontext``).  A
+    rank whose range lies wholly past ``length`` (most ranks early in a long
+    decode) adds weight 0.
+
+    The model's decode does not call this: the reference's cache specs give
+    ``model`` to ``kv_heads`` before ``kv_seq_sharded`` asks for it, so they
+    never shard the sequence (ROADMAP Queue 3 item 15)."""
+    s_l = k_shard.shape[2]
+    if length is None:
+        length = torch.full((q.shape[0],), s_l * dist.get_world_size(group),
+                            dtype=torch.int32, device=q.device)
+    o, lse = decode_partial(q, k_shard, v_shard, length, dist.get_rank(group) * s_l)
+    return merge_partials(o, lse, lambda t, op: all_reduce(t, group, op=op))
+
+
+# --------------------------------------------------------------------------
+# counting
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def count_collectives():
+    """Within the block, ``torch.distributed``'s all_reduce, all_gather and
+    reduce_scatter are counted by kind: yields {kind: [calls, bytes]}, the
+    bytes those a call hands over (an all-gather's gathered output, the
+    others' input), per rank.  The originals are restored on leaving."""
+    counts: dict = {}
+    orig = {k: getattr(dist, k) for k in ("all_reduce", "all_gather", "reduce_scatter")}
+
+    def nbytes(t) -> int:
+        return sum(x.numel() * x.element_size() for x in t) if isinstance(t, (list, tuple)) \
+            else t.numel() * t.element_size()
+
+    def wrap(kind, fn):
+        def counted(*args, **kw):
+            c = counts.setdefault(kind, [0, 0])
+            c[0] += 1
+            c[1] += nbytes(args[1] if kind == "reduce_scatter" else args[0])
+            return fn(*args, **kw)
+        return counted
+    for k, fn in orig.items():
+        setattr(dist, k, wrap(k, fn))
+    try:
+        yield counts
+    finally:
+        for k, fn in orig.items():
+            setattr(dist, k, fn)

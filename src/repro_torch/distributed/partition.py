@@ -98,6 +98,13 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def logical_to_sharding(logical_tree, mc: MeshContext, shapes=None):
     """Map logical-axis tuples to ``NamedSharding``s, dropping mesh axes
     that do not divide the corresponding dimension."""
@@ -143,16 +150,15 @@ def batch_shardings(cfg: ModelConfig, kind: str, mc: MeshContext) -> Dict:
 
 def cache_logical_axes(cfg: ModelConfig, long_context: bool = False):
     """Logical axes for the decode cache (``init_cache``'s structure).
-    ``long_context`` (the KV sequence sharded over ``model``) is not ported:
-    its decode needs the kernel's partial (o, lse) to combine ranks."""
-    if long_context:
-        raise NotImplementedError(
-            "long_context=True (the sequence-sharded decode) is not ported yet: ROADMAP "
-            "Queue 1 item 9(b)")
+    ``long_context`` asks for the KV sequence over ``model``
+    (``kv_seq_sharded``), as the reference does; ``MeshContext.spec`` gives
+    ``model`` to ``kv_heads`` first, so the sequence is never sharded and
+    the specs equal those without it (ROADMAP Queue 3 item 15)."""
+    kv_seq = "kv_seq_sharded" if long_context else "kv_seq"
 
     def kv_axes():
-        return {"k": ("layers", "batch", "kv_heads", "kv_seq", None),
-                "v": ("layers", "batch", "kv_heads", "kv_seq", None)}
+        return {"k": ("layers", "batch", "kv_heads", kv_seq, None),
+                "v": ("layers", "batch", "kv_heads", kv_seq, None)}
 
     if cfg.family in ("dense", "audio", "vlm"):
         return kv_axes()

@@ -18,6 +18,7 @@ without a process group, from an abstract shape and axis names.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple
@@ -60,7 +61,10 @@ class MeshContext:
 
     ``mesh``: a ``DeviceMesh`` (process groups, this rank's coordinates), or
     None with ``shape`` and ``axis_names`` for an abstract mesh (specs and
-    local shapes only; coordinates all 0, no groups)."""
+    local shapes only; coordinates all 0, no groups).  ``replicated_batch``:
+    every rank holds the whole batch (``with_replicated_batch``)."""
+
+    replicated_batch = False
 
     def __init__(self, mesh=None, rules: Optional[Dict] = None, *,
                  shape: Optional[Sequence[int]] = None,
@@ -119,6 +123,16 @@ class MeshContext:
         from torch.distributed.tensor import Replicate, Shard
         where = {a: i for i, entry in enumerate(spec) for a in spec_axes(entry)}
         return tuple(Shard(where[a]) if a in where else Replicate() for a in self.axis_names)
+
+    def with_replicated_batch(self) -> "MeshContext":
+        """This context (same mesh, rules and groups) for a batch that the
+        batch shards do not divide, replicated as the reference's decode
+        ``tok_sh`` replicates it (``distributed/step.py:105-107``): every
+        collective over the batch axes is then the identity, since
+        otherwise a replicated token would be counted once per data rank."""
+        mc = copy.copy(self)
+        mc.replicated_batch = True
+        return mc
 
     # -- this rank's place -----------------------------------------------------
     def size(self, axes) -> int:

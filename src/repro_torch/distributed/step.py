@@ -274,23 +274,22 @@ def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, mc: MeshContext, ba
     ``(serve_step, (param_sh, cache_sh, tok_sh))`` with
     ``serve_step(model, cache, token, pos) -> (logits, cache)`` on this
     rank's shards (logits ``("batch", "vocab")``; the cache from
-    ``init_sharded_cache``, updated in place).  ``long_context`` (the KV
-    sequence over ``model``) raises ``NotImplementedError``."""
+    ``init_sharded_cache``, updated in place).  ``long_context`` gives the
+    cache the reference's long-context specs (equal to the others:
+    ``cache_logical_axes``).  A batch that the batch shards do not divide
+    (the long-context cells' batch of 1) is replicated, as the reference's
+    ``tok_sh`` is, and the step runs in ``mc.with_replicated_batch()``:
+    every rank computes the whole batch, and no collective sums it over
+    the batch axes."""
     _known_sizes(cfg, mc)
     param_sh, _, _ = make_param_shardings(cfg, mc)
     cache_sh = cache_shardings(cfg, mc, batch, max_seq, long_context)
     # divisibility-aware: batch=1 long-context cells replicate the batch axis
     tok_sh = logical_to_sharding(("batch",), mc, (batch,))
-    if not tok_sh.spec[0] and mc.size(C.BATCH_AXES) > 1:
-        # the layers take the batch as sharded over the batch axes (the MoE's
-        # routing, the loss's sums): a replicated batch is the long-context
-        # cells' case
-        raise NotImplementedError(
-            f"a decode batch of {batch} that the {mc.size(C.BATCH_AXES)} batch shards do not "
-            "divide (replicated, as the long-context cells run it): ROADMAP Queue 1 item 9(b)")
+    step_mc = mc if tok_sh.spec[0] else mc.with_replicated_batch()
 
     def serve_step(model: Model, cache, token: torch.Tensor, pos: torch.Tensor):
-        with use_mesh(mc):
+        with use_mesh(step_mc):
             return decode_step(model, cache, token, pos)
 
     return serve_step, (param_sh, cache_sh, tok_sh)

@@ -21,9 +21,14 @@ Replaces the Pallas TPU kernel ``_decode_kernel`` of
   shapes (never from ``length``: the host does not sync).  The TPU
   kernel walks and masks the whole cache and asserts ``S % bkv == 0``; any
   S works here.
+* ``return_lse``: the cluster's final merge also writes each row's
+  log-sum-exp (B, Hq) f32, in natural-log units (-inf for a row with no
+  valid key), the partial a sequence-parallel decode merges across ranks
+  (``distributed.collectives.decode_attention_sp``).
 
 A CUDA tensor goes to the kernel (or the wrapper raises); a CPU tensor goes
-to the plain version ``ref.decode_attention``.
+to the plain version ``ref.decode_attention``; a ``meta`` tensor to a
+shape-only branch that counts the kernel's work (``meta.py``).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import meta as _meta
 from .autotune import DECODE_MAX_SPLITS, HEAD_DIMS, decode_heads_per_cta, pom_decode_schedule
 from .ref import decode_attention as decode_attention_plain
 
@@ -50,7 +56,7 @@ def _kernel(name: str = "decode_attention_launch"):
         fn = getattr(_build.load("decode_attention"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "decode_attention_launch":
-            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+            fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         else:
             fn.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         fn.restype = i
@@ -72,14 +78,21 @@ def max_active_clusters(d: int, heads: int, splits: int, dtype: torch.dtype) -> 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      length: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None, splits: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Hq, D), k/v: (B, Hkv, S, D), length: (B,) -> (B, Hq, D).
+                     scale: Optional[float] = None, splits: Optional[int] = None,
+                     return_lse: bool = False):
+    """q: (B, Hq, D), k/v: (B, Hkv, S, D), length: (B,) -> (B, Hq, D), and
+    with ``return_lse`` also each row's log-sum-exp (B, Hq) f32.
 
     ``splits`` CTAs (1-8) share each (batch, kv head); without it,
     ``pom_decode_schedule``'s."""
     global launches
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, length=length, scale=scale)
+        return decode_attention_plain(q, k, v, length=length, scale=scale,
+                                      return_lse=return_lse)
+    if q.device.type == "meta":
+        _meta.add("decode_attention", *_meta.decode_attention(q, k, return_lse))
+        out = torch.empty_like(q)
+        return (out, q.new_empty(q.shape[:2], dtype=torch.float32)) if return_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
@@ -114,11 +127,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"decode_attention: splits {splits} not in 1..{DECODE_MAX_SPLITS}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-                   out.data_ptr(), b, hq, hkv, s, d, decode_heads_per_cta(group), splits,
-                   scale * math.log2(math.e), _DTYPES[q.dtype], stream)
+                   out.data_ptr(), lse.data_ptr() if return_lse else None, b, hq, hkv, s, d,
+                   decode_heads_per_cta(group), splits, scale * math.log2(math.e),
+                   _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -33,7 +33,8 @@ kernels of ``csrc/flash_attention.cu``.
   well inside the bf16 tolerance of 2e-2 it is held to.
 
 A CUDA tensor goes to a kernel (or the wrapper raises); a CPU tensor goes
-to the plain version ``ref.attention``.
+to the plain version ``ref.attention``; a ``meta`` tensor to a shape-only
+branch that counts the kernel's work (``meta.py``).
 
 **The backward** (``flash_attention_backward``, ``csrc/flash_attention_bwd.cu``;
 ``FlashAttention`` is the ``torch.autograd.Function`` that joins the two):
@@ -81,6 +82,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import meta as _meta
 from .autotune import (CUDA_CORES, FLASH_BKV, FLASH_BQ, FLASH_NAIVE, FLASH_TC_NAIVE,
                        FLASH_TC_TILES, HEAD_DIMS, TENSOR_CORES, attention_bwd_route,
                        attention_route)
@@ -156,6 +158,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if return_lse:
             return flash_attention_lse_plain(q, k, v, causal=causal, scale=scale)
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        _meta.add("flash_attention", *_meta.attention(q, k, causal, return_lse))
+        out = torch.empty_like(q)
+        return (out, q.new_empty(q.shape[:3], dtype=torch.float32)) if return_lse else out
     _check_qkv("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -226,6 +232,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches_bwd, launches_bwd_tc
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        _meta.add("flash_attention_bwd", *_meta.attention_backward(q, k, causal))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _check_qkv("flash_attention_backward", q, k, v, o=o, do=do, lse=lse)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape

@@ -29,7 +29,8 @@ CUDA kernels of ``csrc/grouped_matmul.cu``.
   do); ``ops.grouped_matmul`` always follows ``gmm_route``.
 
 A CUDA tensor goes to a kernel (or the wrapper raises); a CPU tensor goes
-to the plain version ``ref.grouped_matmul``.
+to the plain version ``ref.grouped_matmul``; a ``meta`` tensor to a shape-only
+branch that counts the kernel's work (``meta.py``).
 
 The gradient (``GroupedMatmul``; no TPU counterpart: the reference lets XLA
 differentiate its pure-jnp grouped matmul) is two more grouped matmuls on
@@ -47,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from . import meta as _meta
 from .autotune import (GMM_BM, GMM_NAIVE_BM, GMM_TC_NAIVE, GMM_TC_TILES, TENSOR_CORES,
                        gmm_bwd_schedules, gmm_route, pom_gmm_schedule)
 from .ref import grouped_matmul as grouped_matmul_plain
@@ -95,6 +97,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int | None = None,
     global launches, launches_tc
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w)
+    if x.device.type == "meta":
+        _meta.add("grouped_matmul", *_meta.grouped_matmul(x, w))
+        return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
     out, tc = _launch(x, w, bm, tile)
     launches += 1
     launches_tc += tc
@@ -192,6 +197,9 @@ def grouped_matmul_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     if x.device.type == "cpu":
         return tuple(g if need else None
                      for g, need in zip(grouped_matmul_backward_plain(x, w, dy), needs))
+    if x.device.type == "meta":
+        _meta.add("grouped_matmul_bwd", *_meta.grouped_matmul_backward(x, w, needs))
+        return tuple(torch.empty_like(t) if need else None for t, need in zip((x, w), needs))
     _check(x, w)
     e, cap, d = x.shape
     f = w.shape[2]

@@ -37,13 +37,15 @@ kernels of ``csrc/matmul_pom.cu``.
   ``matmul_route``.
 
 A CUDA tensor goes to a kernel (or the wrapper raises); a CPU tensor goes
-to the plain version ``ref.matmul``.
+to the plain version ``ref.matmul``; a ``meta`` tensor to a shape-only
+branch that counts the kernel's work (``meta.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from . import meta as _meta
 from .autotune import (CUDA_CORES, MATMUL_NAIVE, MATMUL_RING_TILE, MATMUL_TC_NAIVE,
                        MATMUL_TC_TILES, MATMUL_TILES, RING, TENSOR_CORES, matmul_route)
 from .ref import matmul as matmul_plain
@@ -90,6 +92,9 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None, bn: int |
     global launches, launches_tc, launches_ring
     if x.device.type == "cpu":
         return matmul_plain(x, y)
+    if x.device.type == "meta":
+        _meta.add("matmul_pom", *_meta.matmul(x, y))
+        return x.new_empty((x.shape[0], y.shape[1]))
     if x.device.type != "cuda":
         raise ValueError(f"matmul: unsupported device {x.device}")
     if x.dim() != 2 or y.dim() != 2 or y.shape[0] != x.shape[1]:

@@ -117,18 +117,20 @@ def attention(q, k, v, *, causal: bool = True, schedule: str = "pom"):
     return _flash_cuda(q, k, v, causal=causal, bq=bq, bkv=bkv)
 
 
-def decode_attention(q, k, v, *, length=None, schedule: str = "pom"):
-    """q: (B, Hq, D), k/v: (B, Hkv, S, D), length: (B,) int32 -> (B, Hq, D)."""
+def decode_attention(q, k, v, *, length=None, schedule: str = "pom", return_lse: bool = False):
+    """q: (B, Hq, D), k/v: (B, Hkv, S, D), length: (B,) int32 -> (B, Hq, D);
+    with ``return_lse`` also each row's log-sum-exp (B, Hq) f32 (-inf for a
+    row with no valid key)."""
     _check(schedule)
     if _plain:
-        return ref.decode_attention(q, k, v, length=length)
+        return ref.decode_attention(q, k, v, length=length, return_lse=return_lse)
     q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format) for t in (q, k, v))
     (b, hq, d), (hkv, s) = q.shape, k.shape[1:3]
     splits = 1
     if schedule == "pom":
         splits = pom_decode_schedule(b * hkv, s, hq // hkv, d, q.element_size()).splits
-    return _decode_cuda(q, k, v, length=length, splits=splits)
+    return _decode_cuda(q, k, v, length=length, splits=splits, return_lse=return_lse)
 
 
 def grouped_matmul(x, w, *, schedule: str = "pom"):

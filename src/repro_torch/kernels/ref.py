@@ -162,10 +162,13 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, return_lse: bool = False):
     """Single-token decode. q: (B, Hq, D), k/v: (B, Hkv, S, D).
 
-    ``length``: (B,) valid KV prefix per batch row (None = full)."""
+    ``length``: (B,) valid KV prefix per batch row (None = full).  With
+    ``return_lse`` also each row's log-sum-exp of its scaled scores over the
+    valid keys, (B, Hq) f32, natural log (-inf for a row with no valid
+    key, whose output is 0)."""
     b, hq, d = q.shape
     hkv, s_len = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -178,8 +181,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         pos = torch.arange(s_len, device=q.device)
         mask = (pos[None, :] < length.to(q.device)[:, None])[:, None, :].expand(b, hq, s_len)
-    o = _softmax_av(s[:, :, None, :], mask[:, :, None, :], vr)
-    return o[:, :, 0, :].to(q.dtype)
+    o, m, l = _softmax_av_parts(s[:, :, None, :], mask[:, :, None, :], vr)
+    o = o[:, :, 0, :].to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, -math.inf))
+    return o, lse[:, :, 0, 0]
 
 
 def offset_grid(trips, coefs, base: int, device) -> torch.Tensor:

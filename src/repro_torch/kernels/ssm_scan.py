@@ -24,7 +24,8 @@ kernels of ``csrc/ssm_scan.cu``.
   (``autotune.SCAN_ROUTES``).
 
 A CUDA tensor goes to the kernels (or the wrapper raises); a CPU tensor goes
-to the plain version ``ref.ssm_scan``.
+to the plain version ``ref.ssm_scan``; a ``meta`` tensor to a shape-only
+branch that counts the kernels' work (``meta.py``).
 
 The gradient (``SsmScan``; no TPU counterpart: the reference lets XLA
 differentiate its pure-jnp scan) is ``scan_backward``: one chunked reverse
@@ -42,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from . import meta as _meta
 from .autotune import SCAN_NAIVE, SCAN_TILES, pom_scan_schedule, scan_smem_bytes
 from .ref import ssm_scan as ssm_scan_plain
 from .ref import ssm_scan_backward as ssm_scan_backward_plain
@@ -126,6 +128,11 @@ def _forward(x, a, b, c, chunk: int, p_tile: int):
     global launches
     if x.device.type == "cpu":
         return (*ssm_scan_plain(x, a, b, c), None)
+    if x.device.type == "meta":
+        _meta.add("ssm_scan", *_meta.ssm_scan(x, b, bc_groups(b, c)))
+        bsz, _, nh, p = x.shape
+        return torch.empty_like(x), x.new_empty((bsz, nh, b.shape[3], p),
+                                                dtype=torch.float32), None
     out = _launch(x, a, b, c, chunk, p_tile)
     launches += 1
     return out
@@ -352,6 +359,11 @@ class SsmScan(torch.autograd.Function):
                 dy = torch.zeros_like(x)
             grads = tuple(g if need else None for g, need in
                           zip(ssm_scan_backward_plain(x, a, b, c, dy, dh), needs))
+        elif x.device.type == "meta":
+            _meta.add("ssm_scan_bwd", *_meta.ssm_scan_backward(x, b, bc_groups(b, c)))
+            grads = tuple(torch.empty(t.shape, dtype=t.dtype if t is x else torch.float32,
+                                      device="meta") if need else None
+                          for t, need in zip((x, a, b, c), needs))
         else:
             grads = scan_backward(x, a, b, c, dy, dh, Saved(h, *scratch, ctx.chunk),
                                   needs=needs)

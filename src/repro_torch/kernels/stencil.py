@@ -17,13 +17,15 @@ hand-written CUDA kernels of ``csrc/stencil.cu``.
   as on the TPU, so every T gives the bits of ``steps`` single sweeps.
 
 A CUDA tensor goes to the kernels (or the wrapper raises); a CPU tensor
-goes to the plain version ``ref.jacobi2d``.
+goes to the plain version ``ref.jacobi2d``; a ``meta`` tensor to a
+shape-only branch that counts the kernels' work (``meta.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from . import meta as _meta
 from .autotune import JACOBI_MAX_WIDTH, JACOBI_TILE, JACOBI_TILES, jacobi_plan, \
     jacobi_smem_bytes, pom_jacobi_schedule
 from .ref import jacobi2d as jacobi2d_plain
@@ -57,6 +59,9 @@ def jacobi2d(x: torch.Tensor, steps: int = 1, *, sweeps: int = 0,
     global launches
     if x.device.type == "cpu":
         return jacobi2d_plain(x, steps)
+    if x.device.type == "meta":
+        _meta.add("stencil", *_meta.jacobi2d(x, steps))
+        return torch.empty_like(x)
     if x.device.type != "cuda":
         raise ValueError(f"jacobi2d: unsupported device {x.device}")
     if x.dim() != 2:

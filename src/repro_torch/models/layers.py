@@ -74,8 +74,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     if positions.dim() == 1:
         positions = positions[None]
     positions = positions[:, None, :]                  # broadcast over heads
-    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
-                                          device=x.device) / half))
+    # the frequencies correctly rounded to f32, as XLA folds the reference's
+    # constant: PyTorch's f32 pow is 1 ulp off at some, which a position of
+    # 10^5 turns into 10^-3 of a rotation
+    freqs = (1.0 / (theta ** (torch.arange(0, half, dtype=torch.float64,
+                                           device=x.device) / half))).float()
     ang = positions[..., None].float() * freqs         # (B, 1, S, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half].float(), x[..., half:].float()

@@ -39,7 +39,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -197,19 +198,32 @@ def _xlstm_block(bp: Block, x: torch.Tensor, cfg: ModelConfig, with_slstm: bool)
     return shard_hint(x, ("batch", "seq", "embed"))
 
 
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm, torch.ops.aten.matmul)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots``: a matrix product's
+    output is kept, everything else (the kernels' autograd Functions too)
+    runs again in the backward."""
+    return CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, cfg: ModelConfig):
     """The reference's ``jax.checkpoint`` around a block (``cfg.remat``):
     "none" runs ``fn`` as it is; "full" keeps only the block's inputs and
     runs it again in the backward (``torch.utils.checkpoint``, non-reentrant;
-    the blocks draw no random numbers, so no RNG state is stashed).  "dots"
-    (keep the matmul outputs) is not ported: no shipped config uses it."""
+    the blocks draw no random numbers, so no RNG state is stashed); "dots"
+    keeps the matrix products' outputs besides (selective checkpointing
+    with ``_save_dots``)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
     if cfg.remat == "dots":
-        raise NotImplementedError("remat='dots' is not ported (no shipped config uses it); "
-                                  "use 'full' or 'none'")
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 

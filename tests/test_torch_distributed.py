@@ -7,16 +7,23 @@ against the JAX package's, on the CPU.
   its checks), against the port's on an abstract mesh: the four families
   (reduced) under ``fsdp`` / ``zero1`` on and off at meshes (1, 1), (2, 2)
   and (2, 2, 2), reduced smollm with 6 / 3 heads (not divisible at model 2)
-  and the full ``smollm_360m`` widths.  The same subprocess holds the
+  and the full ``smollm_360m`` widths, and the long-context cache specs of
+  the four families (equal to JAX's, and in JAX equal to the ordinary
+  ones: the ``kv_seq_sharded`` rule is dead).  The same subprocess holds the
   reference's own sharded granite step, with tokens dropped, to its
   one-device loss: GSPMD keeps the MoE's global semantics, which the port's
-  sharded MoE must reproduce (``tests/test_torch_distributed_train.py``).
+  sharded MoE must reproduce (``tests/test_torch_distributed_train.py``),
+  and gives XLA's argument bytes of the reference's small-mesh dry-run
+  cell, which the port's dry run must equal.
 * In one gloo group of 4 processes (``tests/torch_dist_checks.py``):
   Megatron's conjugate pair leaves replicated gradients as one process
   has them (the all-reduce that differentiates to a second all-reduce
   multiplies them by the model size), int8 compressed sums, GPipe over 4
   stages, a checkpoint saved at 2x2 restored bit for bit at 4x1 and 1x4,
-  and the server at 2x2.  The documented 2x2 command of
+  the server at 2x2, the SP merge of the decode kernel's partial (o, lse)
+  against JAX's whole-cache decode, the long-context decode at 2x2 with a
+  replicated batch of 1, and the collectives of the four families' steps,
+  which the dry run's 2x2 cells must count.  The documented 2x2 command of
   ``launch/train.py`` runs.
 * One process: every collective is the identity outside a mesh context,
   and the pieces without a group (placements, local shapes, shard_hint,
@@ -101,6 +108,8 @@ def _port_specs(case) -> dict:
     return {"params": {n: _enc(s.spec) for n, s in param_sh.items()},
             "opt": {n: _enc(s.spec) for n, s in opt_sh.m.items()},
             "cache": dict(flat(step_mod.cache_shardings(cfg, mc, *CACHE))),
+            "cache_long": dict(flat(step_mod.cache_shardings(cfg, mc, *CACHE,
+                                                             long_context=True))),
             "batch": {k: dict(flat(step_mod.batch_shardings(cfg, k, mc)))
                       for k in ("train", "prefill", "decode")}}
 
@@ -130,6 +139,31 @@ def test_specs_equal_the_jax_package(case, jax_specs):
     _against_jax(got["opt"], want["opt"])
     assert got["cache"] == want["cache"]
     assert got["batch"] == want["batch"]
+
+
+# the four families at each mesh (the cache's specs do not depend on fsdp or
+# zero1)
+LONG_CASES = [[a, {}, m, True, True] for a in ARCHS for m in MESHES]
+
+
+@pytest.mark.parametrize("case", LONG_CASES, ids=case_id)
+def test_long_context_cache_specs_equal_the_jax_package(case, jax_specs):
+    """``cache_logical_axes(cfg, long_context=True)`` through
+    ``logical_to_sharding``: every leaf's spec the JAX package's."""
+    want = jax_specs["specs"][CASES.index(case)]["cache_long"]
+    assert _port_specs(case)["cache_long"] == want
+
+
+@pytest.mark.parametrize("case", LONG_CASES, ids=case_id)
+def test_reference_long_context_rule_is_dead(case, jax_specs):
+    """ROADMAP Queue 3 item 15: in the JAX package ``kv_heads`` takes
+    ``model`` before ``kv_seq_sharded`` asks for it, so the long-context
+    cache specs are the ordinary ones and the KV sequence is never
+    sharded."""
+    got = jax_specs["specs"][CASES.index(case)]
+    assert got["cache_long"] == got["cache"]
+    assert all("model" not in (spec[3] or []) for spec in got["cache_long"].values()
+               if len(spec) == 5)
 
 
 def test_indivisible_heads_keep_the_flattened_shard(jax_specs):
@@ -165,10 +199,22 @@ def test_reference_moe_is_global_under_sharding(jax_specs):
 # --------------------------------------------------------------------------
 # 4 gloo processes: the conjugate pair, compression, GPipe, elastic restore
 # --------------------------------------------------------------------------
+# the SP merge: check_decode_sp_longcontext's b, hq, hkv, s, d, and lengths
+# (None: every position) that leave ranks partial or empty
+SP_SHAPE = (2, 4, 2, 64, 16)
+SP_LENGTHS = [None, [64, 40], [5, 0]]
+# the dry run's 2x2 cells: a train step and a prefill (batch, seq), a decode
+# step (batch, max_seq)
+DRYRUN_TRAIN, DRYRUN_DECODE = (4, 32), (4, 16)
+
+
 @pytest.fixture(scope="module")
 def gloo_checks(tmp_path_factory):
     d = tmp_path_factory.mktemp("elastic")
-    return run_checks("conjugate,compression,gpipe,elastic,serve", {"dir": str(d)})
+    return run_checks("conjugate,compression,gpipe,elastic,serve,sp_decode,long_decode,"
+                      "collectives", {"dir": str(d), "sp_shape": SP_SHAPE,
+                                      "sp_lengths": SP_LENGTHS, "dryrun_train": DRYRUN_TRAIN,
+                                      "dryrun_decode": DRYRUN_DECODE})
 
 
 def test_conjugate_pair_keeps_replicated_gradients(gloo_checks):
@@ -206,6 +252,101 @@ def test_serve_at_2x2_matches_one_process(gloo_checks):
     (reduced smollm and granite, prompt 8, 8 tokens)."""
     assert set(gloo_checks["serve"]) == {"smollm_360m", "granite_moe_1b"}
     assert max(gloo_checks["serve"].values()) <= 1e-5
+
+
+@pytest.mark.parametrize("lengths", SP_LENGTHS, ids=["full", "ragged", "zero"])
+def test_sp_decode_merge_equals_the_whole_cache(lengths, gloo_checks):
+    """``collectives.decode_attention_sp`` over 4 gloo ranks, each holding
+    16 of the 64 positions (the reference's ``check_decode_sp_longcontext``
+    sizes and inputs): JAX's ``ref.decode_attention`` on the whole cache
+    within 1e-5, the reference's tolerance.  Length 40 leaves rank 2
+    partial and rank 3 empty, 5 ranks 1-3 empty; the row at length 0 is 0
+    (JAX's plain version gives NaN there)."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    b, hq, hkv, s, d = SP_SHAPE
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(b, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    got = np.asarray(gloo_checks["sp_decode"][json.dumps(lengths)])
+    want = np.asarray(jref.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if lengths is None else jnp.asarray(lengths, jnp.int32)))
+    rows = [i for i in range(b) if lengths is None or lengths[i] > 0]
+    np.testing.assert_allclose(got[rows], want[rows], rtol=1e-5, atol=1e-5)
+    assert all(np.all(got[i] == 0) for i in range(b) if i not in rows)
+
+
+def test_long_context_decode_at_2x2_matches_one_process(gloo_checks):
+    """Reduced zamba2 and xlstm, batch 1 replicated over ``data``, 4 steps
+    through ``make_decode_step(long_context=True)`` at the end of a seeded
+    random cache (``check_long_decode``): xlstm, which computes replicated,
+    within 1e-6 of one process (it is bit for bit); zamba2, whose attention
+    and Mamba2 run on 2 model shards summed by an all-reduce, within 1e-5
+    (it sits 1.2e-6 off in f32 and 2e-15 in f64:
+    ``tests/test_torch_distributed_train.py`` holds the f64 run to 1e-10)."""
+    out = gloo_checks["long_decode"]
+    assert set(out) == {"zamba2_1_2b", "xlstm_1_3b"}
+    assert out["xlstm_1_3b"] <= 1e-6 and out["zamba2_1_2b"] <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def dryrun_2x2():
+    """The dry run's 2x2 cells of the four reduced families (a train step
+    of 4 x 32, a prefill of 4 x 32, a decode step at batch 4 against 16
+    positions), each family's reports in one subprocess (a fake process
+    group of 4 ranks)."""
+    code = (
+        "import json, sys\n"
+        "from repro_torch.configs import get_config, reduced\n"
+        "from repro_torch.configs.base import ShapeConfig\n"
+        "from repro_torch.launch.dryrun import run_cell\n"
+        "(b, s), (bd, sd) = json.loads(sys.argv[1])\n"
+        "out = {}\n"
+        "for arch in json.loads(sys.argv[2]):\n"
+        "    cfg = reduced(get_config(arch))\n"
+        "    out[arch] = {k: run_cell(arch, ShapeConfig(k, n, m, k), mesh='2x2', cfg=cfg)\n"
+        "                 for k, n, m in (('train', s, b), ('prefill', s, b),\n"
+        "                                 ('decode', sd, bd))}\n"
+        "print(json.dumps(out))\n")
+    r = subprocess.run([sys.executable, "-c", code, json.dumps([DRYRUN_TRAIN, DRYRUN_DECODE]),
+                        json.dumps(ARCHS)], cwd=ROOT, capture_output=True, text=True,
+                       timeout=TIMEOUT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dryrun_collectives_equal_a_gloo_run(arch, kind, dryrun_2x2, gloo_checks):
+    """The dry run's collectives at 2x2 (rank 0 of a fake process group, on
+    ``meta``) are, by kind, the calls and bytes ``count_collectives`` sees
+    on rank 0 of the real gloo run of the same step."""
+    report = dryrun_2x2[arch][kind]
+    assert report["status"] == "ok"
+    got = {k: [v["calls"], v["bytes"]] for k, v in report["collectives"].items()}
+    assert got == gloo_checks["collectives"][arch][kind]
+
+
+def test_dryrun_argument_bytes_equal_xla_s(jax_specs):
+    """The reference's ``check_dryrun_small_mesh`` cell (reduced granite,
+    vocab 256, train 8 x 64, mesh 2x2x2): the dry run's argument bytes a
+    rank are XLA's ``argument_size_in_bytes`` for the same cell: parameter,
+    moment and batch shards and the step count."""
+    code = ("import json\n"
+            "from repro_torch.configs import get_config, reduced\n"
+            "from repro_torch.configs.base import ShapeConfig\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            "cfg = reduced(get_config('granite_moe_1b'), vocab_size=256)\n"
+            "print(json.dumps(run_cell('granite_moe_1b', ShapeConfig('t', 64, 8, 'train'),\n"
+            "                          mesh='2x2x2', cfg=cfg)))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=TIMEOUT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0, r.stderr[-4000:]
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    assert report["status"] == "ok" and report["chips"] == 8
+    assert report["memory"]["argument_size_in_bytes"] == jax_specs["dryrun_argument_bytes"]
 
 
 def test_train_cli_runs_at_2x2(tmp_path):
@@ -280,15 +421,33 @@ def test_meshes_refuse_what_the_world_cannot_hold(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-def test_long_context_cache_is_not_ported_yet():
-    cfg = reduced(get_config("smollm_360m"))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\(b\)"):
-        cache_logical_axes(cfg, long_context=True)
+def test_long_context_decode_builds_with_a_replicated_batch():
+    """``long_context=True`` asks for ``kv_seq_sharded``; a batch of 1, which
+    the 2 data shards do not divide, is replicated (token, pos and the
+    cache's batch dim), as the reference's ``tok_sh`` is."""
+    cfg = reduced(get_config("zamba2_1_2b"))
+    assert cache_logical_axes(cfg, long_context=True)["shared_kv"]["k"][3] == "kv_seq_sharded"
     mc = MeshContext(shape=(2, 2), axis_names=("data", "model"))
-    with pytest.raises(NotImplementedError):
-        step_mod.make_decode_step(cfg, ParallelConfig(), mc, 8, 16, long_context=True)
-    with pytest.raises(NotImplementedError, match=r"batch of 1 .* 9\(b\)"):
-        step_mod.make_decode_step(cfg, ParallelConfig(), mc, 1, 16)
+    _, (_, cache_sh, tok_sh) = step_mod.make_decode_step(cfg, ParallelConfig(), mc, 1, 16,
+                                                         long_context=True)
+    assert tok_sh.spec == (None,)
+    assert cache_sh["shared_kv"]["k"].spec == (None, None, "model", None, None)
+    assert cache_sh["ssm"]["h"].spec == (None, None, "model", None, None)
+
+
+def test_replicated_batch_makes_the_batch_collectives_identities():
+    """In ``with_replicated_batch()`` every collective over the batch axes
+    is the identity (no group is touched: the mesh is abstract); the
+    context it was made from is unchanged."""
+    mc = MeshContext(shape=(2, 2), axis_names=("data", "model"))
+    rep = mc.with_replicated_batch()
+    x = torch.randn(3, 4)
+    with use_mesh(rep):
+        assert C.batch_group(rep) is None and C.batch_place() == (0, 1)
+        assert C.batch_sum(x) is x and C.gather_batch(x) is x
+        assert rep.spec(("batch", "embed")) == mc.spec(("batch", "embed"))
+    with use_mesh(mc):
+        assert not mc.replicated_batch and C.batch_place() == (0, 2)
 
 
 def test_input_specs_are_meta_tensors():

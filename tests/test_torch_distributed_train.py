@@ -89,15 +89,29 @@ def test_sharded_steps_match_the_one_process_steps(arch, tmp_path):
         assert out["dropped"] > 0
 
 
-def test_zamba2_sharded_gradients_in_f64(tmp_path):
+@pytest.fixture(scope="module")
+def zamba2_f64(tmp_path_factory):
+    args = _family_args("zamba2_1_2b", tmp_path_factory.mktemp("f64"), f64=True,
+                        grad_rtol=F64_GRAD_RTOL, cases=[MESH_2x2, MESH_1x4])
+    return run_checks("family,long_decode", args)
+
+
+def test_zamba2_sharded_gradients_in_f64(zamba2_f64):
     """Reduced zamba2 with every f32 in float64, at 2x2 and 1x4: the sharded
     gradients within 1e-10 of the one-process ones (the module docstring
     says why f32 is held to 1e-4, at 2x2)."""
-    args = _family_args("zamba2_1_2b", tmp_path, f64=True, grad_rtol=F64_GRAD_RTOL,
-                        cases=[MESH_2x2, MESH_1x4])
-    out = run_checks("family", args)["family"]
+    out = zamba2_f64["family"]
     for k in ("2x2|{}", "1x4|{}"):
         assert out[k]["grad_rel_norm_max"] <= F64_GRAD_RTOL, out
+
+
+def test_long_context_decode_in_f64_matches_one_process(zamba2_f64):
+    """The long-context decode at 2x2 (``check_long_decode``: batch 1
+    replicated over ``data``, a seeded random cache) in float64: reduced
+    zamba2 and xlstm within 1e-10 of one process, so the f32 run's 1.2e-6
+    for zamba2 is rounding."""
+    out = zamba2_f64["long_decode"]
+    assert set(out) == {"zamba2_1_2b", "xlstm_1_3b"} and max(out.values()) <= 1e-10
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,8 @@ Tests marked ``gpu`` hold the CUDA kernels against the plain versions on
 the card and skip on a host without one.  JAX is imported inside the tests
 that use it, so the ``gpu`` tests also run where JAX is not installed.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -647,6 +649,34 @@ def test_decode_splits_schedule(bh, group, d, xb, s):
     if s >= autotune.DECODE_MAX_SPLITS * rows:
         assert ctas >= H100.num_sms or sc.splits == autotune.DECODE_MAX_SPLITS
         assert ctas < H100.num_sms + bh * (group // sc.heads) or sc.splits == 1
+
+
+@pytest.mark.parametrize("bh,group,d,xb", DECODE_SHAPES)
+def test_decode_lse_plain_matches_numpy(bh, group, d, xb):
+    """``return_lse`` of the plain version (the CPU path of
+    ``decode_attention``): each row's log-sum-exp of its scaled scores over
+    its valid keys, in natural-log units, against numpy in float64 on the
+    same inputs, with ragged lengths and a row at length 0 (lse -inf,
+    output 0); the output is the one without ``return_lse``."""
+    b = 2
+    hkv, hq, s = bh // b, bh // b * group, 37
+    rng = np.random.default_rng(bh * group + d)
+    dtype = "float32" if xb == 4 else "bfloat16"
+    q, tq = _pair(rng.normal(size=(b, hq, d)).astype(np.float32), dtype)
+    k, tk = _pair(rng.normal(size=(b, hkv, s, d)).astype(np.float32), dtype)
+    _, tv = _pair(rng.normal(size=(b, hkv, s, d)).astype(np.float32), dtype)
+    length = np.array([0, 23], np.int32)
+    o, lse = ops.decode_attention(tq, tk, tv, length=torch.from_numpy(length),
+                                  return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+    assert torch.equal(o, ops.decode_attention(tq, tk, tv, length=torch.from_numpy(length)))
+    qf, kf = tq.double().numpy(), tk.double().numpy()
+    scores = np.einsum("bhd,bhkd->bhk", qf, np.repeat(kf, group, axis=1)) / math.sqrt(d)
+    sc = scores[1, :, :length[1]]
+    top = sc.max(-1)
+    want = top + np.log(np.exp(sc - top[:, None]).sum(-1))
+    np.testing.assert_allclose(lse[1].numpy(), want, rtol=1e-6, atol=1e-5)
+    assert torch.all(lse[0] == -math.inf) and torch.all(o[0] == 0)
 
 
 def test_cpu_path_takes_any_head_dim():
@@ -1440,7 +1470,8 @@ def test_gpu_decode_matches_plain(case):
     """Every split count 1-8 and the schedule's, with ragged lengths (one
     row at length 0, one full), within the bf16 / f32 tolerance of the
     plain version; a second run of each gives the same bits; one launch a
-    call."""
+    call.  With ``return_lse`` the same output bits, and each row's lse
+    within 1e-3 of the plain version's (-inf at length 0)."""
     dev = _cuda()
     b, hq, hkv, s, d, dtype = case
     g = torch.Generator(device=dev).manual_seed(s)
@@ -1451,7 +1482,7 @@ def test_gpu_decode_matches_plain(case):
     length = torch.randint(1, s + 1, (b,), generator=g, device=dev, dtype=torch.int32)
     length[0] = 0
     length[-1] = s
-    want = tref.decode_attention(q, k, v, length=length)
+    want, want_lse = tref.decode_attention(q, k, v, length=length, return_lse=True)
     for splits in [None, *range(1, autotune.DECODE_MAX_SPLITS + 1)]:
         n0 = decode_mod.launches
         got = decode_mod.decode_attention(q, k, v, length=length, splits=splits)
@@ -1461,6 +1492,13 @@ def test_gpu_decode_matches_plain(case):
         assert torch.all(got[0] == 0), splits
         torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
         assert torch.equal(got, again), splits
+        o, lse = decode_mod.decode_attention(q, k, v, length=length, splits=splits,
+                                             return_lse=True)
+        torch.cuda.synchronize()
+        assert decode_mod.launches == n0 + 3
+        assert torch.equal(o, got) and lse.dtype == torch.float32 and lse.shape == (b, hq)
+        assert torch.all(lse[0] == -math.inf) and torch.isfinite(lse[1:]).all()
+        torch.testing.assert_close(lse[1:], want_lse[1:], rtol=0, atol=1e-3)
 
 
 @pytest.mark.gpu

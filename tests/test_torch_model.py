@@ -207,7 +207,8 @@ def test_port_imports_neither_jax_nor_repro():
         " or m == 'benchmarks' or m.startswith('benchmarks.')]\n"
         "assert len(mods) >= 56, mods\n"
         "for m in ('models.moe', 'models.mamba2', 'models.xlstm', 'kernels.grouped_matmul',"
-        " 'kernels.ssm_scan', 'kernels.matmul_pom', 'kernels.stencil'):"
+        " 'kernels.ssm_scan', 'kernels.matmul_pom', 'kernels.stencil', 'kernels.meta',"
+        " 'launch.dryrun', 'distributed.collectives'):"
         " assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
@@ -325,6 +326,35 @@ def test_decode_matches_forward_for_recurrent_families(arch):
     for t in range(40):
         logits, cache = decode_step(model, cache, tokens[:, t], torch.tensor([t, t]))
         np.testing.assert_allclose(logits.numpy(), full[:, t].numpy(), **F32)
+
+
+def test_long_context_decode_matches_jax():
+    """Reduced zamba2 against a cache of 131,072 positions filled with
+    seeded random values (numpy, the same for both), two decode steps at
+    positions 131,070 and 131,071 (RoPE at a long position, the decode
+    attention over the whole cache): JAX's ``decode_step`` (its plain
+    attention) to the family tolerance, logits and cache."""
+    max_seq = 131_072
+    jcfg = jreduced(jget_config("zamba2_1_2b"))
+    tcfg = reduced(get_config("zamba2_1_2b"))
+    jparams = jinit_params(jax.random.key(12), jcfg)
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
+    rng = np.random.default_rng(25)
+    host = jax.tree_util.tree_map(
+        lambda a: rng.normal(size=a.shape).astype(np.float32),
+        jax.eval_shape(lambda: jinit_cache(jcfg, 1, max_seq)))
+    jcache = jax.tree_util.tree_map(jnp.asarray, host)
+    tcache = {k: ({kk: torch.from_numpy(vv.copy()) for kk, vv in v.items()})
+              for k, v in host.items()}
+    jstep = jax.jit(lambda p, c, t, q: jdecode_step(p, jcfg, c, t, q))
+    for pos in (max_seq - 2, max_seq - 1):
+        tok = rng.integers(0, tcfg.vocab_size, (1,))
+        jl, jcache = jstep(jparams, jcache, jnp.asarray(tok, jnp.int32),
+                           jnp.asarray([pos], jnp.int32))
+        tl, tcache = decode_step(model, tcache, torch.from_numpy(tok),
+                                 torch.tensor([pos], dtype=torch.int32))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **F32)
+    _assert_cache_equal(tcache, _jax_cache_np(jcache))
 
 
 def test_moe_forward_equals_decode_only_without_capacity_drops():

@@ -178,6 +178,29 @@ def test_batched_equals_sequential_bitforbit(name):
                 f"{name}:{k} batch lane {i} differs from sequential run"
 
 
+@pytest.mark.parametrize("name", ["gemm", "bicg", "jacobi2d"])
+def test_batched_split_over_devices_equals_one_device(name):
+    """``batched(B)`` over several devices (the reference's ``shard_map``
+    over its local devices; here two CPU devices through the runner's
+    device list): each device runs its own step on half the lanes, the
+    results gathered in lane order, equal to the one-device run bit for
+    bit; ``devices`` says 2."""
+    from repro_torch.core.backend_cuda import BatchedRunner
+    B = 4
+    f = CASES[name](workloads)
+    prog = pcompile(f.fn, target="cuda", device=CPU)
+    singles = [_inputs(f.fn, seed=s) for s in range(B)]
+    batched = {k: np.stack([s[k] for s in singles]) for k in singles[0]}
+    one = prog.batched(B)
+    assert one.devices == 1
+    split = BatchedRunner(prog, B, prog._step, devices=[CPU, CPU])
+    assert split.devices == 2
+    want, got = one(batched), split(batched)
+    for k in _outputs(f.fn):
+        assert got[k].shape == want[k].shape and got[k].device.type == CPU
+        assert torch.equal(got[k], want[k]), f"{name}:{k}"
+
+
 def test_batched_matches_reference_batched():
     B = 2
     f = CASES["conv"](workloads)

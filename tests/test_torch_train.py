@@ -241,20 +241,50 @@ def test_loss_mask_and_aux_follow_the_reference(setup):
 
 
 def test_remat_full_is_bit_equal_to_none(setup):
-    """``remat="full"`` (recompute each block in the backward) gives the same
-    loss and gradients, bit for bit, as ``"none"`` on the CPU; "dots"
+    """``remat="full"`` (recompute each block in the backward) and "dots"
+    (keep the matrix products, recompute the rest) give the same loss and
+    gradients, bit for bit, as ``"none"`` on the CPU; another name
     raises."""
     jcfg, jparams, tcfg, batch = setup
     runs = {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         model = _model(jparams, dataclasses.replace(tcfg, remat=remat))
         runs[remat] = _port_loss_and_grads(model, batch)
-    assert torch.equal(runs["none"][0], runs["full"][0])
-    for n, g in runs["none"][2].items():
-        assert torch.equal(g, runs["full"][2][n]), n
-    model = _model(jparams, dataclasses.replace(tcfg, remat="dots"))
-    with pytest.raises(NotImplementedError, match="dots"):
+    for remat in ("full", "dots"):
+        assert torch.equal(runs["none"][0], runs[remat][0])
+        for n, g in runs["none"][2].items():
+            assert torch.equal(g, runs[remat][2][n]), (remat, n)
+    model = _model(jparams, dataclasses.replace(tcfg, remat="some"))
+    with pytest.raises(ValueError, match="remat"):
         loss_fn(model, make_device_batch(batch, "cpu"))
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "granite_moe_1b"])
+def test_remat_dots_matches_jax(arch):
+    """``remat="dots"`` (``torch.utils.checkpoint`` with a selective policy
+    that saves mm / bmm / addmm / matmul outputs) against
+    ``jax.value_and_grad`` under ``jax.checkpoint_policies.checkpoint_dots``
+    on the same weights and batch: every gradient within 1e-4 of its
+    largest value, the loss within 1e-5; and bit for bit the port's
+    ``remat="full"``."""
+    jcfg = jreduced(jget_config(arch), remat="dots")
+    tcfg = reduced(get_config(arch), remat="dots")
+    jparams = jinit_params(jax.random.key(4), jcfg)
+    batch = JSyntheticLM(jcfg, JShapeConfig("t", 32, 2, "train"), seed=6).batch_at(1)
+    (jtotal, _), jgrads = jax.value_and_grad(
+        lambda p: jloss_fn(p, jcfg, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True)(jparams)
+    total, _, grads = _port_loss_and_grads(_model(jparams, tcfg), batch)
+    np.testing.assert_allclose(float(total.detach()), float(jtotal), rtol=LOSS_RTOL)
+    want = _port_names(jgrads, tcfg)
+    assert sorted(want) == sorted(grads)
+    for n, g in grads.items():
+        _close_of_max(g.numpy(), want[n], GRAD_REL, n)
+    full, _, full_grads = _port_loss_and_grads(
+        _model(jparams, dataclasses.replace(tcfg, remat="full")), batch)
+    assert torch.equal(total, full)
+    for n, g in grads.items():
+        assert torch.equal(g, full_grads[n]), n
 
 
 def test_grad_mode_attention_runs_the_function_without_launches(setup):

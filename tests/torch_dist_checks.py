@@ -408,6 +408,122 @@ def check_elastic(args):
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 14: the SP merge, the long-context decode, collectives for the dry run
+# --------------------------------------------------------------------------
+def check_sp_decode(args):
+    """``collectives.decode_attention_sp`` with the cache's S split over the
+    4 ranks, on the reference check's inputs (``args["sp_shape"]`` b, hq,
+    hkv, s, d, from ``np.random.default_rng(1)``), at each of
+    ``args["sp_lengths"]`` (null: every position): every rank's merged
+    output, the same on every rank, reported for the test to hold against
+    JAX's whole-cache ``ref.decode_attention``."""
+    make_mesh((4,), ("model",), device="cpu")
+    b, hq, hkv, s, d = args["sp_shape"]
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(b, hq, d)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(b, hkv, s, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(b, hkv, s, d)).astype(np.float32))
+    part = s // dist.get_world_size()
+    mine = slice(rank() * part, (rank() + 1) * part)
+    out = {}
+    for lengths in args["sp_lengths"]:
+        length = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+        got = C.decode_attention_sp(q, k[:, :, mine].contiguous(), v[:, :, mine].contiguous(),
+                                    length, None)
+        every = [torch.empty_like(got) for _ in range(4)]
+        dist.all_gather(every, got)
+        if not all(torch.equal(every[0], e) for e in every) or not torch.isfinite(got).all():
+            raise AssertionError(f"lengths {lengths}: the ranks merged differently")
+        out[json.dumps(lengths)] = got.tolist()
+    return out
+
+
+def _random_cache(cfg, batch: int, max_seq: int, seed: int) -> dict:
+    """A whole decode cache filled with seeded random values (numpy)."""
+    from repro_torch.distributed.partition import tree_map
+    rng = np.random.default_rng(seed)
+    return tree_map(lambda t: torch.from_numpy(rng.normal(size=tuple(t.shape)).astype(
+        np.float32)).to(t.dtype), init_cache(cfg, batch, max_seq, device="cpu"))
+
+
+def check_long_decode(args):
+    """``make_decode_step(..., long_context=True)`` at 2x2 with a batch of
+    1 (replicated over ``data``) for reduced zamba2 and xlstm: 4 steps at
+    the last positions of a cache of 2048 filled with seeded random
+    values, each rank on its shards, against one process's ``decode_step``
+    on the whole cache.  Reports each model's largest logit difference over
+    the largest logit; raises above 1e-5 (the tests hold it closer)."""
+    from repro_torch.distributed.partition import tree_map
+    mc = mesh((2, 2), ("data", "model"))
+    max_seq = 2048
+    out = {}
+    for arch in ("zamba2_1_2b", "xlstm_1_3b"):
+        cfg = reduced(get_config(arch))
+        whole = _random_cache(cfg, 1, max_seq, 3)
+        serve, (psh, cache_sh, tok_sh) = step_mod.make_decode_step(
+            cfg, ParallelConfig(), mc, 1, max_seq, long_context=True)
+        if tok_sh.spec != (None,):
+            raise AssertionError(f"a batch of 1 is not replicated: {tok_sh.spec}")
+        local = tree_map(lambda t, sh: sh.local_slice(t).clone(), whole, cache_sh)
+        one = init_params(cfg, seed=0, device="cpu")
+        model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
+        toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (4,))
+        err = 0.0
+        for i, t in enumerate(range(max_seq - 4, max_seq)):
+            tok = torch.tensor([toks[i]], dtype=torch.int32)
+            pos = torch.tensor([t], dtype=torch.int32)
+            want = decode_step(one, whole, tok, pos)[0]
+            got = serve(model, local, tok, pos)[0]
+            wl = logical_slice(mc, want)
+            err = max(err, logits_err(got, wl, real_scale(want)))
+        if not err <= 1e-5:
+            raise AssertionError(f"{arch}: the long-context decode at 2x2 is off by {err}")
+        out[arch] = err
+    return out
+
+
+def logical_slice(mc, logits):
+    """This rank's shard of whole (B, Vpad) logits, as the decode step's
+    ``("batch", "vocab")`` output is laid out (a batch the batch shards do
+    not divide replicated)."""
+    from repro_torch.distributed.partition import logical_to_sharding
+    return logical_to_sharding(("batch", "vocab"), mc, tuple(logits.shape)).local_slice(logits)
+
+
+def check_collectives(args):
+    """The collectives rank 0 issues, by kind (calls, bytes), in one
+    sharded train step and prefill of ``args["dryrun_train"]`` (batch, seq)
+    and one decode step at ``args["dryrun_decode"]`` (batch, max_seq) of
+    each reduced family at 2x2: what the dry run of the same cells must
+    count."""
+    mc = mesh((2, 2), ("data", "model"))
+    out = {}
+    for arch in ("smollm_360m", "granite_moe_1b", "zamba2_1_2b", "xlstm_1_3b"):
+        cfg = reduced(get_config(arch))
+        b, s = args["dryrun_train"]
+        batch_np = SyntheticLM(cfg, ShapeConfig("t", s, b, "train"), seed=1).batch_at(0)
+        step, (psh, osh, bsh) = step_mod.make_train_step(cfg, ParallelConfig(), mc)
+        model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
+        opt = step_mod.init_opt_state(model, osh, cfg)
+        with C.count_collectives() as train:
+            step(model, opt, make_device_batch(batch_np, bsh))
+        prefill, (psh, bsh) = step_mod.make_prefill_step(cfg, ParallelConfig(), mc)
+        model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
+        with C.count_collectives() as pre:
+            prefill(model, make_device_batch(batch_np, bsh))
+        b, max_seq = args["dryrun_decode"]
+        serve, (psh, cache_sh, tok_sh) = step_mod.make_decode_step(cfg, ParallelConfig(), mc,
+                                                                   b, max_seq)
+        model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
+        cache = step_mod.init_sharded_cache(cfg, b, max_seq, cache_sh)
+        tok = tok_sh.local_slice(torch.zeros(b, dtype=torch.int32))
+        with C.count_collectives() as dec:
+            serve(model, cache, tok, tok)
+        out[arch] = {"train": train, "prefill": pre, "decode": dec}
+    return out
+
+
 def main():
     """CHECKS: names joined by commas, run in order in one process group."""
     checks, args = sys.argv[1], json.loads(sys.argv[2]) if len(sys.argv) > 2 else {}

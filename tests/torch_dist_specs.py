@@ -8,11 +8,13 @@ set before JAX starts, so it cannot run in the pytest process):
 CASES_JSON: a list of [arch, overrides, mesh name, fsdp, zero1], the config
 the reduced one with the overrides (``"full"``: the config itself).  Prints
 one JSON object: under ``"specs"``, a list with one entry per case, its
-parameter, moment, decode-cache and batch specs of ``repro.distributed``,
-each spec a list with one entry per dimension (``null``, a mesh-axis name,
-or a list of names); and under
+parameter, moment, decode-cache (and long-context decode-cache) and batch
+specs of ``repro.distributed``, each spec a list with one entry per
+dimension (``null``, a mesh-axis name, or a list of names); under
 ``"moe_loss"`` the loss of one reference train step on a capacity-dropping
-granite config, sharded over a 2x2 mesh and on one device.
+granite config, sharded over a 2x2 mesh and on one device; and under
+``"dryrun_argument_bytes"`` XLA's argument bytes a device of the
+reference's small-mesh dry-run cell.
 """
 import os
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
@@ -66,8 +68,10 @@ def specs(cfg, mesh_name, fsdp, zero1):
                                              logical, shapes)
         cache_shapes = jax.eval_shape(lambda: init_cache(cfg, *CACHE))
         cache_sh = logical_to_sharding(cache_logical_axes(cfg), mc, cache_shapes)
+        long_sh = logical_to_sharding(cache_logical_axes(cfg, long_context=True), mc,
+                                      cache_shapes)
         return {"params": paths(param_sh), "opt": paths(opt_sh.m),
-                "cache": paths(cache_sh),
+                "cache": paths(cache_sh), "cache_long": paths(long_sh),
                 "batch": {k: paths(batch_shardings(cfg, k, mc))
                           for k in ("train", "prefill", "decode")}}
 
@@ -93,12 +97,28 @@ def moe_loss():
     return out
 
 
+def dryrun_argument_bytes():
+    """``check_dryrun_small_mesh``'s cell (reduced granite, vocab 256, a
+    train step of 8 x 64 at 2x2x2): XLA's argument bytes a device."""
+    from repro.optim import adamw_init
+    cfg = reduced(get_config("granite_moe_1b"), vocab_size=256)
+    with use_mesh(mesh_of("2x2x2")):
+        jitted, _ = step_mod.make_train_step(cfg, ParallelConfig(), current())
+        params = jax.eval_shape(lambda k: init_params(k, cfg),
+                                jax.ShapeDtypeStruct((), jax.random.key(0).dtype))
+        opt = jax.eval_shape(lambda p: adamw_init(p), params)
+        batch = step_mod.input_specs(cfg, ShapeConfig("t", 64, 8, "train"))
+        compiled = jitted.lower(params, opt, batch).compile()
+        return int(compiled.memory_analysis().argument_size_in_bytes)
+
+
 def main():
     out = []
     for arch, overrides, mesh_name, fsdp, zero1 in json.loads(sys.argv[1]):
         cfg = get_config(arch) if overrides == "full" else reduced(get_config(arch), **overrides)
         out.append(specs(cfg, mesh_name, fsdp, zero1))
-    print(json.dumps({"specs": out, "moe_loss": moe_loss()}))
+    print(json.dumps({"specs": out, "moe_loss": moe_loss(),
+                      "dryrun_argument_bytes": dryrun_argument_bytes()}))
 
 
 if __name__ == "__main__":
