@@ -99,14 +99,16 @@ without the final ok line):
                 tokens/s, device busy time and share, peak memory and top
                 kernels at full width and depth;
   7. families -- granite_moe_1b, zamba2_1_2b and xlstm_1_3b at full width
-                and depth (bf16, seeded random weights), one at a time.  The
+                with the depth cut to a third (8, 12 and 16 layers: 2
+                shared-attention sites, 2 sLSTMs) (bf16, seeded random
+                weights), one at a time.  The
                 main path: a serve (batch 8; prompt 32 and gen 32, xlstm 16
                 and 16) and a forward (4 x 512; zamba2 2 x 1024, xlstm
                 2 x 512); every kernel must run exactly as often as the
-                family's layers say (grouped_matmul 72 times a granite decode
+                family's layers say (grouped_matmul 24 times a granite decode
                 step and forward, every one on the tensor-core route, as
-                are granite's 24 and zamba2's 6 flash launches a forward;
-                ssm_scan 38 times a zamba2 forward and 96 an xlstm one).
+                are granite's 8 and zamba2's 2 flash launches a forward;
+                ssm_scan 12 times a zamba2 forward and 32 an xlstm one).
                 Then the checks, each against the same
                 tokens through the plain versions on the card
                 (``ops.plain_versions()``): granite in bf16 with the kernel
@@ -154,25 +156,36 @@ without the final ok line):
                 library's ops on a misaligned bf16 operand (CUDA cores) and
                 a transposed one (copied to contiguous), each against its
                 plain version;
- 13. mesh 1x1 -- slice 13's main path, the sharded builders of
+ 13. mesh 1x1 -- slices 13 and 15's main paths, the sharded builders of
                 ``repro_torch.distributed.step`` over a one-rank NCCL group
                 (``make_mesh((1, 1), ("data", "model"))``; the NCCL version
-                printed): smollm_360m at full width and depth (3 steps) and
-                granite_moe_1b, zamba2_1_2b and xlstm_1_3b at full width with
-                their loops' cut depth (2 steps each), 8 x 256, remat "full",
-                bf16, through the sharded ``make_train_step(cfg,
-                ParallelConfig(), mc)`` and the one-card step from the same
-                seed and batches: each step's loss and grad norm, and after
-                the last every parameter and moment, bit for bit (the
-                vocab-parallel cross-entropy's logsumexp over one shard is
-                the value itself), and each step's launch counts exactly the
-                one-card step's; the collectives of a sharded step by kind
-                with their bytes; both steps' busy ms and their wall ms (5
-                of each, in turns); then
-                ``make_prefill_step`` (2 x 256) and ``make_decode_step`` (8
-                teacher-forced steps at batch 8) of the four models against
-                ``forward`` and ``decode_step``: bit-equal logits; and the
-                wall time of one collective over the one-rank group;
+                printed), under the base rules and under the sp rules
+                (``{"seq": ("model",)}``: Megatron's sequence parallelism,
+                the residual stream's sequence over ``model``): smollm_360m
+                at full width and depth (3 steps) and granite_moe_1b,
+                zamba2_1_2b and xlstm_1_3b at full width with the depth cut
+                to 2 (one shared-attention site, one sLSTM; 2 steps each),
+                8 x 256, remat "full", bf16, through the sharded
+                ``make_train_step(cfg, ParallelConfig(), mc)`` under each
+                rules and the one-card step from the same seed and batches:
+                each step's loss and grad norm, and after the last every
+                parameter and moment, bit for bit (the vocab-parallel
+                cross-entropy's logsumexp over one shard is the value
+                itself), and each step's launch counts exactly the one-card
+                step's; the collectives of a sharded step by kind with their
+                bytes under each rules; the three steps' busy ms and their
+                wall ms (5 of each, in turns); then ``make_prefill_step``
+                (2 x 256) and ``make_decode_step`` (8 teacher-forced steps
+                at batch 8) of the four models under each rules against
+                ``forward`` and ``decode_step``: bit-equal logits, the same
+                launches under both rules; and the wall time of one
+                collective over the one-rank group.  Beside smollm's checks,
+                ``python -m repro_torch.launch.dryrun --arch smollm_360m
+                --shape train_4k --mesh 16x16`` under ``--variant`` base and
+                sp, in subprocesses ended before the first timed step: a
+                rank's argument and peak bytes and collectives by kind, the
+                FLOPs equal, sp's argument bytes base's less the token and
+                label shards its sequence split moves off the rank;
  14. long context -- slice 14's main path over the same one-rank group:
                 zamba2_1_2b (6 shared-attention sites, 32 KV heads of 64)
                 and xlstm_1_3b at full width and depth, bf16, batch 1,
@@ -321,9 +334,9 @@ SCAN_BWD_SHAPES = {"zamba2": (8, 256, 32, 128, 64, torch.bfloat16, True, False),
 # (granite in bf16 with the kernel run's expert choices replayed, zamba2 and
 # xlstm on an f32 copy, as family_phase holds their logits), the loop and its
 # resume at full width with the depth cut (a checkpoint of the full models is
-# 12-18 GB): granite 4 layers, zamba2 6 (its shared-attention site), xlstm 8
+# 12-18 GB): granite 2 layers, zamba2 6 (its shared-attention site), xlstm 8
 # (its sLSTM); FAMILY_STEPS steps with a checkpoint at FAMILY_CKPT
-FAMILY_TRAIN = {"granite_moe_1b": dict(check_dtype="bfloat16", loop_layers=4),
+FAMILY_TRAIN = {"granite_moe_1b": dict(check_dtype="bfloat16", loop_layers=2),
                 "zamba2_1_2b": dict(check_dtype="float32", loop_layers=6),
                 "xlstm_1_3b": dict(check_dtype="float32", loop_layers=8)}
 FAMILY_STEPS, FAMILY_CKPT = 16, 8
@@ -332,7 +345,10 @@ FAMILY_STEPS, FAMILY_CKPT = 16, 8
 # families at their loops' cut depth), and the decode steps of the prefill
 # and decode builders' check
 MESH_STEPS = {"smollm_360m": 3, "granite_moe_1b": 2, "zamba2_1_2b": 2, "xlstm_1_3b": 2}
+MESH_LAYERS = 2            # the families' depth there (mesh_cfg)
 MESH_DECODE = 8
+# the dry run's sp rules: Megatron's sequence parallelism on the residual stream
+SP_RULES = {"seq": ("model",)}
 MESH_TIMED = 5             # steps of each kind timed in turns, after the checks
 # the long-context decode (ShapeConfig long_500k: batch 1 against a cache of
 # 524,288 positions): LONG_STEPS steps at the last positions of a cache
@@ -352,17 +368,20 @@ DECODE_O_RTOL_OF_SCALE = 2e-2
 # the decode kernel's lse against its plain version's (natural-log units):
 # f32 sums of up to 524,288 exp2 terms in another order, ex2.approx's 2 ulp
 DECODE_LSE_ATOL = 1e-3
-# the three families, at full width and depth: serve (batch, prompt, gen),
+# the three families, at full width, the depth cut to ``layers`` (a third
+# of it, keeping the structure's period: granite 8 of 24, zamba2 12 of 38
+# with 2 shared-attention sites, xlstm 16 of 48 with 2 sLSTMs; the training
+# phase's one-step checks run at full depth): serve (batch, prompt, gen),
 # forward (batch, seq), for hybrid and ssm the teacher-forced decode held
 # against the forward on the same tokens (batch, seq; 170 = 5 x 32 + 10
 # crosses the scan's chunk boundaries and leaves a ragged tail), and the
 # precision the logit checks run in (family_phase says why)
 FAMILIES = {"granite_moe_1b": dict(serve=(8, 32, 32), forward=(4, 512), consistency=None,
-                                   check_dtype="bfloat16"),
+                                   check_dtype="bfloat16", layers=8),
             "zamba2_1_2b": dict(serve=(8, 32, 32), forward=(2, 1024), consistency=(2, 170),
-                                check_dtype="float32"),
+                                check_dtype="float32", layers=12),
             "xlstm_1_3b": dict(serve=(8, 16, 16), forward=(2, 512), consistency=(2, 170),
-                               check_dtype="float32")}
+                               check_dtype="float32", layers=16)}
 KERNEL_MODULES = ("decode_attention", "flash_attention", "contraction", "probe",
                   "grouped_matmul", "ssm_scan", "matmul_pom", "stencil")
 # the kernels with a tensor-core and a CUDA-core route: their wrappers count
@@ -1520,29 +1539,43 @@ def _same_state(label: str, one, opt1, two, opt2) -> None:
         fail(f"{label}: the step counts differ")
 
 
-def mesh_train(arch: str, mc, card: str) -> dict:
-    """``arch`` (smollm_360m at full width and depth; the families at full
-    width, depth cut as their loops: FAMILY_TRAIN), batch 8 x 256, remat
-    "full", bf16: MESH_STEPS[arch] steps through the sharded
-    ``make_train_step(cfg, ParallelConfig(), mc)`` and through the one-card
-    ``make_train_step(cfg, model)``, from the same seed and batches.  Each
-    step's loss and grad norm, and after the last every parameter and
-    moment, bit for bit; each step's launch counts exactly
-    ``expected_train_launches`` on both (the sharded step's summed into the
-    main path's); then the collectives a sharded step issues by kind with
-    their bytes, both steps' busy ms (``busy_share``) and their wall ms,
-    MESH_TIMED of each in turns."""
+def mesh_cfg(arch: str):
+    """The configuration the mesh phase runs: smollm_360m whole; the
+    families at full width with the depth cut to MESH_LAYERS, their period
+    cut with it so that a shared-attention site (zamba2) or an sLSTM
+    (xlstm) stays on the path."""
     import dataclasses
-    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "smollm_360m":
+        return cfg
+    over = {"num_layers": MESH_LAYERS}
+    over.update({k: MESH_LAYERS for k in ("attn_every", "slstm_every") if getattr(cfg, k)})
+    return dataclasses.replace(cfg, **over)
+
+
+def mesh_train(arch: str, mcs: dict, card: str, before_timing=None) -> dict:
+    """``arch`` (``mesh_cfg``), batch 8 x 256, remat "full", bf16:
+    MESH_STEPS[arch] steps through the one-card ``make_train_step(cfg,
+    model)`` and, for each context of ``mcs`` (the base rules, the sp
+    rules), through the sharded ``make_train_step(cfg, ParallelConfig(),
+    mc)``, from the same seed and batches.  Each sharded step's loss and
+    grad norm, and after the last every parameter and moment, bit for bit
+    the one-card step's; each step's launch counts exactly
+    ``expected_train_launches`` on every path (the sharded steps' summed
+    into the main path's); then the collectives a sharded step issues by
+    kind with their bytes, every step's busy ms (``busy_share``) and wall
+    ms, MESH_TIMED of each in turns.  ``before_timing()`` runs before the
+    first step is timed."""
+    from repro_torch.configs import ParallelConfig
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticLM, make_device_batch
+    from repro_torch.distributed.collectives import count_collectives
     from repro_torch.distributed.step import init_opt_state, make_train_step, place_params
     from repro_torch.launch import train as train_mod
     from repro_torch.models import init_params
     from repro_torch.optim import adamw_init
-    cfg = get_config(arch)
-    if arch in FAMILY_TRAIN:
-        cfg = dataclasses.replace(cfg, num_layers=FAMILY_TRAIN[arch]["loop_layers"])
+    cfg = mesh_cfg(arch)
     steps = MESH_STEPS[arch]
     kw = dict(peak_lr=TRAIN_LR, warmup=train_mod.WARMUP, total_steps=steps)
     ds = SyntheticLM(cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train"), seed=0)
@@ -1550,123 +1583,152 @@ def mesh_train(arch: str, mc, card: str) -> dict:
     step1 = make_train_step(cfg, one, **kw)
     opt1 = adamw_init(dict(one.named_parameters()), cfg.optim_state_dtype,
                       cfg.optim_second_dtype)
-    step2, (param_sh, opt_sh, batch_sh) = make_train_step(cfg, ParallelConfig(), mc, **kw)
-    two = place_params(init_params(cfg, seed=0, device="cuda"), param_sh)
-    opt2 = init_opt_state(two, opt_sh, cfg)
-    want = (expected_train_launches(cfg) if arch in FAMILY_TRAIN else
+    sharded = {}
+    for rules, mc in mcs.items():
+        step, (param_sh, opt_sh, batch_sh) = make_train_step(cfg, ParallelConfig(), mc, **kw)
+        model = place_params(init_params(cfg, seed=0, device="cuda"), param_sh)
+        sharded[rules] = {"step": step, "model": model, "opt": init_opt_state(model, opt_sh, cfg),
+                          "batch_sh": batch_sh}
+    want = (expected_train_launches(cfg) if cfg.family != "dense" else
             {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers})
     label = f"mesh 1x1 {arch} ({cfg.num_layers} layers)"
-    launches, losses = {}, []
+    launches, losses = {}, {r: [] for r in sharded}
+
+    def run_sharded(r, i):
+        sh = sharded[r]
+        sh["model"], sh["opt"], m = sh["step"](sh["model"], sh["opt"], make_device_batch(
+            ds.batch_at(i), sh["batch_sh"]))
+        return m
+
     for i in range(steps):
         zero_counts()
         opt1, m1 = step1(opt1, make_device_batch(ds.batch_at(i), "cuda"))
         torch.cuda.synchronize()
         check_counts(f"{label} one-card step {i}", read_counts(), want)
-        zero_counts()
-        two, opt2, m2 = step2(two, opt2, make_device_batch(ds.batch_at(i), batch_sh))
-        torch.cuda.synchronize()
-        got = read_counts()
-        check_counts(f"{label} sharded step {i}", got, want)
-        check_train_routes(f"{label} sharded step {i}", want, True)
-        _add(launches, got)
-        same = (torch.equal(m1["loss"], m2["loss"]), torch.equal(m1["grad_norm"], m2["grad_norm"]))
-        print(f"{label} step {i}: loss {m1['loss'].item():.6f} / {m2['loss'].item():.6f}, "
-              f"grad norm {m1['grad_norm'].item():.6f} / {m2['grad_norm'].item():.6f} "
-              f"(one-card / sharded; bit-equal {same})")
-        if not all(same):
-            fail(f"{label} step {i}: loss or grad norm differs from the one-card step's")
-        losses.append(m2["loss"].item())
-    _same_state(label, one, opt1, two, opt2)
-    print(f"{label}: after {steps} steps every parameter and moment bit-equal; launches a "
-          f"step {want}")
+        for r in sharded:
+            zero_counts()
+            m2 = run_sharded(r, i)
+            torch.cuda.synchronize()
+            got = read_counts()
+            check_counts(f"{label} {r} step {i}", got, want)
+            check_train_routes(f"{label} {r} step {i}", want, True)
+            _add(launches, got)
+            same = (torch.equal(m1["loss"], m2["loss"]),
+                    torch.equal(m1["grad_norm"], m2["grad_norm"]))
+            print(f"{label} {r} rules, step {i}: loss {m1['loss'].item():.6f} / "
+                  f"{m2['loss'].item():.6f}, grad norm {m1['grad_norm'].item():.6f} / "
+                  f"{m2['grad_norm'].item():.6f} (one-card / sharded; bit-equal {same})")
+            if not all(same):
+                fail(f"{label} {r} step {i}: loss or grad norm differs from the one-card step's")
+            losses[r].append(m2["loss"].item())
+    for r, sh in sharded.items():
+        _same_state(f"{label} {r}", one, opt1, sh["model"], sh["opt"])
+    print(f"{label}: after {steps} steps every parameter and moment bit-equal under "
+          f"{list(sharded)} rules; launches a step {want} on every path")
 
-    from repro_torch.distributed.collectives import count_collectives
-    with count_collectives() as counts:
-        two, opt2, _ = step2(two, opt2, make_device_batch(ds.batch_at(steps), batch_sh))
-    print(f"{label}: collectives of a sharded step (calls, bytes): {counts}")
-    holder = {"o1": opt1, "o2": opt2, "m": two}
+    counts = {}
+    for r in sharded:
+        with count_collectives() as c:
+            run_sharded(r, steps)
+        counts[r] = c
+        print(f"{label}: collectives of a sharded step, {r} rules (calls, bytes): {c}")
+    before = before_timing() if before_timing is not None else None
+    holder = {"o1": opt1}
 
     def run1():
         holder["o1"], _ = step1(holder["o1"], make_device_batch(ds.batch_at(0), "cuda"))
-
-    def run2():
-        holder["m"], holder["o2"], _ = step2(holder["m"], holder["o2"],
-                                             make_device_batch(ds.batch_at(0), batch_sh))
+    runs = {"one_card": run1, **{r: (lambda r=r: run_sharded(r, 0)) for r in sharded}}
     kernels = ("flash_kernel_tc", "flash_bwd_", "gemm_kernel", "ssm_scan_", "nccl")
-    busy1 = busy_share(run1, 1, f"{label} one-card step", kernels)
-    busy2 = busy_share(run2, 1, f"{label} sharded step", kernels)
-    walls = {"one_card": [], "sharded": []}          # in turns: the host's clock drifts
+    busy = {k: busy_share(fn, 1, f"{label} {k} step", kernels) for k, fn in runs.items()}
+    walls = {k: [] for k in runs}                    # in turns: the host's clock drifts
     for _ in range(MESH_TIMED):
-        for key, fn in (("one_card", run1), ("sharded", run2)):
+        for key, fn in runs.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             walls[key].append(1e3 * (time.perf_counter() - t0))
     med = {k: float(np.median(v)) for k, v in walls.items()}
-    print(f"{label}: wall ms, {MESH_TIMED} steps each in turns: one-card "
-          f"{[round(w, 1) for w in walls['one_card']]} (median {med['one_card']:.2f}), sharded "
-          f"{[round(w, 1) for w in walls['sharded']]} (median {med['sharded']:.2f}); busy ms "
-          f"one-card {busy1.get('device_busy_ms', float('nan')):.2f}, sharded "
-          f"{busy2.get('device_busy_ms', float('nan')):.2f} ({card})")
-    del one, two, opt1, opt2, holder
+    print(f"{label}: wall ms, {MESH_TIMED} steps each in turns: " + "; ".join(
+        f"{k} {[round(w, 1) for w in v]} (median {med[k]:.2f})" for k, v in walls.items())
+        + "; busy ms " + ", ".join(f"{k} {b.get('device_busy_ms', float('nan')):.2f}"
+                                   for k, b in busy.items()) + f" ({card})")
+    del one, opt1, holder, sharded
     torch.cuda.empty_cache()
-    return {"layers": cfg.num_layers, "steps": steps, "losses": losses, "bit_equal": True,
-            "launches_per_step": want, "collectives_per_step": counts,
-            "wall_ms": walls, "wall_ms_median": med,
-            "one_card": busy1, "sharded": busy2, "launches": launches}
+    out = {"layers": cfg.num_layers, "steps": steps, "losses": losses, "bit_equal": True,
+           "launches_per_step": want, "collectives_per_step": counts,
+           "wall_ms": walls, "wall_ms_median": med, "busy": busy, "launches": launches}
+    if before is not None:
+        out["before_timing"] = before
+    return out
 
 
-def mesh_serve(arch: str, mc) -> dict:
-    """``make_prefill_step`` on 2 x 256 tokens and MESH_DECODE steps of
-    ``make_decode_step`` at batch 8 (teacher-forced), at mesh 1x1, against
-    ``forward`` and ``decode_step`` of the same weights: bit-equal logits;
-    the builders' launches summed into the main path's."""
-    import dataclasses
-    from repro_torch.configs import ParallelConfig, get_config
+def mesh_serve(arch: str, mcs: dict) -> dict:
+    """For each context of ``mcs``: ``make_prefill_step`` on 2 x 256 tokens
+    and MESH_DECODE steps of ``make_decode_step`` at batch 8
+    (teacher-forced), at mesh 1x1, against ``forward`` and ``decode_step``
+    of the same weights: bit-equal logits; the builders' launches summed
+    into the main path's, the same under every context; the collectives of
+    the prefill and of the first decode step by kind."""
+    from repro_torch.configs import ParallelConfig
     from repro_torch.data import make_device_batch
+    from repro_torch.distributed.collectives import count_collectives
     from repro_torch.distributed.step import (init_sharded_cache, make_decode_step,
                                               make_prefill_step, place_params)
     from repro_torch.models import decode_step, forward, init_cache, init_params
-    cfg = get_config(arch)
-    if arch in FAMILY_TRAIN:
-        cfg = dataclasses.replace(cfg, num_layers=FAMILY_TRAIN[arch]["loop_layers"])
+    cfg = mesh_cfg(arch)
     host = np.random.default_rng(5).integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
     tokens = torch.from_numpy(host).cuda()
     one = init_params(cfg, seed=0, device="cuda")
-    prefill, (param_sh, batch_sh) = make_prefill_step(cfg, ParallelConfig(), mc)
-    serve_step, (dec_sh, cache_sh, tok_sh) = make_decode_step(cfg, ParallelConfig(), mc,
-                                                              TRAIN_B, MESH_DECODE)
-    if dec_sh != param_sh:
-        fail(f"mesh 1x1 {arch}: the decode step's parameter shardings differ from prefill's")
-    two = place_params(init_params(cfg, seed=0, device="cuda"), param_sh)
-    launches = {}
     with torch.no_grad():
-        want = forward(one, tokens=tokens[:2])[0]
-    zero_counts()
-    got = prefill(two, make_device_batch({"tokens": host[:2]}, batch_sh))
-    torch.cuda.synchronize()
-    _add(launches, read_counts())
-    if not torch.equal(got, want):
-        fail(f"mesh 1x1 {arch}: prefill logits differ from forward's "
-             f"(max {(got - want).abs().max().item()})")
+        want_prefill = forward(one, tokens=tokens[:2])[0]
     c1 = init_cache(cfg, TRAIN_B, MESH_DECODE, device="cuda")
-    c2 = init_sharded_cache(cfg, TRAIN_B, MESH_DECODE, cache_sh)
-    for t in range(MESH_DECODE):
-        pos = torch.full((TRAIN_B,), t, dtype=torch.long, device="cuda")
-        want = decode_step(one, c1, tokens[:, t], pos)[0]
+    positions = [torch.full((TRAIN_B,), t, dtype=torch.long, device="cuda")
+                 for t in range(MESH_DECODE)]
+    want_decode = [decode_step(one, c1, tokens[:, t], positions[t])[0].clone()
+                   for t in range(MESH_DECODE)]
+    del one, c1
+    launches, by_rules, colls = {}, {}, {}
+    for r, mc in mcs.items():
+        prefill, (param_sh, batch_sh) = make_prefill_step(cfg, ParallelConfig(), mc)
+        serve_step, (dec_sh, cache_sh, tok_sh) = make_decode_step(cfg, ParallelConfig(), mc,
+                                                                  TRAIN_B, MESH_DECODE)
+        if dec_sh != param_sh:
+            fail(f"mesh 1x1 {arch} {r}: the decode step's parameter shardings differ from "
+                 "prefill's")
+        two = place_params(init_params(cfg, seed=0, device="cuda"), param_sh)
+        mine = {}
         zero_counts()
-        got = serve_step(two, c2, tok_sh.local_slice(tokens[:, t]), tok_sh.local_slice(pos))[0]
+        with count_collectives() as c_pre:
+            got = prefill(two, make_device_batch({"tokens": host[:2]}, batch_sh))
         torch.cuda.synchronize()
-        _add(launches, read_counts())
-        if not torch.equal(got, want):
-            fail(f"mesh 1x1 {arch}: decode step {t} logits differ from decode_step's")
-    print(f"mesh 1x1 {arch} ({cfg.num_layers} layers): prefill 2 x {TRAIN_S} and {MESH_DECODE} "
-          f"decode steps at batch {TRAIN_B} bit-equal to forward / decode_step; launches "
-          f"{ {k: n for k, n in launches.items() if n} }")
-    del one, two, c1, c2
+        _add(mine, read_counts())
+        if not torch.equal(got, want_prefill):
+            fail(f"mesh 1x1 {arch} {r}: prefill logits differ from forward's "
+                 f"(max {(got - want_prefill).abs().max().item()})")
+        c2 = init_sharded_cache(cfg, TRAIN_B, MESH_DECODE, cache_sh)
+        for t in range(MESH_DECODE):
+            zero_counts()
+            with count_collectives() as c_dec:
+                got = serve_step(two, c2, tok_sh.local_slice(tokens[:, t]),
+                                 tok_sh.local_slice(positions[t]))[0]
+            torch.cuda.synchronize()
+            _add(mine, read_counts())
+            if t == 0:
+                colls[r] = {"prefill": c_pre, "decode_step": c_dec}
+            if not torch.equal(got, want_decode[t]):
+                fail(f"mesh 1x1 {arch} {r}: decode step {t} logits differ from decode_step's")
+        by_rules[r] = {k: n for k, n in mine.items() if n}
+        _add(launches, mine)
+        print(f"mesh 1x1 {arch} ({cfg.num_layers} layers), {r} rules: prefill 2 x {TRAIN_S} "
+              f"and {MESH_DECODE} decode steps at batch {TRAIN_B} bit-equal to forward / "
+              f"decode_step; launches {by_rules[r]}; collectives (calls, bytes) {colls[r]}")
+        del two, c2
+    if len({json.dumps(v, sort_keys=True) for v in by_rules.values()}) != 1:
+        fail(f"mesh 1x1 {arch}: the rules launched different kernels: {by_rules}")
     torch.cuda.empty_cache()
-    return {"layers": cfg.num_layers, "bit_equal": True, "launches": launches}
+    return {"layers": cfg.num_layers, "bit_equal": True, "launches": launches,
+            "launches_by_rules": by_rules, "collectives": colls}
 
 
 def collective_cost(mc) -> dict:
@@ -1694,34 +1756,92 @@ def collective_cost(mc) -> dict:
     return out
 
 
+def start_sp_dryruns() -> dict:
+    """``python -m repro_torch.launch.dryrun --arch smollm_360m --shape
+    train_4k --mesh 16x16`` under ``--variant`` base and sp, each in a
+    subprocess started now (no card: fake process groups on ``meta``
+    tensors); ``finish_sp_dryruns`` waits for them before any step is
+    timed."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return {v: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                 "smollm_360m", "--shape", "train_4k", "--mesh", "16x16",
+                                 "--variant", v], cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for v in ("base", "sp")}
+
+
+def finish_sp_dryruns(procs: dict) -> dict:
+    """The two reports: both ``ok`` under their rules; a rank's argument
+    and peak bytes and its collectives by kind printed; sp's FLOPs base's,
+    and its argument bytes base's less the tokens and labels its sequence
+    split leaves on the other 15 model ranks."""
+    out = {}
+    for v, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"the dry run of smollm_360m train_4k at 16x16 ({v}) failed:\n{stderr[-3000:]}")
+        rep = json.loads(stdout)
+        if rep.get("status") != "ok" or rep["rules"] != ({"seq": ["model"]} if v == "sp" else {}):
+            fail(f"the {v} dry run gave status {rep.get('status')} under rules {rep['rules']}")
+        out[v] = {"argument_bytes": rep["memory"]["argument_size_in_bytes"],
+                  "peak_bytes": rep["bytes_per_device"], "flops": rep["cost"]["flops"],
+                  "collectives": rep["collectives"], "lower_s": rep["lower_s"]}
+        print(f"dry run smollm_360m train_4k at 16x16, {v} rules: argument bytes a rank "
+              f"{out[v]['argument_bytes']}, peak {out[v]['peak_bytes']}, FLOPs "
+              f"{out[v]['flops']:.6g}, collectives {rep['collectives']} ({rep['lower_s']} s)")
+    b, s = 256 // 16, 4096
+    if out["sp"]["flops"] != out["base"]["flops"] or \
+            out["base"]["argument_bytes"] - out["sp"]["argument_bytes"] != 2 * b * (s - s // 16) * 4:
+        fail(f"the sp dry run's FLOPs or argument bytes are off against base's: {out}")
+    return out
+
+
 def mesh_phase(card: str) -> dict:
-    """Slice 13's main path: the sharded builders of
+    """Slices 13 and 15's main paths: the sharded builders of
     ``repro_torch.distributed.step`` at mesh 1x1 (``make_mesh((1, 1),
     ("data", "model"))``: a one-rank NCCL group; every collective issued,
-    over one rank), each held bit for bit against the one-card path it
-    generalises (``mesh_train``, ``mesh_serve``): the vocab-parallel
-    cross-entropy takes each shard's ``torch.logsumexp`` and a logsumexp
-    over the shards, of one shard the value itself, so the losses too are
-    held bit for bit.  Counts set to 0 just before each sharded call, read
-    just after.  Prints the NCCL version; the group is destroyed at the
-    end."""
+    over one rank), under the base rules and under the sp rules (Megatron's
+    sequence parallelism: the residual stream's sequence over ``model``,
+    the TP all-reduces turned into all-gathers and reduce-scatters), each
+    held bit for bit against the one-card path it generalises
+    (``mesh_train``, ``mesh_serve``): the vocab-parallel cross-entropy takes
+    each shard's ``torch.logsumexp`` and a logsumexp over the shards, of one
+    shard the value itself, so the losses too are held bit for bit.  Counts
+    set to 0 just before each sharded call, read just after.  The dry runs
+    of smollm's train_4k cell at 16x16 under both rules run beside the
+    first model's checks and end before its first timed step.  Prints the
+    NCCL version; the group is destroyed at the end."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import MeshContext
     from repro_torch.launch.mesh import make_mesh
-    phase("mesh 1x1: the sharded train, prefill and decode steps over a one-rank NCCL group")
+    phase("mesh 1x1: the sharded train, prefill and decode steps over a one-rank NCCL group, "
+          "base and sp rules")
     mc = MeshContext(make_mesh((1, 1), ("data", "model")))
+    mcs = {"base": mc, "sp": MeshContext(mc.mesh, SP_RULES)}
+    if not mcs["sp"].sp or mc.sp:
+        fail("the sp rules do not split the sequence over model")
     nccl = torch.cuda.nccl.version()
     nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
     print(f"process group: backend {dist.get_backend()}, world {dist.get_world_size()}, "
           f"NCCL {nccl}")
     out, launches = {"nccl": nccl}, {}
+    procs = start_sp_dryruns()
+    try:
+        for arch in MESH_STEPS:
+            wait = (lambda: finish_sp_dryruns(procs)) if arch == next(iter(MESH_STEPS)) else None
+            res = mesh_train(arch, mcs, card, before_timing=wait)
+            _add(launches, res.pop("launches"))
+            if wait is not None:
+                out["dryrun_sp"] = res.pop("before_timing")
+            out[f"train_{arch}"] = res
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     out["collective_cost"] = collective_cost(mc)
     for arch in MESH_STEPS:
-        res = mesh_train(arch, mc, card)
-        _add(launches, res.pop("launches"))
-        out[f"train_{arch}"] = res
-    for arch in MESH_STEPS:
-        res = mesh_serve(arch, mc)
+        res = mesh_serve(arch, mcs)
         _add(launches, res.pop("launches"))
         out[f"serve_{arch}"] = res
     print(f"launches in the mesh 1x1 phase: {launches}")
@@ -2152,9 +2272,10 @@ def hold(label: str, run, v: int, moe: bool, check: bool = True) -> dict:
 
 
 def family_phase(arch: str) -> dict:
-    """One model of the moe, hybrid or ssm family at full width and depth:
-    the main path (a serve and a forward in bf16, seeded random weights,
-    every count set to 0 just before each and read just after), then the
+    """One model of the moe, hybrid or ssm family at full width, its depth
+    cut to FAMILIES[arch]["layers"]: the main path (a serve and a forward in
+    bf16, seeded random weights, every count set to 0 just before each and
+    read just after), then the
     checks.  granite_moe_1b is held in bf16 against the plain versions with
     the kernel run's expert choices replayed (``moe_routes``).  zamba2 and
     xlstm are held in f32, on an f32 copy of the same weights, at the same
@@ -2169,8 +2290,8 @@ def family_phase(arch: str) -> dict:
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model, decode_step, forward, init_cache, init_params
     spec = FAMILIES[arch]
-    cfg = get_config(arch)
-    phase(f"{arch} full width")
+    cfg = dataclasses.replace(get_config(arch), num_layers=spec["layers"])
+    phase(f"{arch} full width, {cfg.num_layers} layers")
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()

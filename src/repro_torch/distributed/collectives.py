@@ -18,6 +18,29 @@ whole gradient).  ``torch.distributed.nn.functional.all_reduce``
 differentiates to a second all-reduce and would multiply every
 model-replicated gradient by the model size; ``mean_over_model`` uses that
 operator, for a sum whose consumers are sharded (Mamba2's norm).
+
+Sequence parallelism (``MeshContext.sp``: the rules map ``"seq"`` to
+``model``) keeps the residual stream (B, S, d) as this rank's chunk of the
+sequence, S / model rows, on which the norms and residual adds run.  The
+two regions of a layer then change (Megatron's SP):
+
+* a layer that runs on its own model shard (``TP.local``) enters through
+  an all-gather along the sequence, whose backward is a reduce-scatter
+  (each rank's input gradient is a partial sum), and leaves through a
+  reduce-scatter in place of g's all-reduce, whose backward is an
+  all-gather;
+* a layer that computes replicated over ``model`` enters through the same
+  all-gather with a backward that takes this rank's chunk (every rank
+  computes the whole input gradient), and leaves by taking this rank's
+  chunk, whose backward is an all-gather.
+
+``copy_to_model`` and ``reduce_from_model`` are those regions; a block
+whose own f's already make its input gradient whole (Mamba2, the MoE)
+enters and leaves as a replicated layer does (``tp_`` None) and uses
+``to_shards`` (f alone) inside.  A parameter that the model applies to its own rows outside a
+region (the residual norms' scales, an embedding table replicated over
+``model``) gets a partial gradient: the train step all-reduces it over
+``model`` (``distributed/step.py`` ``sync_grads``).
 """
 from __future__ import annotations
 
@@ -131,6 +154,23 @@ class _Gather(torch.autograd.Function):
         return own_chunk(g, ctx.dim, ctx.group).contiguous(), None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    """This rank's chunk along ``dim``: ``"sum"`` of the sum over the group
+    (reduce-scatter), ``"slice"`` of its own tensor.  Backward: all-gather
+    (every rank then holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, mode):
+        ctx.dim, ctx.group = dim, group
+        if mode == "sum":
+            return reduce_scatter(x, dim, group)
+        return own_chunk(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None, None
+
+
 # --------------------------------------------------------------------------
 # the model axis
 # --------------------------------------------------------------------------
@@ -173,12 +213,15 @@ def tp(*param_dims, divides=()) -> Optional[TP]:
     return TP(mc, local)
 
 
-def param(p: torch.Tensor, tp_: Optional[TP] = None) -> torch.Tensor:
+def param(p: torch.Tensor, tp_: Optional[TP] = None, rows: bool = False) -> torch.Tensor:
     """Parameter ``p`` as the layer uses it: gathered over ``data`` (FSDP;
     the gradient reduce-scattered back) and, unless the layer runs
-    ``tp_.local``, over ``model`` (the gradient sliced back).  Called inside
-    the remat'd block, so the recompute gathers again.  ``p`` itself
-    outside a mesh context or when it carries no ``sharding``."""
+    ``tp_.local``, over ``model`` (the gradient sliced back).  ``rows``:
+    the layer applies it to this rank's own sequence rows (the unembedding
+    under SP), so its gradient over ``model`` is a partial sum and is
+    reduce-scattered back too.  Called inside the remat'd block, so the
+    recompute gathers again.  ``p`` itself outside a mesh context or when it
+    carries no ``sharding``."""
     mc = current()
     spec = spec_of(p)
     if mc is None or not spec:
@@ -188,22 +231,61 @@ def param(p: torch.Tensor, tp_: Optional[TP] = None) -> torch.Tensor:
         for a in spec_axes(entry):
             if a == "model" and tp_ is not None and tp_.local:
                 continue
-            w = _Gather.apply(w, dim, mc.group(a), "slice" if a == "model" else "sum")
+            back = "slice" if a == "model" and not (rows and a in mc.seq_axes) else "sum"
+            w = _Gather.apply(w, dim, mc.group(a), back)
     return w
 
 
+SEQ_DIM = 1                      # the sequence's dimension of the residual stream (B, S, d)
+
+
+def seq_group():
+    """The group the residual stream's sequence is split over (None without
+    sequence parallelism)."""
+    mc = current()
+    return mc.group(mc.seq_axes) if mc is not None and mc.sp else None
+
+
+def seq_shards() -> int:
+    """The number of the sequence's shards (1 without sequence
+    parallelism)."""
+    mc = current()
+    return mc.size(mc.seq_axes) if mc is not None else 1
+
+
 def copy_to_model(x: torch.Tensor, tp_: Optional[TP]) -> torch.Tensor:
-    """f, at the input of a layer's local shard (Megatron's
-    ``copy_to_tensor_model_parallel_region``)."""
-    return _CopyTo.apply(x, tp_.group) if tp_ is not None and tp_.local else x
+    """The entry of a layer from the residual stream (B, S, d).  f at the
+    input of a local shard (Megatron's ``copy_to_tensor_model_parallel_
+    region``); under SP the all-gather along the sequence, its backward a
+    reduce-scatter where the layer is local and this rank's chunk where it
+    computes replicated."""
+    g = seq_group()
+    local = tp_ is not None and tp_.local
+    if g is not None:
+        return _Gather.apply(x, SEQ_DIM, g, "sum" if local else "slice")
+    return _CopyTo.apply(x, tp_.group) if local else x
 
 
 def reduce_from_model(x: torch.Tensor, tp_: Optional[TP]) -> torch.Tensor:
-    """g, after a row-parallel product (``reduce_from_..._region``): the
-    reference's all-reduce after ``wo`` of a sharded ``heads`` / ``mlp`` /
-    ``experts`` axis, which GSPMD inserts at the ``("batch", "seq",
-    "embed")`` hint (``models/model.py:118,136``)."""
-    return _ReduceFrom.apply(x, tp_.group) if tp_ is not None and tp_.local else x
+    """The exit of a layer to the residual stream (B, S, d).  g after a
+    row-parallel product (``reduce_from_..._region``): the reference's
+    all-reduce after ``wo`` of a sharded ``heads`` / ``mlp`` / ``experts``
+    axis, which GSPMD inserts at the ``("batch", "seq", "embed")`` hint
+    (``models/model.py:118,136``); under SP a reduce-scatter along the
+    sequence where the layer is local, this rank's chunk where it computed
+    replicated (both all-gather backward)."""
+    g = seq_group()
+    local = tp_ is not None and tp_.local
+    if g is not None:
+        return _Scatter.apply(x, SEQ_DIM, g, "sum" if local else "slice")
+    return _ReduceFrom.apply(x, tp_.group) if local else x
+
+
+def to_shards(x: torch.Tensor, tp_: Optional[TP]) -> torch.Tensor:
+    """f alone, inside a block that entered as a replicated layer
+    (``copy_to_model(x, None)``: its input whole along the sequence):
+    identity forward, all-reduce backward where the layer is local."""
+    return _CopyTo.apply(x, tp_.group) if tp_ is not None and tp_.local else x
 
 
 def mean_over_model(v: torch.Tensor, tp_: Optional[TP]) -> torch.Tensor:
@@ -239,6 +321,15 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     return x if g is None else _ReduceFrom.apply(x, g)
 
 
+def token_sum(x: torch.Tensor) -> torch.Tensor:
+    """``batch_sum`` and, under SP, the sum over the sequence shards too (g
+    over ``model``): the loss's sums of ``nll`` and of the mask, each
+    rank's over its own tokens."""
+    x = batch_sum(x)
+    g = seq_group()
+    return x if g is None else _ReduceFrom.apply(x, g)
+
+
 def gather_batch(x: torch.Tensor) -> torch.Tensor:
     """The global tensor of a batch-sharded ``x`` (first dim), in global
     order; consumed replicated, so the gradient is sliced back.  The MoE's
@@ -264,7 +355,12 @@ def batch_place() -> tuple:
 def vocab_embed(tok: torch.Tensor, ids: torch.Tensor, tp_: TP) -> torch.Tensor:
     """Embedding lookup in this rank's vocab rows, g over ``model`` (the
     reference's ``jnp.take`` from a ``("vocab", "embed")`` table,
-    ``models/layers.py:228``)."""
+    ``models/layers.py:228``).  Under SP ``ids`` (B, S / model) are this
+    rank's sequence chunk: gathered first (no gradient), and the rows leave
+    through ``reduce_from_model``'s reduce-scatter, each rank's chunk."""
+    g = seq_group()
+    if g is not None:
+        ids = all_gather(ids, SEQ_DIM, g)
     rows = tok.shape[0]
     local = ids - tp_.rank * rows
     inside = (local >= 0) & (local < rows)

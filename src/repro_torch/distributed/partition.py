@@ -134,6 +134,27 @@ def zero1_axes(logical_tree, shapes, data_size: int):
     return tree_map(z, logical_tree, shapes)
 
 
+def row_params(param_sh: Mapping[str, NamedSharding]) -> list:
+    """The parameters the model applies to the residual stream's own rows,
+    outside a layer's region: the residual norms' scales (every norm but
+    Mamba2's and the mLSTM's, which run inside their blocks on the gathered
+    sequence) and an embedding table that ``model`` does not shard (looked
+    up on, or applied to, the rank's rows; a ``model``-sharded one gathers
+    the ids or reduce-scatters its own gradient).  Under sequence
+    parallelism a rank's gradient of each is a partial sum over the
+    sequence shards (Megatron's SP gradient all-reduce sums it)."""
+    from repro_torch.models.convert import jax_path
+    out = []
+    for name, sh in param_sh.items():
+        path = jax_path(name)
+        if path.endswith("/scale"):
+            if not path.endswith(("mamba/norm/scale", "mlstm/norm/scale")):
+                out.append(name)
+        elif path in ("embed/tok", "embed/out") and "model" not in sh.sharded_axes():
+            out.append(name)
+    return out
+
+
 def batch_shardings(cfg: ModelConfig, kind: str, mc: MeshContext) -> Dict:
     """Input shardings per shape kind."""
     if kind == "train" or kind == "prefill":

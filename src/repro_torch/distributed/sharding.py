@@ -14,6 +14,12 @@ tensor dimension, as ``jax.sharding.PartitionSpec`` holds it: ``None``
 product, the first axis major).  ``MeshContext`` is built from a
 ``torch.distributed.device_mesh.DeviceMesh`` or, for computing specs
 without a process group, from an abstract shape and axis names.
+
+Rules that map ``"seq"`` to ``("model",)`` (the dry run's ``sp`` variants,
+as the reference's) turn on Megatron's sequence parallelism: every
+``("batch", "seq", ...)`` layout then splits the sequence over ``model``
+(``MeshContext.sp``), and ``collectives.py`` keeps the residual stream as
+this rank's sequence chunk.
 """
 from __future__ import annotations
 
@@ -62,9 +68,12 @@ class MeshContext:
     ``mesh``: a ``DeviceMesh`` (process groups, this rank's coordinates), or
     None with ``shape`` and ``axis_names`` for an abstract mesh (specs and
     local shapes only; coordinates all 0, no groups).  ``replicated_batch``:
-    every rank holds the whole batch (``with_replicated_batch``)."""
+    every rank holds the whole batch (``with_replicated_batch``);
+    ``replicated_seq``: every rank holds the whole sequence although the
+    rules split it (``with_replicated_seq``)."""
 
     replicated_batch = False
+    replicated_seq = False
 
     def __init__(self, mesh=None, rules: Optional[Dict] = None, *,
                  shape: Optional[Sequence[int]] = None,
@@ -134,6 +143,38 @@ class MeshContext:
         mc.replicated_batch = True
         return mc
 
+    # -- sequence parallelism --------------------------------------------------
+    @property
+    def seq_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the residual stream's sequence is split over: the
+        ``"seq"`` entry of ``spec(("batch", "seq", "embed"))``, () unless
+        the rules split it (or in ``with_replicated_seq``).  Only ``model``
+        may split it: the SP regions of ``collectives.py`` pair the
+        sequence's chunks with the model shards."""
+        if self.replicated_seq:
+            return ()
+        axes = spec_axes(self.spec(("batch", "seq", "embed"))[1])
+        if axes and axes != ("model",):
+            raise ValueError(f"the rules split the sequence over {axes}: the port splits it "
+                             "over ('model',) only")
+        return axes
+
+    @property
+    def sp(self) -> bool:
+        """Sequence parallelism: the residual stream is this rank's chunk of
+        the sequence (``seq_axes`` not empty)."""
+        return bool(self.seq_axes)
+
+    def with_replicated_seq(self) -> "MeshContext":
+        """This context (same mesh, rules and groups) for a residual stream
+        that the sequence's shards do not divide (the decode step's one
+        token over ``model`` > 1), kept whole on every rank: every SP
+        collective is then the identity.  GSPMD would pad the dimension
+        instead."""
+        mc = copy.copy(self)
+        mc.replicated_seq = True
+        return mc
+
     # -- this rank's place -----------------------------------------------------
     def size(self, axes) -> int:
         """Ranks along ``axes`` (a name or a tuple; absent axes count 1)."""
@@ -196,8 +237,8 @@ class NamedSharding:
         for i, entry in enumerate(self.spec):
             n = self.mc.size(entry)
             if out[i] % n:
-                raise ValueError(f"dimension {i} of {tuple(shape)} is not divisible by the "
-                                 f"{n} ranks of {entry}")
+                raise ValueError(f"dimension {i} of {tuple(shape)} ({out[i]}) is not divisible "
+                                 f"by the {n} ranks of {entry}")
             out[i] //= n
         return tuple(out)
 

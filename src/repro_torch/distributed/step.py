@@ -38,6 +38,18 @@ all-gathered.  The clip's squared norms are summed over the axes each
 gradient is sharded on.  The kernels see plain local tensors; at mesh 1x1
 every collective is over one rank and the step launches the same kernels in
 the same order as the one-card step.
+
+Sequence parallelism (``mc.sp``: rules that map ``"seq"`` to ``model``, the
+dry run's ``sp`` variants): the train and prefill batches are cut along
+the sequence over ``model`` too (``batch_shardings``), the residual stream
+stays this rank's chunk between the layers (``collectives.py``), and
+``sync_grads`` first all-reduces over ``model`` the gradients of the
+parameters applied to those rows (``partition.row_params``).  A sequence
+that ``model`` does not divide is refused where the batch is cut
+(``NamedSharding.local_shape``); the reference would pad it.  The decode
+step keeps its one-token residual whole on every rank
+(``MeshContext.with_replicated_seq``), as the reference's decode, which
+states no ``("batch", "seq")`` layout, does.
 """
 from __future__ import annotations
 
@@ -51,7 +63,7 @@ from repro_torch.optim import AdamWState, adamw_update, cosine_schedule
 from repro_torch.models.layers import dtype_of
 from . import collectives as C
 from .partition import (batch_shardings, cache_logical_axes, logical_to_sharding,
-                        param_logical_axes, param_shapes, tree_map, zero1_axes)
+                        param_logical_axes, param_shapes, row_params, tree_map, zero1_axes)
 from .sharding import MeshContext, NamedSharding, spec_axes, use_mesh
 
 Metrics = Dict[str, torch.Tensor]
@@ -99,6 +111,13 @@ def _known_sizes(cfg: ModelConfig, mc: MeshContext) -> MeshContext:
     """Tells ``shard_hint`` the global sizes of the model's fixed axes."""
     mc.sizes.update(embed=cfg.d_model, vocab=cfg.padded_vocab_size)
     return mc
+
+
+def _seq_size(mc: MeshContext, batch: Dict[str, torch.Tensor]) -> None:
+    """Tells ``shard_hint`` the batch's global sequence length (each entry
+    of this rank's batch holds its share of it), so that every ``("batch",
+    "seq", ...)`` hint asserts the sequence's shard."""
+    mc.sizes["seq"] = next(iter(batch.values())).shape[1] * mc.size(mc.seq_axes)
 
 
 def make_param_shardings(cfg: ModelConfig, mc: MeshContext, fsdp: bool = False):
@@ -161,12 +180,28 @@ def sync_grads(model: Model, param_sh, opt_sh: AdamWState, mc: MeshContext
     """Each parameter's gradient summed over the batch axes its parameter
     is replicated on (an axis it is sharded on was summed by its gather's
     reduce-scatter): all-reduced, or reduce-scattered where its moments are
-    sharded on the axis (ZeRO-1 without FSDP).  Returns (gradients in their
+    sharded on the axis (ZeRO-1 without FSDP).  Under SP the gradients of
+    the parameters applied to the residual stream's rows
+    (``partition.row_params``) are first summed over the sequence shards,
+    one all-reduce over ``model`` a dtype.  Returns (gradients in their
     moments' sharding, the tensors the update writes: each parameter or its
     slice of the moments' shard)."""
     grads, views = {}, {}
-    for name, p in model.named_parameters():
-        g = p.grad if p.grad is not None else torch.zeros_like(p)
+    params = dict(model.named_parameters())
+    whole = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    if mc.sp:
+        by_dtype: Dict[torch.dtype, list] = {}
+        for n in row_params(param_sh):
+            by_dtype.setdefault(whole[n].dtype, []).append(n)
+        for names in by_dtype.values():
+            flat = C.all_reduce(torch.cat([whole[n].reshape(-1) for n in names]),
+                                mc.group(mc.seq_axes))
+            parts = flat.split([whole[n].numel() for n in names])
+            for n, part in zip(names, parts):
+                whole[n] = part.view_as(whole[n])
+    for name, p in params.items():
+        g = whole[name]
         view = p.data
         held = param_sh[name].sharded_axes()
         for a in _batch_axes(mc):
@@ -211,6 +246,7 @@ def _sharded_train_step(cfg, pcfg, mc, peak_lr, warmup, total_steps):
 
     def step(model: Model, opt: AdamWState, batch: Dict[str, torch.Tensor]):
         model.requires_grad_(True)
+        _seq_size(mc, batch)
         with use_mesh(mc):
             total, metrics = loss_fn(model, batch)
             total.backward()
@@ -240,13 +276,15 @@ def _sharded_train_step(cfg, pcfg, mc, peak_lr, warmup, total_steps):
 # --------------------------------------------------------------------------
 def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, mc: MeshContext):
     """``(prefill, (param_sh, batch_sh))``: ``prefill(model, batch)`` gives
-    this rank's logits, sharded ``("batch", "seq", "vocab")``."""
+    this rank's logits, sharded ``("batch", "seq", "vocab")`` (under SP the
+    sequence over ``model`` and the vocab whole, as the reference's)."""
     _known_sizes(cfg, mc)
     param_sh, _, _ = make_param_shardings(cfg, mc)
     batch_sh = batch_shardings(cfg, "prefill", mc)
 
     @torch.no_grad()
     def prefill(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        _seq_size(mc, batch)
         with use_mesh(mc):
             logits, _ = forward(model, tokens=batch.get("tokens"), embeds=batch.get("embeds"))
         return logits
@@ -280,13 +318,17 @@ def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, mc: MeshContext, ba
     (the long-context cells' batch of 1) is replicated, as the reference's
     ``tok_sh`` is, and the step runs in ``mc.with_replicated_batch()``:
     every rank computes the whole batch, and no collective sums it over
-    the batch axes."""
+    the batch axes.  Under SP rules the one-token residual stays whole on
+    every rank (``mc.with_replicated_seq()``): the step is the base rules'
+    step."""
     _known_sizes(cfg, mc)
     param_sh, _, _ = make_param_shardings(cfg, mc)
     cache_sh = cache_shardings(cfg, mc, batch, max_seq, long_context)
     # divisibility-aware: batch=1 long-context cells replicate the batch axis
     tok_sh = logical_to_sharding(("batch",), mc, (batch,))
     step_mc = mc if tok_sh.spec[0] else mc.with_replicated_batch()
+    if step_mc.sp:
+        step_mc = step_mc.with_replicated_seq()
 
     def serve_step(model: Model, cache, token: torch.Tensor, pos: torch.Tensor):
         with use_mesh(step_mc):

@@ -27,6 +27,14 @@ For a cell this:
      (``MemTracker``);
   4. prints the report as JSON (and writes it to ``--out``).
 
+``--variant`` applies one of ``VARIANTS``: config overrides, and rule
+overrides that go into the mesh context (``sp``: ``{"seq": ("model",)}``,
+Megatron's sequence parallelism on the residual stream, as the reference
+runs it under ``use_mesh(mesh, rules=...)``); the report records the rules.
+An override of a field the port has no use for (``chunk2k``'s
+``attn_chunk``, ``NO_EFFECT``) is taken out and recorded under
+``no_effect`` with its reason, so that variant's cell is its base's.
+
 Where the reference lowers and compiles with XLA, the port runs the step's
 Python on ``meta`` tensors: ``lower_s`` is the seconds to build and run
 it, and there is no ``compile_s``.  ``memory.argument_size_in_bytes`` is
@@ -65,7 +73,8 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results
                            "dryrun_torch")
 H100_MEMORY = 80e9              # bytes: an H100 80GB HBM3, where no card is present
 
-# named (config overrides, sharding-rule overrides), as the reference's
+# named (config overrides, sharding-rule overrides), the reference's nine
+# and bf16logits+dots; every one runs (attn_chunk has no effect: NO_EFFECT)
 VARIANTS: Dict[str, Tuple[Dict, Dict]] = {
     "base": ({}, {}),
     # Megatron-style sequence parallelism on the residual stream
@@ -86,22 +95,24 @@ VARIANTS: Dict[str, Tuple[Dict, Dict]] = {
 }
 
 
-def _variant(variant: str) -> Tuple[Dict, Dict]:
-    """The variant's config overrides; a ``ValueError`` naming what a
-    variant the port cannot run needs."""
+# config fields of the reference that the port's steps have no use for: a
+# variant's override of one is taken out and recorded in the report
+NO_EFFECT = {"attn_chunk": "the reference's attn_chunk sets only the query block of its XLA "
+                           "attention (repro/models/layers.py chunked_attention, used where "
+                           "use_pallas is False); the port's attention is the flash kernel on "
+                           "every path (its plain version on the CPU), which tiles the "
+                           "sequence itself, so configs/base.py has no such field"}
+
+
+def _variant(variant: str) -> Tuple[Dict, Dict, Dict]:
+    """The variant's (config overrides, sharding-rule overrides, the
+    overrides taken out as having no effect in the port: ``NO_EFFECT``)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: {list(VARIANTS)}")
     cfg_over, rules_over = VARIANTS[variant]
-    if rules_over:
-        raise ValueError(f"variant {variant!r} shards the residual stream's sequence over "
-                         "'model' (Megatron's sequence parallelism): it needs a "
-                         "sequence-sharded residual stream in distributed/collectives.py, "
-                         "which is not written (ROADMAP Queue 1)")
-    if "attn_chunk" in cfg_over:
-        raise ValueError(f"variant {variant!r} sets attn_chunk, which the port's config "
-                         "dropped on purpose (configs/base.py: the flash kernel tiles the "
-                         "sequence itself)")
-    return cfg_over, rules_over
+    dropped = {k: v for k, v in cfg_over.items() if k in NO_EFFECT}
+    cfg_over = {k: v for k, v in cfg_over.items() if k not in NO_EFFECT}
+    return cfg_over, rules_over, dropped
 
 
 def structural_period(cfg) -> int:
@@ -128,9 +139,10 @@ def parse_mesh(text: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
     return shape, axes
 
 
-def fake_mesh(shape, axes):
-    """A ``MeshContext`` over a ``DeviceMesh`` of ``shape`` on a fake process
-    group of prod(shape) ranks, this process rank 0 (set up on first use)."""
+def fake_mesh(shape, axes, rules: Optional[Dict] = None):
+    """A ``MeshContext`` with the sharding-rule overrides ``rules`` over a
+    ``DeviceMesh`` of ``shape`` on a fake process group of prod(shape)
+    ranks, this process rank 0 (set up on first use)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -141,7 +153,8 @@ def fake_mesh(shape, axes):
     elif dist.get_world_size() != n:
         raise RuntimeError(f"the fake process group has {dist.get_world_size()} ranks, mesh "
                            f"{shape} needs {n}")
-    return MeshContext(init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes)))
+    return MeshContext(init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes)),
+                       rules)
 
 
 def build(cfg, shape, mc, long_ctx: bool):
@@ -254,7 +267,7 @@ def run_cell(arch: str, shape_name, multi_pod: bool = False, skip_compile: bool 
     from repro_torch.configs.base import SHAPES, get_config
     t0 = time.time()
     cfg = cfg or get_config(arch)
-    cfg_over, _ = _variant(variant)
+    cfg_over, rules, dropped = _variant(variant)
     if cfg_over:
         cfg = dataclasses.replace(cfg, **cfg_over)
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
@@ -262,15 +275,19 @@ def run_cell(arch: str, shape_name, multi_pod: bool = False, skip_compile: bool 
     chips = math.prod(mesh_shape)
     report: Dict = {"arch": arch, "shape": shape.name,
                     "mesh": "x".join(map(str, mesh_shape)), "variant": variant,
+                    "rules": {k: list(v) for k, v in rules.items()},
                     "chips": chips, "kind": shape.kind, "params": cfg.param_count(),
                     "active_params": cfg.active_param_count()}
+    if dropped:
+        report["no_effect"] = dropped
+        report["no_effect_reason"] = {k: NO_EFFECT[k] for k in dropped}
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         report["status"] = "skipped"
         report["reason"] = ("pure full-attention arch: 500k decode is quadratic-KV; skipped "
                             "per assignment (DESIGN.md SS5)")
         return report
     long_ctx = shape.name == "long_500k"
-    mc = fake_mesh(mesh_shape, axes)
+    mc = fake_mesh(mesh_shape, axes, rules)
     if skip_compile:
         build(cfg, shape, mc, long_ctx)
         report["lower_s"] = round(time.time() - t0, 1)
@@ -309,12 +326,12 @@ def recost_cell(arch: str, shape_name: str, multi_pod: bool, path: str,
     if report.get("status") != "ok":
         return report
     cfg = get_config(arch)
-    cfg_over, _ = _variant(report.get("variant", "base"))
+    cfg_over, rules, _ = _variant(report.get("variant", "base"))
     if cfg_over:
         cfg = dataclasses.replace(cfg, **cfg_over)
     mesh_shape, axes = parse_mesh(mesh) if mesh else production_mesh(multi_pod)
     report["corrected"] = extrapolate_costs(cfg, SHAPES[shape_name],
-                                            fake_mesh(mesh_shape, axes),
+                                            fake_mesh(mesh_shape, axes, rules),
                                             shape_name == "long_500k")
     with open(path, "w") as f:
         json.dump(report, f, indent=2)

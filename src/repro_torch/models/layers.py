@@ -18,6 +18,18 @@ smollm_360m's 15 query and 5 KV heads of 64 at ``model`` 2), attention
 gathers its weights over ``model`` too and computes replicated.  The kernels
 see plain local tensors.  With no mesh context every function computes
 exactly what it did before.
+
+Under sequence parallelism (``MeshContext.sp``) the residual stream is this
+rank's chunk of the sequence: ``rmsnorm`` runs on those rows; attention
+and the MLP enter through ``copy_to_model``'s all-gather along the
+sequence (RoPE then takes the whole sequence's positions, which the model
+passes down) and leave through ``reduce_from_model``'s reduce-scatter; the
+embedding gathers the token ids and reduce-scatters the looked-up rows.
+The unembedding applies this rank's rows to the whole table, gathered over
+``model`` with a reduce-scatter backward, so the logits come out as the
+reference lays them out, ``("batch", "seq", "vocab")`` with ``model`` on
+the sequence and the vocab whole; the loss is then the plain
+cross-entropy over the local rows (no vocab-parallel one).
 """
 from __future__ import annotations
 
@@ -61,7 +73,8 @@ class RMSNorm(nn.Module):
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5, tp=None) -> torch.Tensor:
     """Over the last dim; with ``tp`` local, ``x`` and the scale are that
-    dim's model shard and the mean is taken over every shard."""
+    dim's model shard and the mean is taken over every shard.  Row-wise, so
+    under SP it runs on this rank's sequence rows as it is."""
     xf = x.float()
     var = C.mean_over_model(torch.mean(xf * xf, dim=-1, keepdim=True), tp)
     out = xf * torch.rsqrt(var + eps)
@@ -140,12 +153,14 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
 
 def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor) -> torch.Tensor:
-    """Full (train/prefill) causal attention through the flash kernel."""
-    b, s, _ = x.shape
+    """Full (train/prefill) causal attention through the flash kernel.
+    ``positions`` (B, S) are the whole sequence's (under SP ``x`` holds
+    this rank's S / model rows, gathered on entry)."""
     tp = _attention_tp(p, cfg)
     q, k, v = _qkv(p, C.copy_to_model(x, tp), cfg, positions, tp)
     o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
-    o = o.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.resolved_head_dim)
+    b, h, s, hd = o.shape
+    o = o.transpose(1, 2).reshape(b, s, h * hd)
     return C.reduce_from_model(o @ C.param(p.wo, tp), tp)
 
 
@@ -247,12 +262,17 @@ def embed_apply(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
 def unembed_apply(p: Embed, x: torch.Tensor, vocab_size: int,
                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Logits (B, S, Vpad) in f32; padded vocab columns are -1e30.  In a
-    mesh context: this rank's vocab range (B, S, Vpad / model)."""
-    tp = vocab_tp(p, out=True)
-    w = C.param(p.out if p.out is not None else p.tok, tp)
-    x = C.copy_to_model(x, tp)
+    mesh context: this rank's vocab range (B, S, Vpad / model); under SP
+    its sequence rows and the whole vocab (B, S / model, Vpad)."""
+    table = p.out if p.out is not None else p.tok
+    if C.seq_group() is not None:             # SP: this rank's rows, the whole table
+        w, first = C.param(table, rows=True), 0
+    else:
+        tp = vocab_tp(p, out=True)
+        w = C.param(table, tp)
+        x = C.copy_to_model(x, tp)
+        first = tp.rank * w.shape[0] if tp is not None else 0
     logits = (x.to(compute_dtype) @ w.to(compute_dtype).T).float()
-    first = tp.rank * w.shape[0] if tp is not None else 0
     if first + w.shape[0] > vocab_size:
         logits[..., max(vocab_size - first, 0):] = NEG_INF
     return logits

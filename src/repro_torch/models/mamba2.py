@@ -14,6 +14,14 @@ so the reference's ``("embed", "mlp")`` shard is not whole heads (at
 ``model`` 2, rank 0 would hold all of ``z``); each rank then takes its
 heads' part of ``z`` and ``x``.  ``w_b`` and ``w_c`` are replicated, their
 products consumed by this rank's heads (f after them).
+
+Under sequence parallelism the causal conv and the scan need the whole
+sequence: the block enters as a replicated layer does, gathering its
+input along the sequence (``copy_to_model(x, None)``, before ``x @
+w_in``: its f's below make the input gradient whole), runs as above with
+f inside (``collectives.to_shards``), and leaves through
+``reduce_from_model``'s reduce-scatter after ``w_out``.  The prefill keeps
+no state, so no sequence-sharded conv window is ever sliced.
 """
 from __future__ import annotations
 
@@ -85,7 +93,7 @@ def _in_proj(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, tp):
     """(z, xin) of this rank's heads: ``x @ w_in``, replicated (``w_in``
     gathered), then each half's local columns."""
     din = dims(cfg)[0]
-    zx = C.copy_to_model(x @ C.param(p.w_in), tp)
+    zx = C.to_shards(x @ C.param(p.w_in), tp)
     z, xin = zx[..., :din], zx[..., din:]
     if tp is not None and tp.size > 1:
         n = din // tp.size
@@ -94,17 +102,18 @@ def _in_proj(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, tp):
 
 
 def _gates(p: Mamba2, x: torch.Tensor, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    x = C.copy_to_model(x, tp)
+    x = C.to_shards(x, tp)
     dt = F.softplus(x.float() @ C.param(p.w_dt, tp).float() + C.param(p.dt_bias, tp))
     return dt, torch.exp(-dt * torch.exp(C.param(p.a_log, tp)))   # decay in (0, 1]
 
 
 def _bc(p: Mamba2, x: torch.Tensor, tp) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (C.copy_to_model(x @ C.param(p.w_b), tp).float(),
-            C.copy_to_model(x @ C.param(p.w_c), tp).float())
+    return (C.to_shards(x @ C.param(p.w_b), tp).float(),
+            C.to_shards(x @ C.param(p.w_c), tp).float())
 
 
 def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = C.copy_to_model(x, None)                  # under SP: the whole sequence
     b, s, _ = x.shape
     din, nh, ph, n = dims(cfg)
     tp = _tp(p, cfg)

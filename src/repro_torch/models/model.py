@@ -30,7 +30,11 @@ and each layer issues its collectives (``models/layers.py``, ``moe.py``,
 ``mamba2.py``); ``shard_hint`` stands at the reference's sites.  The loss
 is global: ``sum(nll * mask)`` over ``sum(mask)``, both summed over the
 batch shards, with the cross-entropy over a vocab-sharded axis
-(``collectives.vocab_nll``).
+(``collectives.vocab_nll``).  Under sequence parallelism (``MeshContext.sp``)
+the tokens, the residual stream between the blocks, the logits and the
+labels are this rank's chunk of the sequence (every ``shard_hint`` asserts
+it), RoPE takes the whole sequence's positions, and the loss's sums run
+over the sequence shards too (``collectives.token_sum``).
 """
 from __future__ import annotations
 
@@ -247,7 +251,9 @@ def forward(model: Model, tokens: Optional[torch.Tensor] = None,
     else:
         x = L.embed_apply(model.embed, tokens).to(L.dtype_of(cfg.dtype))
         b, s = tokens.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    # the whole sequence's positions (under SP this rank holds s of them)
+    s_all = s * C.seq_shards()
+    positions = torch.arange(s_all, device=x.device)[None, :].expand(b, s_all)
     x = shard_hint(x, ("batch", "seq", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -275,7 +281,7 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]
     logits, aux = forward(model, tokens=batch.get("tokens"), embeds=batch.get("embeds"))
     labels = batch["labels"].long()
     tp = L.vocab_tp(model.embed, out=True)
-    if tp is not None and tp.local:
+    if tp is not None and tp.local and C.seq_group() is None:
         nll = C.vocab_nll(logits, labels, tp)
     else:
         lse = torch.logsumexp(logits, dim=-1)
@@ -283,7 +289,7 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]
         nll = lse - gold
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    loss = C.batch_sum(torch.sum(nll * mask)) / torch.clamp(C.batch_sum(torch.sum(mask)),
+    loss = C.token_sum(torch.sum(nll * mask)) / torch.clamp(C.token_sum(torch.sum(mask)),
                                                             min=1.0)
     total = loss + 0.01 * aux
     loss = loss.detach()

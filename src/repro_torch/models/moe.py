@@ -25,6 +25,16 @@ combine's partial sums are all-reduced over ``model``.  The gradient of a
 buffer row comes only from the same row of the expert outputs (the grouped
 matmul and the gating are row-wise), so the buffer's all-reduce passes the
 gradient back unchanged.
+
+Under sequence parallelism the layer first gathers its input along the
+sequence over ``model``, entering as a replicated layer does
+(``copy_to_model(x, None)``: its f's make the input gradient whole), so
+that each rank
+holds its batch shard's (b, s) tokens in the reference's order before they
+are flattened and gathered over the batch shards: the capacity drops then
+land on the reference's tokens.  Everything above runs as it is, f inside
+(``collectives.to_shards``), and the output leaves through
+``reduce_from_model``'s reduce-scatter along the sequence.
 """
 from __future__ import annotations
 
@@ -104,6 +114,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, 
     """x: (B, S, d) -> (out (B, S, d), load-balance aux loss (f32 scalar)).
     In a mesh context x is this rank's batch shard (the module docstring
     says how the layer keeps the global semantics)."""
+    x = C.copy_to_model(x, None)                  # under SP: the whole sequence
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -140,7 +151,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, 
         keep = keep & (se >= e0) & (se < e0 + el)
     slot = torch.where(keep, (se - e0) * cap + rank, torch.full_like(se, el * cap))
     src = (ssrc - lo).clamp(0, t - 1) if parts > 1 else ssrc
-    xd = C.copy_to_model(xf, tp)
+    xd = C.to_shards(xf, tp)
 
     buf = torch.zeros(el * cap + 1, d, dtype=x.dtype, device=x.device)
     buf.index_add_(0, slot, torch.where(keep[:, None], xd[src], torch.zeros((), dtype=x.dtype,
@@ -157,19 +168,19 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, 
 
     # combine, in f32: each token's k contributions back in choice order and
     # summed in that order (no atomics, so a run on the card is repeatable)
-    contrib = yflat[slot].float() * (C.copy_to_model(sg, tp) * keep.float())[:, None]
+    contrib = yflat[slot].float() * (C.to_shards(sg, tp) * keep.float())[:, None]
     unsorted = torch.empty_like(contrib)
     unsorted[order] = contrib
     if parts > 1:
         unsorted = unsorted[lo * k:(lo + t) * k]
-    out = C.reduce_from_model(unsorted.reshape(t, k, d).sum(dim=1), tp)
-    out = out.to(x.dtype).reshape(b, s, d)
+    out = C.reduce_from_model(unsorted.reshape(t, k, d).sum(dim=1).reshape(b, s, d), tp)
+    out = out.to(x.dtype)
 
     if p.shared is not None:
-        sp = p.shared
-        stp = C.tp((sp.wi, 1), (sp.wg, 1), (sp.wo, 0))
+        sh = p.shared
+        stp = C.tp((sh.wi, 1), (sh.wg, 1), (sh.wo, 0))
         local = (tp is not None and tp.local, stp is not None and stp.local)
-        xs = xd if local[0] == local[1] else C.copy_to_model(xf, stp)   # one f where both are
-        hs = F.silu(xs @ C.param(sp.wg, stp)) * (xs @ C.param(sp.wi, stp))
-        out = out + C.reduce_from_model(hs @ C.param(sp.wo, stp), stp).reshape(b, s, d)
+        xs = xd if local[0] == local[1] else C.to_shards(xf, stp)   # one f where both are
+        hs = F.silu(xs @ C.param(sh.wg, stp)) * (xs @ C.param(sh.wi, stp))
+        out = out + C.reduce_from_model((hs @ C.param(sh.wo, stp)).reshape(b, s, d), stp)
     return out, aux

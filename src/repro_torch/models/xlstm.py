@@ -13,6 +13,11 @@ with no chunked form: a plain PyTorch loop over time, as the reference's
 Inside a mesh context the blocks are replicated over ``model`` (the
 reference's ``mlstm``/``slstm`` rule, ``partition._axes_for``): each
 weight is gathered over ``data`` where it is used and nothing else changes.
+Under sequence parallelism the mLSTM scans and the sLSTM loop run over the
+whole sequence, replicated over ``model``: each block enters and leaves
+as a replicated layer (``copy_to_model`` / ``reduce_from_model`` with no
+``TP``): it gathers its input along the sequence and keeps this rank's
+chunk of its output.
 """
 from __future__ import annotations
 
@@ -91,6 +96,7 @@ def _mlstm_out(p: MLSTM, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig) -> 
 
 
 def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = C.copy_to_model(x, None)
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v, ig, fg = _mlstm_qkvif(p, x, cfg)
@@ -100,7 +106,7 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     nrm, _ = ops.ssm_scan(torch.ones(b, s, h, 1, dtype=torch.float32, device=x.device),
                           fg, bk, qf)
     y = y / torch.clamp(nrm.abs(), min=1.0)
-    return _mlstm_out(p, x, y.reshape(b, s, h * hd), cfg)
+    return C.reduce_from_model(_mlstm_out(p, x, y.reshape(b, s, h * hd), cfg), None)
 
 
 def mlstm_init_state(cfg: ModelConfig, batch: int, layers: int, device) -> State:
@@ -137,6 +143,7 @@ def _slstm_gates(p: SLSTM, x: torch.Tensor, cfg: ModelConfig):
 
 
 def slstm_apply(p: SLSTM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = C.copy_to_model(x, None)
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     z, i, f, o = _slstm_gates(p, x, cfg)
@@ -148,7 +155,7 @@ def slstm_apply(p: SLSTM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         n = f[:, t] * n + i[:, t]
         ys.append(o[:, t, :, None] * c / torch.clamp(n[..., None], min=1.0))
     y = torch.stack(ys, dim=1).reshape(b, s, h * hd).to(x.dtype)
-    return y @ C.param(p.wo)
+    return C.reduce_from_model(y @ C.param(p.wo), None)
 
 
 def slstm_init_state(cfg: ModelConfig, batch: int, layers: int, device) -> State:

@@ -56,20 +56,24 @@ ROOT = Path(__file__).resolve().parent.parent
 ARCHS = ["smollm_360m", "granite_moe_1b", "zamba2_1_2b", "xlstm_1_3b"]
 MESHES = {"1x1": ((1, 1), ("data", "model")), "2x2": ((2, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+# the dry run's sp rules: the residual stream's sequence over model
+SP_RULES = {"seq": ["model"]}
 # [arch, overrides of the reduced config ("full": the config itself), mesh,
-# fsdp, zero1]
+# fsdp, zero1] and, for the SP cases, the rule overrides
 CASES = ([[a, {}, m, f, z] for a in ARCHS for m in MESHES for f in (False, True)
           for z in (False, True)]
          + [["smollm_360m", {"num_heads": 6, "num_kv_heads": 3}, m, True, True]
             for m in ("2x2", "2x2x2")]
-         + [["smollm_360m", "full", m, True, True] for m in ("2x2", "2x2x2")])
+         + [["smollm_360m", "full", m, True, True] for m in ("2x2", "2x2x2")]
+         + [[a, {}, m, f, f, SP_RULES] for a in ARCHS for m in ("2x2", "2x2x2")
+            for f in (False, True)])
 CACHE = (8, 16)            # the decode cache's batch and max_seq (as the helper's)
 
 
 def case_id(case) -> str:
-    arch, ov, m, f, z = case
+    arch, ov, m, f, z, *rules = case
     tag = "" if ov == {} else "_full" if ov == "full" else "_6_3_heads"
-    return f"{arch}{tag}-{m}-fsdp{int(f)}-zero1{int(z)}"
+    return f"{arch}{tag}-{m}-fsdp{int(f)}-zero1{int(z)}" + ("-sp_rules" if rules else "")
 
 
 # --------------------------------------------------------------------------
@@ -91,10 +95,10 @@ def _enc(spec):
 
 
 def _port_specs(case) -> dict:
-    arch, ov, mesh_name, fsdp, zero1 = case
+    arch, ov, mesh_name, fsdp, zero1, *rules = case
     cfg = get_config(arch) if ov == "full" else reduced(get_config(arch), **ov)
     shape, axes = MESHES[mesh_name]
-    mc = MeshContext(shape=shape, axis_names=axes)
+    mc = MeshContext(shape=shape, axis_names=axes, rules=rules[0] if rules else None)
     param_sh, logical, shapes = step_mod.make_param_shardings(cfg, mc, fsdp=fsdp)
     opt_sh = step_mod.make_opt_shardings(cfg, ParallelConfig(fsdp=fsdp, zero1=zero1), mc,
                                          logical, shapes)
@@ -111,7 +115,8 @@ def _port_specs(case) -> dict:
             "cache_long": dict(flat(step_mod.cache_shardings(cfg, mc, *CACHE,
                                                              long_context=True))),
             "batch": {k: dict(flat(step_mod.batch_shardings(cfg, k, mc)))
-                      for k in ("train", "prefill", "decode")}}
+                      for k in ("train", "prefill", "decode")},
+            "logits": _enc(mc.sharding(("batch", "seq", "vocab")).spec)}
 
 
 def _against_jax(port: dict, jax_tree: dict) -> None:
@@ -132,13 +137,20 @@ def _against_jax(port: dict, jax_tree: dict) -> None:
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_specs_equal_the_jax_package(case, jax_specs):
     """Parameters and moments (by name through ``convert.jax_path``), the
-    decode cache and the batch: each spec the JAX package's."""
+    decode cache, the batch and the prefill's logits: each spec the JAX
+    package's (under the sp rules the train and prefill batches
+    ``P(("pod", "data"), "model")`` and the logits ``model`` on the
+    sequence, the vocab whole)."""
     want = jax_specs["specs"][CASES.index(case)]
     got = _port_specs(case)
     _against_jax(got["params"], want["params"])
     _against_jax(got["opt"], want["opt"])
     assert got["cache"] == want["cache"]
     assert got["batch"] == want["batch"]
+    assert got["logits"] == want["logits"]
+    if len(case) > 5:
+        assert got["batch"]["train"]["tokens"][1] == "model" and got["logits"][1:] == [
+            "model", None]
 
 
 # the four families at each mesh (the cache's specs do not depend on fsdp or
@@ -295,8 +307,8 @@ def test_long_context_decode_at_2x2_matches_one_process(gloo_checks):
 def dryrun_2x2():
     """The dry run's 2x2 cells of the four reduced families (a train step
     of 4 x 32, a prefill of 4 x 32, a decode step at batch 4 against 16
-    positions), each family's reports in one subprocess (a fake process
-    group of 4 ranks)."""
+    positions) under the base and the sp variants, every report in one
+    subprocess (a fake process group of 4 ranks)."""
     code = (
         "import json, sys\n"
         "from repro_torch.configs import get_config, reduced\n"
@@ -306,9 +318,10 @@ def dryrun_2x2():
         "out = {}\n"
         "for arch in json.loads(sys.argv[2]):\n"
         "    cfg = reduced(get_config(arch))\n"
-        "    out[arch] = {k: run_cell(arch, ShapeConfig(k, n, m, k), mesh='2x2', cfg=cfg)\n"
-        "                 for k, n, m in (('train', s, b), ('prefill', s, b),\n"
-        "                                 ('decode', sd, bd))}\n"
+        "    for v in ('base', 'sp'):\n"
+        "        out[arch + '|' + v] = {\n"
+        "            k: run_cell(arch, ShapeConfig(k, n, m, k), mesh='2x2', cfg=cfg, variant=v)\n"
+        "            for k, n, m in (('train', s, b), ('prefill', s, b), ('decode', sd, bd))}\n"
         "print(json.dumps(out))\n")
     r = subprocess.run([sys.executable, "-c", code, json.dumps([DRYRUN_TRAIN, DRYRUN_DECODE]),
                         json.dumps(ARCHS)], cwd=ROOT, capture_output=True, text=True,
@@ -323,30 +336,68 @@ def test_dryrun_collectives_equal_a_gloo_run(arch, kind, dryrun_2x2, gloo_checks
     """The dry run's collectives at 2x2 (rank 0 of a fake process group, on
     ``meta``) are, by kind, the calls and bytes ``count_collectives`` sees
     on rank 0 of the real gloo run of the same step."""
-    report = dryrun_2x2[arch][kind]
+    report = dryrun_2x2[arch + "|base"][kind]
     assert report["status"] == "ok"
     got = {k: [v["calls"], v["bytes"]] for k, v in report["collectives"].items()}
     assert got == gloo_checks["collectives"][arch][kind]
 
 
-def test_dryrun_argument_bytes_equal_xla_s(jax_specs):
-    """The reference's ``check_dryrun_small_mesh`` cell (reduced granite,
-    vocab 256, train 8 x 64, mesh 2x2x2): the dry run's argument bytes a
-    rank are XLA's ``argument_size_in_bytes`` for the same cell: parameter,
-    moment and batch shards and the step count."""
-    code = ("import json\n"
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dryrun_collectives_equal_a_gloo_run_under_sp(arch, kind, dryrun_2x2, gloo_checks):
+    """The same under the sp rules (``--variant sp``): the dry run's
+    collectives are the gloo run's, and in the train and prefill steps the
+    sequence's all-gathers and reduce-scatters stand where the base rules
+    all-reduce; the decode step, whose residual stays whole, issues the
+    base rules' collectives."""
+    report = dryrun_2x2[arch + "|sp"][kind]
+    assert report["status"] == "ok" and report["rules"] == {"seq": ["model"]}
+    got = {k: [v["calls"], v["bytes"]] for k, v in report["collectives"].items()}
+    want = gloo_checks["collectives"][arch]["sp"][kind]
+    assert got == want
+    base = gloo_checks["collectives"][arch][kind]
+    if kind == "decode":
+        assert want == base
+    else:
+        assert want["reduce_scatter"][0] > base.get("reduce_scatter", [0])[0]
+
+
+def _small_mesh_cell(variant: str) -> dict:
+    """The port's dry run of the reference's ``check_dryrun_small_mesh``
+    cell (reduced granite, vocab 256, train 8 x 64, mesh 2x2x2)."""
+    code = ("import json, sys\n"
             "from repro_torch.configs import get_config, reduced\n"
             "from repro_torch.configs.base import ShapeConfig\n"
             "from repro_torch.launch.dryrun import run_cell\n"
             "cfg = reduced(get_config('granite_moe_1b'), vocab_size=256)\n"
             "print(json.dumps(run_cell('granite_moe_1b', ShapeConfig('t', 64, 8, 'train'),\n"
-            "                          mesh='2x2x2', cfg=cfg)))\n")
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
-                       timeout=TIMEOUT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+            "                          mesh='2x2x2', cfg=cfg, variant=sys.argv[1])))\n")
+    r = subprocess.run([sys.executable, "-c", code, variant], cwd=ROOT, capture_output=True,
+                       text=True, timeout=TIMEOUT,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert r.returncode == 0, r.stderr[-4000:]
     report = json.loads(r.stdout.strip().splitlines()[-1])
     assert report["status"] == "ok" and report["chips"] == 8
-    assert report["memory"]["argument_size_in_bytes"] == jax_specs["dryrun_argument_bytes"]
+    return report
+
+
+def test_dryrun_argument_bytes_equal_xla_s(jax_specs):
+    """The reference's ``check_dryrun_small_mesh`` cell: the dry run's
+    argument bytes a rank are XLA's ``argument_size_in_bytes`` for the same
+    cell: parameter, moment and batch shards and the step count."""
+    report = _small_mesh_cell("base")
+    assert report["memory"]["argument_size_in_bytes"] == \
+        jax_specs["dryrun_argument_bytes"]["base"]
+
+
+def test_dryrun_argument_bytes_equal_xla_s_under_sp(jax_specs):
+    """The same cell under the sp rules: XLA's argument bytes, which are
+    the base rules' less half the token and label shards (their sequence
+    split over the 2 model ranks)."""
+    report = _small_mesh_cell("sp")
+    want = jax_specs["dryrun_argument_bytes"]
+    assert report["memory"]["argument_size_in_bytes"] == want["sp"]
+    assert want["base"] - want["sp"] == 2 * (8 // 4) * (64 // 2) * 4
 
 
 def test_train_cli_runs_at_2x2(tmp_path):
@@ -450,6 +501,61 @@ def test_replicated_batch_makes_the_batch_collectives_identities():
         assert not mc.replicated_batch and C.batch_place() == (0, 2)
 
 
+def test_sp_rules_split_the_residual_stream_over_model():
+    """``{"seq": ("model",)}`` turns on sequence parallelism: ``sp``, the
+    residual's and the batch's specs with ``model`` on the sequence, the
+    decode step's context with the sequence whole again, and a rule that
+    splits it over another axis refused."""
+    mc = MeshContext(shape=(2, 2, 2), axis_names=("pod", "data", "model"),
+                     rules={"seq": ("model",)})
+    assert mc.sp and mc.seq_axes == ("model",)
+    assert mc.spec(("batch", "seq", "embed")) == (("pod", "data"), "model", None)
+    assert mc.spec(("batch", "seq", "vocab")) == (("pod", "data"), "model", None)
+    rep = mc.with_replicated_seq()
+    assert not rep.sp and mc.sp and rep.spec(("batch", "seq")) == mc.spec(("batch", "seq"))
+    assert not MeshContext(shape=(2, 2), axis_names=("data", "model")).sp
+    assert not MeshContext(shape=(4,), axis_names=("data",), rules={"seq": ("model",)}).sp
+    with pytest.raises(ValueError, match="over"):
+        MeshContext(shape=(2, 2), axis_names=("data", "model"),
+                    rules={"batch": None, "seq": ("data",)}).sp
+    cfg = reduced(get_config("smollm_360m"))
+    _, (_, _, tok_sh) = step_mod.make_decode_step(cfg, ParallelConfig(), mc, 8, 16)
+    assert tok_sh.spec == (("pod", "data"),)
+
+
+def test_a_sequence_model_does_not_divide_is_refused():
+    """Under the sp rules a train or prefill batch whose sequence the model
+    ranks do not divide is refused where it is cut, with both sizes named
+    (the reference would pad it)."""
+    mc = MeshContext(shape=(1, 4), axis_names=("data", "model"), rules={"seq": ("model",)})
+    cfg = reduced(get_config("smollm_360m"))
+    for kind in ("train", "prefill"):
+        sh = step_mod.batch_shardings(cfg, kind, mc)["tokens"]
+        assert sh.local_shape((2, 32)) == (2, 8)
+        with pytest.raises(ValueError, match=r"\(30\).*4 ranks of model"):
+            sh.local_slice(torch.zeros(2, 30, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_row_params_are_the_residual_norms(arch):
+    """``partition.row_params``: the parameters applied to the residual
+    stream's rows outside a layer (their SP gradients partial over the
+    sequence shards): every residual norm's scale, not Mamba2's or the
+    mLSTM's inner norm, and an embedding table only where ``model`` does not
+    shard it."""
+    from repro_torch.distributed.partition import row_params
+    cfg = reduced(get_config(arch))
+    mc = MeshContext(shape=(2, 2), axis_names=("data", "model"), rules={"seq": ("model",)})
+    param_sh, _, _ = step_mod.make_param_shardings(cfg, mc, fsdp=True)
+    rows = row_params(param_sh)
+    names = [n for n in param_sh if n.endswith(".scale")]
+    inner = [n for n in names if ".mamba.norm." in n or ".mlstm.norm." in n]
+    assert sorted(rows) == sorted(set(names) - set(inner)) and "final_norm.scale" in rows
+    assert (len(inner) > 0) == (cfg.family in ("hybrid", "ssm"))
+    odd = {n: NamedSharding(mc, (None, None)) for n in ("embed.tok", "embed.out")}
+    assert row_params(odd) == ["embed.tok", "embed.out"]
+
+
 def test_input_specs_are_meta_tensors():
     cfg = reduced(get_config("smollm_360m"))
     train = step_mod.input_specs(cfg, ShapeConfig("t", 64, 8, "train"))
@@ -485,9 +591,10 @@ from repro_torch.distributed.sharding import MeshContext
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import init_params
 from repro_torch.optim import adamw_init
-mc = MeshContext(make_mesh((1, 1), ("data", "model")))
+mesh = make_mesh((1, 1), ("data", "model"))
 assert torch.distributed.get_backend() == "nccl"
-for arch in ("smollm_360m", "granite_moe_1b", "zamba2_1_2b", "xlstm_1_3b"):
+for mc, arch in [(MeshContext(mesh, rules), arch) for rules in (None, {"seq": ("model",)})
+                 for arch in ("smollm_360m", "granite_moe_1b", "zamba2_1_2b", "xlstm_1_3b")]:
     cfg = dataclasses.replace(reduced(get_config(arch)), dtype="bfloat16",
                               param_dtype="bfloat16", remat="full")
     ds = SyntheticLM(cfg, ShapeConfig("t", 64, 2, "train"), seed=0)
@@ -512,9 +619,10 @@ torch.distributed.destroy_process_group()
 @pytest.mark.gpu
 def test_gpu_one_rank_nccl_step_is_the_one_card_step():
     """At mesh 1x1 over a one-rank NCCL group the sharded step of each
-    family (reduced, bf16, remat "full") is bit for bit the one-card step:
-    losses, grad norms and parameters after 2 steps.  In a subprocess, so
-    the process group does not outlive the test."""
+    family (reduced, bf16, remat "full"), under the base and the sp rules,
+    is bit for bit the one-card step: losses, grad norms and parameters
+    after 2 steps.  In a subprocess, so the process group does not outlive
+    the test."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     r = subprocess.run([sys.executable, "-c", GPU_ONE_RANK], cwd=ROOT, capture_output=True,

@@ -30,6 +30,16 @@ sum over S of differences that nearly cancel), and by 4e-14 and 8e-12 in
 f64: rounding, amplified by the reduced model's conditioning, not a
 formula.
 
+Under the dry run's sp rules (``{"seq": ("model",)}``: Megatron's sequence
+parallelism on the residual stream) each family's steps run again in the
+same torchrun, at 2x2 and 1x4, held to the same bounds: reduced granite
+with its capacity drops (a token order rebuilt wrongly before the routing
+moves the drops onto other tokens), reduced smollm with 6 / 3 heads too
+(attention then computes replicated over ``model``, entering with a
+gather whose backward slices), zamba2 at 2x2 in f32 and at 2x2 and 1x4 in
+f64 (at 1x4 in f32 its decode sits 2e-5 off one process, as under the base
+rules: rounding).
+
 The loss falls: the reference's ``check_train_step_sharded`` config, 40
 steps at 2x2.  ``launch/train.py``'s ``main`` at ``--mesh 2x2`` for 4
 steps and again at ``--mesh 4x1``: the 4x1 run resumes at step 4 with the
@@ -58,41 +68,86 @@ CASES = {"smollm_360m": [MESH_2x2, MESH_1x4,
 # zamba2 in f32 (the module docstring says why); every other family 1e-5
 GRAD_RTOL = {"zamba2_1_2b": 1e-4}
 F64_GRAD_RTOL = 1e-10
+SP = {"seq": ["model"]}
+SP_CASES = {arch: [{**MESH_2x2, "rules": SP}, {**MESH_1x4, "rules": SP}] for arch in ARCHS}
+SP_CASES["zamba2_1_2b"] = [{**MESH_2x2, "rules": SP}]
+SIX_THREE = {"num_heads": 6, "num_kv_heads": 3}
+_RUNS: dict = {}
 
 
-def _weights(arch: str, path) -> str:
-    params = jinit_params(jax.random.key(11), jreduced(jget_config(arch),
-                                                      **OVERRIDES.get(arch, {})))
+def _weights(arch: str, path, overrides: dict) -> str:
+    params = jinit_params(jax.random.key(11), jreduced(jget_config(arch), **overrides))
     flat = jax.tree_util.tree_flatten_with_path(params)[0]
     np.savez(path, **{"/".join(str(k.key) for k in p): np.asarray(v) for p, v in flat})
     return str(path)
 
 
-def _family_args(arch, tmp_path, **extra) -> dict:
-    return {"arch": arch, "overrides": OVERRIDES.get(arch, {}), "drops": arch in OVERRIDES,
-            "weights": _weights(arch, tmp_path / f"{arch}.npz"), "batch": 4, "seq": 32,
-            "cases": CASES.get(arch, [MESH_2x2, MESH_1x4]), **extra}
+def _family_args(arch, tmp_path, overrides=None, **extra) -> dict:
+    overrides = OVERRIDES.get(arch, {}) if overrides is None else overrides
+    return {"arch": arch, "overrides": overrides, "drops": arch in OVERRIDES,
+            "weights": _weights(arch, tmp_path / f"{arch}.npz", overrides), "batch": 4,
+            "seq": 32, "cases": CASES.get(arch, [MESH_2x2, MESH_1x4]), **extra}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_steps_match_the_one_process_steps(arch, tmp_path):
-    args = _family_args(arch, tmp_path)
-    if arch in GRAD_RTOL:
-        args["grad_rtol"] = GRAD_RTOL[arch]
-    out = run_checks("family", args)["family"]
-    cases = [k for k in out if "|" in k]
-    assert len(cases) == len(args["cases"]), out
+def _family_run(arch: str, tmp_path_factory) -> dict:
+    """One torchrun of ``check family`` for ``arch``: its base-rule cases,
+    then its SP cases (run once, read by both tests)."""
+    if arch not in _RUNS:
+        args = _family_args(arch, tmp_path_factory.mktemp(arch))
+        args["cases"] = args["cases"] + SP_CASES[arch]
+        if arch in GRAD_RTOL:
+            args["grad_rtol"] = GRAD_RTOL[arch]
+        _RUNS[arch] = run_checks("family", args)["family"]
+    return _RUNS[arch]
+
+
+def _held(out: dict, cases: list, arch: str) -> None:
+    assert len(cases) > 0, out
     for k in cases:
         assert out[k]["loss_rel_err"] <= 1e-6, (k, out[k])
         assert out[k]["grad_rel_norm_max"] <= GRAD_RTOL.get(arch, 1e-5), (k, out[k])
+        assert max(out[k]["prefill_err"], out[k]["decode_err"]) <= 1e-5, (k, out[k])
     if arch in OVERRIDES:
         assert out["dropped"] > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_steps_match_the_one_process_steps(arch, tmp_path_factory):
+    out = _family_run(arch, tmp_path_factory)
+    cases = [k for k in out if "|" in k and not k.endswith("|sp")]
+    assert len(cases) == len(CASES.get(arch, [MESH_2x2, MESH_1x4])), out
+    _held(out, cases, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sp_steps_match_the_one_process_steps(arch, tmp_path_factory):
+    """Under the sp rules: the loss within 1e-6, every gradient within 1e-5
+    (zamba2 1e-4 in f32), prefill and decode logits within 1e-5 of one
+    process, at 2x2 and 1x4 (zamba2 at 2x2; 1x4 in f64 below); granite
+    with tokens dropped over capacity."""
+    out = _family_run(arch, tmp_path_factory)
+    cases = [k for k in out if k.endswith("|sp")]
+    assert len(cases) == len(SP_CASES[arch]), out
+    _held(out, cases, arch)
+
+
+def test_sp_steps_with_attention_replicated_over_model(tmp_path):
+    """Reduced smollm with 6 query and 3 KV heads under the sp rules: at
+    2x2 (3 KV heads do not split over 2) and 1x4 (6 heads do not split
+    over 4) attention computes replicated over ``model``, entering with a
+    gather whose backward takes this rank's chunk and leaving by taking its
+    chunk; every bound as above."""
+    args = _family_args("smollm_360m", tmp_path, SIX_THREE, cases=SP_CASES["smollm_360m"])
+    out = run_checks("family", args)["family"]
+    _held(out, [k for k in out if k.endswith("|sp")], "smollm_360m")
 
 
 @pytest.fixture(scope="module")
 def zamba2_f64(tmp_path_factory):
     args = _family_args("zamba2_1_2b", tmp_path_factory.mktemp("f64"), f64=True,
-                        grad_rtol=F64_GRAD_RTOL, cases=[MESH_2x2, MESH_1x4])
+                        grad_rtol=F64_GRAD_RTOL,
+                        cases=[MESH_2x2, MESH_1x4] + [{**m, "rules": SP}
+                                                      for m in (MESH_2x2, MESH_1x4)])
     return run_checks("family,long_decode", args)
 
 
@@ -103,6 +158,17 @@ def test_zamba2_sharded_gradients_in_f64(zamba2_f64):
     out = zamba2_f64["family"]
     for k in ("2x2|{}", "1x4|{}"):
         assert out[k]["grad_rel_norm_max"] <= F64_GRAD_RTOL, out
+
+
+def test_zamba2_sp_steps_in_f64(zamba2_f64):
+    """Reduced zamba2 in float64 under the sp rules, at 2x2 and 1x4: the
+    gradients within 1e-10 of one process, the loss within 1e-12, the
+    prefill and decode logits within 1e-10."""
+    out = zamba2_f64["family"]
+    for k in ("2x2|{}|sp", "1x4|{}|sp"):
+        assert out[k]["grad_rel_norm_max"] <= F64_GRAD_RTOL, out
+        assert out[k]["loss_rel_err"] <= 1e-12, out
+        assert max(out[k]["prefill_err"], out[k]["decode_err"]) <= 1e-10, out
 
 
 def test_long_context_decode_in_f64_matches_one_process(zamba2_f64):

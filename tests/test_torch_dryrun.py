@@ -10,8 +10,10 @@ A cell runs in a subprocess, as rank 0 of a fake process group, on
   each call sees (on the CPU the kernels' plain versions run, and what the
   mode counts inside them is set aside);
 * the reference's depth P / 2P extrapolation, exact for smollm (P 1);
-* the variants: base, bf16logits, noremat, dots and bf16logits+dots run;
-  sp and chunk2k raise a ``ValueError`` naming what they need;
+* the variants: every one of ``dryrun.VARIANTS`` runs; sp's rules split
+  the sequence (at mesh 1x1 over one rank: the base step's FLOPs);
+  chunk2k's attn_chunk has no effect in the port and is recorded so, its
+  FLOPs, bytes and collectives those of base (of bf16logits with it);
 * the command line: zamba2_1_2b's long_500k cell at the production 16x16
   mesh (256 fake ranks) gives ``ok``, smollm_360m's is ``skipped``.
 
@@ -41,7 +43,7 @@ from repro_torch.optim import adamw_init
 ROOT = Path(__file__).resolve().parent.parent
 ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 TRAIN = (2, 64)                    # reduced smollm's train cell: batch, seq
-VARIANTS = ["base", "bf16logits", "noremat", "dots", "bf16logits+dots"]
+VARIANTS = list(dryrun.VARIANTS)
 
 
 def _smollm():
@@ -122,18 +124,35 @@ def test_depth_extrapolation_is_exact_for_smollm(smollm_1x1):
     assert corrected["collectives"] == report["collectives"]
 
 
-def test_variants_run_or_say_what_they_need(smollm_1x1):
-    """base, bf16logits, noremat, dots and bf16logits+dots run; remat
-    changes the FLOPs (no recompute under "none"), the logits' dtype does
-    not; sp and chunk2k raise before any process group is set up."""
-    flops = {v: smollm_1x1[v]["cost"]["flops"] for v in VARIANTS}
+def test_every_variant_runs(smollm_1x1):
+    """All of ``dryrun.VARIANTS`` run (the reference's nine and
+    bf16logits+dots).  Remat changes the FLOPs (no recompute under "none"),
+    the logits' dtype does not; the sp variants carry their rules and, at
+    mesh 1x1 (one model rank), count the FLOPs and kernel bytes of the base
+    rules' step; chunk2k's attn_chunk is taken out and recorded, its FLOPs,
+    kernel bytes and collectives base's (bf16logits+chunk2k's those of
+    bf16logits)."""
+    assert len(VARIANTS) == 10
     assert all(smollm_1x1[v]["status"] == "ok" for v in VARIANTS)
+    flops = {v: smollm_1x1[v]["cost"]["flops"] for v in VARIANTS}
     assert flops["noremat"] < flops["base"] and flops["noremat"] <= flops["dots"]
     assert flops["bf16logits"] == flops["base"]
-    for variant, need in (("sp", "sequence-sharded residual"), ("chunk2k", "attn_chunk"),
-                          ("sp+bf16logits+dots", "sequence-sharded residual")):
-        with pytest.raises(ValueError, match=need):
-            dryrun.run_cell("smollm_360m", "train_4k", variant=variant)
+    for v in VARIANTS:
+        sp = v.startswith("sp")
+        assert smollm_1x1[v]["rules"] == ({"seq": ["model"]} if sp else {})
+        if sp:
+            plain = v[3:] or "base"
+            assert flops[v] == flops[plain]
+            assert smollm_1x1[v]["cost"]["kernel_bytes"] == \
+                smollm_1x1[plain]["cost"]["kernel_bytes"]
+    for v, same in (("chunk2k", "base"), ("bf16logits+chunk2k", "bf16logits")):
+        got, want = smollm_1x1[v], smollm_1x1[same]
+        assert got["no_effect"] == {"attn_chunk": 2048} and "attn_chunk" in \
+            got["no_effect_reason"]
+        assert got["cost"]["flops"] == want["cost"]["flops"]
+        assert got["cost"]["kernel_bytes"] == want["cost"]["kernel_bytes"]
+        assert got["collectives"] == want["collectives"]
+    assert "no_effect" not in smollm_1x1["base"]
 
 
 @pytest.mark.parametrize("arch,status", [("zamba2_1_2b", "ok"), ("smollm_360m", "skipped")])

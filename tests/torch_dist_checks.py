@@ -48,8 +48,10 @@ LOGITS_RTOL = 1e-5         # prefill and decode logits, of their largest |value|
 UPDATE_RTOL = 1e-2
 
 
-def mesh(shape, axes) -> MeshContext:
-    return MeshContext(make_mesh(shape, axes, device="cpu"))
+def mesh(shape, axes, rules=None) -> MeshContext:
+    """A ``MeshContext`` over a gloo mesh; ``rules`` overrides the sharding
+    rules (``{"seq": ["model"]}``: sequence parallelism)."""
+    return MeshContext(make_mesh(shape, axes, device="cpu"), rules)
 
 
 def rank() -> int:
@@ -152,7 +154,7 @@ def check_family(args):
     for case in args["cases"]:
         shape, axes = tuple(case["mesh"]), tuple(case["axes"])
         pcfg = ParallelConfig(**case.get("pcfg", {}))
-        mc = mesh(shape, axes)
+        mc = mesh(shape, axes, case.get("rules"))
         step, (param_sh, opt_sh, batch_sh) = step_mod.make_train_step(cfg, pcfg, mc, **kw)
         model = step_mod.place_params(from_jax_params(tree, cfg, device="cpu"), param_sh)
         local = make_device_batch(batch_np, batch_sh)
@@ -194,7 +196,8 @@ def check_family(args):
             raise AssertionError(f"{case}: prefill {prefill_err}, decode {decode_err}")
         if not max(upd.values()) <= UPDATE_RTOL:
             raise AssertionError(f"{case}: the update of {max(upd, key=upd.get)} is off")
-        report["x".join(map(str, shape)) + "|" + json.dumps(case.get("pcfg", {}))] = {
+        key = "x".join(map(str, shape)) + "|" + json.dumps(case.get("pcfg", {}))
+        report[key + ("|sp" if mc.sp else "")] = {
             "loss_rel_err": loss_err, "grad_rel_norm_max": grad_err[worst], "worst": worst,
             "update_rel_norm_max": max(upd.values()), "update_worst": max(upd, key=upd.get),
             "prefill_err": prefill_err, "decode_err": decode_err}
@@ -495,33 +498,39 @@ def check_collectives(args):
     """The collectives rank 0 issues, by kind (calls, bytes), in one
     sharded train step and prefill of ``args["dryrun_train"]`` (batch, seq)
     and one decode step at ``args["dryrun_decode"]`` (batch, max_seq) of
-    each reduced family at 2x2: what the dry run of the same cells must
-    count."""
-    mc = mesh((2, 2), ("data", "model"))
+    each reduced family at 2x2, under the base rules and (under ``"sp"``)
+    the sp rules: what the dry run of the same cells must count."""
     out = {}
     for arch in ("smollm_360m", "granite_moe_1b", "zamba2_1_2b", "xlstm_1_3b"):
-        cfg = reduced(get_config(arch))
-        b, s = args["dryrun_train"]
-        batch_np = SyntheticLM(cfg, ShapeConfig("t", s, b, "train"), seed=1).batch_at(0)
-        step, (psh, osh, bsh) = step_mod.make_train_step(cfg, ParallelConfig(), mc)
-        model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
-        opt = step_mod.init_opt_state(model, osh, cfg)
-        with C.count_collectives() as train:
-            step(model, opt, make_device_batch(batch_np, bsh))
-        prefill, (psh, bsh) = step_mod.make_prefill_step(cfg, ParallelConfig(), mc)
-        model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
-        with C.count_collectives() as pre:
-            prefill(model, make_device_batch(batch_np, bsh))
-        b, max_seq = args["dryrun_decode"]
-        serve, (psh, cache_sh, tok_sh) = step_mod.make_decode_step(cfg, ParallelConfig(), mc,
-                                                                   b, max_seq)
-        model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
-        cache = step_mod.init_sharded_cache(cfg, b, max_seq, cache_sh)
-        tok = tok_sh.local_slice(torch.zeros(b, dtype=torch.int32))
-        with C.count_collectives() as dec:
-            serve(model, cache, tok, tok)
-        out[arch] = {"train": train, "prefill": pre, "decode": dec}
+        out[arch] = _collectives(arch, mesh((2, 2), ("data", "model")), args)
+        out[arch]["sp"] = _collectives(arch, mesh((2, 2), ("data", "model"),
+                                                  {"seq": ["model"]}), args)
     return out
+
+
+def _collectives(arch, mc, args):
+    """``check_collectives``' counts of one family over ``mc``."""
+    cfg = reduced(get_config(arch))
+    b, s = args["dryrun_train"]
+    batch_np = SyntheticLM(cfg, ShapeConfig("t", s, b, "train"), seed=1).batch_at(0)
+    step, (psh, osh, bsh) = step_mod.make_train_step(cfg, ParallelConfig(), mc)
+    model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
+    opt = step_mod.init_opt_state(model, osh, cfg)
+    with C.count_collectives() as train:
+        step(model, opt, make_device_batch(batch_np, bsh))
+    prefill, (psh, bsh) = step_mod.make_prefill_step(cfg, ParallelConfig(), mc)
+    model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
+    with C.count_collectives() as pre:
+        prefill(model, make_device_batch(batch_np, bsh))
+    b, max_seq = args["dryrun_decode"]
+    serve, (psh, cache_sh, tok_sh) = step_mod.make_decode_step(cfg, ParallelConfig(), mc,
+                                                               b, max_seq)
+    model = step_mod.place_params(init_params(cfg, seed=0, device="cpu"), psh)
+    cache = step_mod.init_sharded_cache(cfg, b, max_seq, cache_sh)
+    tok = tok_sh.local_slice(torch.zeros(b, dtype=torch.int32))
+    with C.count_collectives() as dec:
+        serve(model, cache, tok, tok)
+    return {"train": train, "prefill": pre, "decode": dec}
 
 
 def main():

@@ -5,16 +5,18 @@ set before JAX starts, so it cannot run in the pytest process):
 
     python tests/torch_dist_specs.py CASES_JSON
 
-CASES_JSON: a list of [arch, overrides, mesh name, fsdp, zero1], the config
-the reduced one with the overrides (``"full"``: the config itself).  Prints
-one JSON object: under ``"specs"``, a list with one entry per case, its
-parameter, moment, decode-cache (and long-context decode-cache) and batch
-specs of ``repro.distributed``, each spec a list with one entry per
-dimension (``null``, a mesh-axis name, or a list of names); under
-``"moe_loss"`` the loss of one reference train step on a capacity-dropping
-granite config, sharded over a 2x2 mesh and on one device; and under
-``"dryrun_argument_bytes"`` XLA's argument bytes a device of the
-reference's small-mesh dry-run cell.
+CASES_JSON: a list of [arch, overrides, mesh name, fsdp, zero1] and,
+optionally, sharding-rule overrides (``{"seq": ["model"]}``: the dry run's
+``sp`` rules), the config the reduced one with the overrides (``"full"``:
+the config itself).  Prints one JSON object: under ``"specs"``, a list with
+one entry per case, its parameter, moment, decode-cache (and long-context
+decode-cache), batch and prefill-logits specs of ``repro.distributed``,
+each spec a list with one entry per dimension (``null``, a mesh-axis name,
+or a list of names); under ``"moe_loss"`` the loss of one reference train
+step on a capacity-dropping granite config, sharded over a 2x2 mesh and on
+one device; and under ``"dryrun_argument_bytes"`` XLA's argument bytes a
+device of the reference's small-mesh dry-run cell, under the base rules
+(``"base"``) and the ``sp`` rules (``"sp"``).
 """
 import os
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
@@ -60,8 +62,8 @@ def paths(tree):
             for p, s in flat}
 
 
-def specs(cfg, mesh_name, fsdp, zero1):
-    with use_mesh(mesh_of(mesh_name)):
+def specs(cfg, mesh_name, fsdp, zero1, rules=None):
+    with use_mesh(mesh_of(mesh_name), rules=rules):
         mc = current()
         param_sh, logical, shapes = step_mod.make_param_shardings(cfg, mc, fsdp=fsdp)
         opt_sh = step_mod.make_opt_shardings(cfg, ParallelConfig(fsdp=fsdp, zero1=zero1), mc,
@@ -73,7 +75,8 @@ def specs(cfg, mesh_name, fsdp, zero1):
         return {"params": paths(param_sh), "opt": paths(opt_sh.m),
                 "cache": paths(cache_sh), "cache_long": paths(long_sh),
                 "batch": {k: paths(batch_shardings(cfg, k, mc))
-                          for k in ("train", "prefill", "decode")}}
+                          for k in ("train", "prefill", "decode")},
+                "logits": enc(mc.sharding(("batch", "seq", "vocab")).spec)}
 
 
 def moe_loss():
@@ -97,12 +100,13 @@ def moe_loss():
     return out
 
 
-def dryrun_argument_bytes():
+def dryrun_argument_bytes(rules=None):
     """``check_dryrun_small_mesh``'s cell (reduced granite, vocab 256, a
-    train step of 8 x 64 at 2x2x2): XLA's argument bytes a device."""
+    train step of 8 x 64 at 2x2x2) under the sharding-rule overrides
+    ``rules``: XLA's argument bytes a device."""
     from repro.optim import adamw_init
     cfg = reduced(get_config("granite_moe_1b"), vocab_size=256)
-    with use_mesh(mesh_of("2x2x2")):
+    with use_mesh(mesh_of("2x2x2"), rules=rules):
         jitted, _ = step_mod.make_train_step(cfg, ParallelConfig(), current())
         params = jax.eval_shape(lambda k: init_params(k, cfg),
                                 jax.ShapeDtypeStruct((), jax.random.key(0).dtype))
@@ -114,11 +118,13 @@ def dryrun_argument_bytes():
 
 def main():
     out = []
-    for arch, overrides, mesh_name, fsdp, zero1 in json.loads(sys.argv[1]):
+    for arch, overrides, mesh_name, fsdp, zero1, *rules in json.loads(sys.argv[1]):
         cfg = get_config(arch) if overrides == "full" else reduced(get_config(arch), **overrides)
-        out.append(specs(cfg, mesh_name, fsdp, zero1))
+        out.append(specs(cfg, mesh_name, fsdp, zero1, *rules))
     print(json.dumps({"specs": out, "moe_loss": moe_loss(),
-                      "dryrun_argument_bytes": dryrun_argument_bytes()}))
+                      "dryrun_argument_bytes": {
+                          "base": dryrun_argument_bytes(),
+                          "sp": dryrun_argument_bytes({"seq": ("model",)})}}))
 
 
 if __name__ == "__main__":
