@@ -7,8 +7,8 @@ without the final ok line):
   1. device  -- a CUDA device must be present; prints nvidia-smi's name and
                 power limit;
   2. build   -- builds every CUDA kernel of the paths from
-                ``src/repro_torch/csrc`` (one nvcc per source, all ten in
-                parallel) and prints ptxas's summary; counts the wgmma
+                ``src/repro_torch/csrc`` (one nvcc per source, all eleven
+                in parallel) and prints ptxas's summary; counts the wgmma
                 (HGMMA) and TMA-load (UTMALDG) instructions in the SASS of
                 matmul_pom, grouped_matmul and flash_attention and fails if
                 either is 0; counts the tensor-core (HMMA) instructions of
@@ -16,10 +16,11 @@ without the final ok line):
                 are none; prints the registers and spills of the f32 ring
                 (``strided_gemm_kernel``) in both libraries that include it,
                 of the decode kernels, of the four scan kernels, of the
-                two stencil kernels, of the flash backward's kernels and of
-                the scan backward's kernels (each one's registers and spills),
-                and fails if a scan, stencil, flash-backward or scan-backward
-                kernel spills;
+                two stencil kernels, of the flash backward's kernels, of
+                the scan backward's kernels and of the two sLSTM kernels
+                (each one's registers and spills), and fails if a scan,
+                stencil, flash-backward, scan-backward or sLSTM kernel
+                spills;
                 counts HGMMA, UTMALDG and wgmma waits in each of the
                 backward's tensor-core kernels (the flash backward's dQ and
                 dK/dV kernels, the grouped matmul's two in-place operand
@@ -53,7 +54,14 @@ without the final ok line):
                 shapes and a ragged one with a non-zero dh_final, one
                 backward launch and one decay-gradient launch a call, a
                 second call bit-equal, and the decay gradient's sum kernel
-                alone;
+                alone; the sLSTM recurrence (``slstm``) at xlstm's training
+                (8 x 256) and forward (2 x 512) shapes and a ragged one, its
+                forward bit-equal to the plain loop (with and without the
+                states it saves for the backward) and its backward within
+                SLSTM_BWD_RTOL of the plain reverse recursion's largest
+                value (a tolerance zeros would miss), a second call
+                bit-equal, one launch a call, and a call asking for two of
+                the four gradients bit-equal in them;
   4. contraction vs plain -- the contraction kernel against its plain
                 version in f32 and bf16 on the compile path's schedules
                 (tiled gemm at n 256 and at the path's n 4096, unscheduled
@@ -90,7 +98,7 @@ without the final ok line):
                 exact counts a step (the forward kernels twice, the flash
                 backward once an attention layer, dX and dW a grouped
                 matmul, one backward launch and one decay-gradient launch a
-                scan; in bf16 every
+                scan, one backward launch an sLSTM; in bf16 every
                 flash and grouped-matmul launch on the tensor cores); the
                 main path, ``launch/train.py``'s loop at full width with
                 the depth cut (granite 4 layers, zamba2 6, xlstm 8), 16
@@ -108,7 +116,8 @@ without the final ok line):
                 family's layers say (grouped_matmul 24 times a granite decode
                 step and forward, every one on the tensor-core route, as
                 are granite's 8 and zamba2's 2 flash launches a forward;
-                ssm_scan 12 times a zamba2 forward and 32 an xlstm one).
+                ssm_scan 12 times a zamba2 forward and 32 an xlstm one,
+                slstm twice an xlstm one).
                 Then the checks, each against the same
                 tokens through the plain versions on the card
                 (``ops.plain_versions()``): granite in bf16 with the kernel
@@ -236,15 +245,20 @@ without the final ok line):
                 ``torch.bmm`` beside it), the scan's backward at
                 zamba2's (xlstm's and the normaliser's beside it, each on the
                 forward's saved scratch) and the decay gradient's sum
-                kernel; the decode row carries phase 14's numbers at S
-                524,288.  One ``{"kernels": [...]}`` JSON line.
+                kernel; the sLSTM forward at xlstm's forward shape (2 x
+                512; its training shape beside it, with and without the
+                states it saves) and its backward at the training shape (8
+                x 256), each against its bytes bound and the plain loop's
+                time, with no library call; the decode row carries phase
+                14's numbers at S 524,288.  One ``{"kernels": [...]}`` JSON
+                line.
 Every launch count is set to 0 just before each path run (the smollm serve,
 the smollm forward, the smollm training loop, each family's training loop,
 serve and forward, the compile path as phases 8-11, the kernel library,
 each sharded step, prefill and decode call of the mesh phase, each model's
 long-context decode steps) and read just
 after; the counts in the kernels line are their sums, and every
-one of the eight kernels and the four backward passes (``BACKWARD``) must
+one of the nine kernels and the five backward passes (``BACKWARD``) must
 have run.
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -329,6 +343,15 @@ SCAN_BWD_SHAPES = {"zamba2": (8, 256, 32, 128, 64, torch.bfloat16, True, False),
                    "xlstm": (8, 256, 4, 512, 512, torch.bfloat16, False, False),
                    "normaliser": (8, 256, 4, 1, 512, torch.float32, False, False),
                    "ragged": (2, 200, 4, 48, 40, torch.float32, False, True)}
+# the sLSTM recurrence (B, S, H, hd): xlstm_1_3b's train step (8 x 256) and
+# forward (2 x 512), and a ragged one (odd S, hd not a multiple of 32)
+SLSTM_SHAPES = {"train": (8, 256, 4, 512), "forward": (2, 512, 4, 512),
+                "ragged": (3, 37, 2, 24)}
+# the sLSTM backward against the plain reverse recursion, relative to each
+# plain gradient's largest |value|: the same f32 operations but the sums
+# over the hd lanes in another order (a few ulps of the largest term), which
+# the dC and dN chains carry back over S steps scaled by f < 1
+SLSTM_BWD_RTOL = 1e-4
 # training the three families (batch 8 x 256 of SyntheticLM, remat "full"):
 # one step's gradients at full width and depth against the plain versions
 # (granite in bf16 with the kernel run's expert choices replayed, zamba2 and
@@ -383,7 +406,7 @@ FAMILIES = {"granite_moe_1b": dict(serve=(8, 32, 32), forward=(4, 512), consiste
             "xlstm_1_3b": dict(serve=(8, 16, 16), forward=(2, 512), consistency=(2, 170),
                                check_dtype="float32", layers=16)}
 KERNEL_MODULES = ("decode_attention", "flash_attention", "contraction", "probe",
-                  "grouped_matmul", "ssm_scan", "matmul_pom", "stencil")
+                  "grouped_matmul", "ssm_scan", "matmul_pom", "stencil", "slstm")
 # the kernels with a tensor-core and a CUDA-core route: their wrappers count
 # the tensor-core launches (launches_tc) beside all of them (launches); the
 # matmul's f32 ring counts its own (launches_ring)
@@ -439,20 +462,23 @@ def zero_counts() -> None:
             m.launches_bwd = m.launches_bwd_tc = 0
         if n == "ssm_scan":
             m.launches_bwd = m.launches_da = 0
+        if n == "slstm":
+            m.launches_bwd = 0
 
 
 # the backward passes' counts: name in the counts -> (module, counter)
 BACKWARD = {"flash_attention_bwd": ("flash_attention", "launches_bwd"),
             "grouped_matmul_bwd": ("grouped_matmul", "launches_bwd"),
             "ssm_scan_bwd": ("ssm_scan", "launches_bwd"),
-            "ssm_scan_da": ("ssm_scan", "launches_da")}
+            "ssm_scan_da": ("ssm_scan", "launches_da"),
+            "slstm_bwd": ("slstm", "launches_bwd")}
 
 
 def read_counts() -> dict:
     """kernel -> launches since the counts were last set to 0 (the backward
     passes under the names of ``BACKWARD``: the flash backward, the grouped
     matmul's dX and dW, the scan kernels' runs inside the scan's backward,
-    and the decay-gradient kernel)."""
+    the decay-gradient kernel and the sLSTM's backward)."""
     mods = _kernel_modules()
     return {**{n: m.launches for n, m in mods.items()},
             **{k: getattr(mods[mod], attr) for k, (mod, attr) in BACKWARD.items()}}
@@ -552,7 +578,7 @@ def build_phase() -> None:
     for lib, entry in (("contraction", ring), ("matmul_pom", ring),
                        ("decode_attention", "decode_kernel"), ("ssm_scan", "ssm_scan_"),
                        ("stencil", "jacobi"), ("flash_attention_bwd", "flash_bwd_"),
-                       ("ssm_scan_bwd", "ssm_scan_")):
+                       ("ssm_scan_bwd", "ssm_scan_"), ("slstm", "slstm_")):
         found = ptxas_entries(_build.log_path(lib).read_text(), entry)
         if not found:
             fail(f"{lib}: ptxas compiled no {entry}")
@@ -563,7 +589,8 @@ def build_phase() -> None:
         if len(found) <= 2 or lib == "ssm_scan_bwd":
             for n, (r, sp) in found.items():
                 print(f"  {n}: {r} registers, {sp} bytes spilled")
-        if spills and lib in ("ssm_scan", "stencil", "flash_attention_bwd", "ssm_scan_bwd"):
+        if spills and lib in ("ssm_scan", "stencil", "flash_attention_bwd", "ssm_scan_bwd",
+                              "slstm"):
             fail(f"{lib}: kernels spill registers: {spills}")
 
 
@@ -717,6 +744,7 @@ def kernel_phase() -> dict:
     errs["grouped_matmul_bwd"] = gmm_bwd_vs_plain(g)
     errs["ssm_scan"] = scan_vs_plain(g)
     errs["ssm_scan_bwd"], errs["ssm_scan_da"] = scan_bwd_vs_plain(g)
+    errs["slstm"], errs["slstm_bwd"] = slstm_vs_plain(g)
     return errs
 
 
@@ -974,6 +1002,68 @@ def scan_bwd_vs_plain(g) -> tuple:
         worst_da = max(worst_da, err)
         del x, a, bm, cm, dy, dh, want, got, again, saved
     return worst, worst_da
+
+
+def slstm_inputs(g, b, s, h, hd):
+    """z, i, f, o as a pass makes them: tanh and sigmoids of N(0, 1)
+    pre-activations."""
+    z = torch.randn(b, s, h, hd, generator=g, device="cuda").tanh()
+    return (z, *(torch.randn(b, s, h, generator=g, device="cuda").sigmoid() for _ in range(3)))
+
+
+def slstm_vs_plain(g) -> tuple:
+    """The sLSTM kernels against the plain versions at SLSTM_SHAPES: the
+    forward (``ops.slstm_scan``, and the call that also saves c and n)
+    bit-equal to ``ref.slstm_scan``, the plain loop, one launch a call; the
+    backward (``slstm.scan_backward`` on the saved states, as ``SlstmScan``
+    runs it) within SLSTM_BWD_RTOL of ``ref.slstm_scan_backward``'s largest
+    value, which an all-zero gradient must miss, one launch a call, a second
+    call bit-equal, and a call asking for dz and do alone bit-equal in them.
+    Returns the worst max abs errors (forward, backward)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import slstm as slstm_mod
+    worst_fwd = worst = 0.0
+    for label, (b, s, h, hd) in SLSTM_SHAPES.items():
+        z, i, f, o = slstm_inputs(g, b, s, h, hd)
+        dy = torch.randn(b, s, h, hd, generator=g, device="cuda")
+        want = ref.slstm_scan(z, i, f, o)
+        n0 = slstm_mod.launches
+        got = ops.slstm_scan(z, i, f, o)
+        y, (c, n) = slstm_mod._forward(z, i, f, o, save=True)
+        torch.cuda.synchronize()
+        err = max((got - want).abs().max().item(), (y - want).abs().max().item())
+        worst_fwd = max(worst_fwd, err)
+        print(f"slstm {label} B{b} S{s} H{h} hd{hd}: forward bit-equal to the plain loop "
+              f"{torch.equal(got, want)}, with the saved states {torch.equal(y, want)}; "
+              f"max abs err {err:.3g}")
+        if slstm_mod.launches - n0 != 2:
+            fail(f"slstm {label}: {slstm_mod.launches - n0} forward launches for 2 calls")
+        if not (torch.equal(got, want) and torch.equal(y, want)):
+            fail(f"slstm {label}: the forward is not bit-equal to the plain loop")
+        grads = ref.slstm_scan_backward(z, i, f, o, dy)
+        n0 = slstm_mod.launches_bwd
+        first = slstm_mod.scan_backward(z, i, f, o, dy, c, n)
+        again = slstm_mod.scan_backward(z, i, f, o, dy, c, n)
+        some = slstm_mod.scan_backward(z, i, f, o, dy, c, n, needs=(True, False, False, True))
+        torch.cuda.synchronize()
+        if slstm_mod.launches_bwd - n0 != 3:
+            fail(f"slstm {label}: {slstm_mod.launches_bwd - n0} backward launches for 3 calls")
+        for name, gr, wt, ag, sm in zip(("dz", "di", "df", "do"), first, grads, again, some):
+            err = (gr - wt).abs().max().item()
+            scale = wt.abs().max().item()
+            tol = SLSTM_BWD_RTOL * scale
+            print(f"slstm backward {label} {name}: max abs err {err:.3g} (tolerance {tol:.3g}, "
+                  f"largest |value| {scale:.3g})")
+            if not (bool(torch.isfinite(gr).all()) and err <= tol < scale):
+                fail(f"slstm backward {label} {name} disagrees with its plain version: {err}")
+            if not torch.equal(gr, ag):
+                fail(f"slstm backward {label} {name}: a second call gave other bits")
+            if (sm is None) != (name in ("di", "df")) or (sm is not None
+                                                          and not torch.equal(sm, gr)):
+                fail(f"slstm backward {label}: the call for dz and do alone differs in {name}")
+            worst = max(worst, err)
+        del z, i, f, o, dy, want, got, y, c, n, grads, first, again, some
+    return worst_fwd, worst
 
 
 # --------------------------------------------------------------------------
@@ -1311,11 +1401,13 @@ def expected_train_launches(cfg) -> dict:
     runs twice), derived from the config as ``expected_launches``: the
     forward kernels, the flash backward once an attention layer, dX and dW a
     grouped matmul, one backward launch and one decay-gradient launch a scan
-    (the Mamba2 scan, the mLSTM's y and its normaliser)."""
+    (the Mamba2 scan, the mLSTM's y and its normaliser), one backward launch
+    an sLSTM."""
     fwd, _ = expected_launches(cfg)
     runs = 2 if cfg.remat == "full" else 1
     want = {k: runs * n for k, n in fwd.items() if n}
-    attn, gmm, scan = fwd["flash_attention"], fwd["grouped_matmul"], fwd["ssm_scan"]
+    attn, gmm, scan, slstm = (fwd[k] for k in ("flash_attention", "grouped_matmul", "ssm_scan",
+                                                "slstm"))
     if attn:
         want["flash_attention_bwd"] = attn
     if gmm:
@@ -1323,6 +1415,8 @@ def expected_train_launches(cfg) -> dict:
     if scan:
         want["ssm_scan_bwd"] = scan
         want["ssm_scan_da"] = scan
+    if slstm:
+        want["slstm_bwd"] = slstm
     return want
 
 
@@ -1510,7 +1604,7 @@ def train_family_phase(arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels = {"moe": ("gemm_kernel", "flash_kernel_tc", "flash_bwd_"),
                "hybrid": ("ssm_scan_", "ssm_scan_da", "flash_kernel_tc", "flash_bwd_"),
-               "ssm": ("ssm_scan_", "ssm_scan_da")}[cfg.family]
+               "ssm": ("ssm_scan_", "ssm_scan_da", "slstm_")}[cfg.family]
     busy = busy_share(lambda: steps(1), 1, f"{arch} train step", kernels)
     peak = torch.cuda.max_memory_allocated()
     step_ms = busy.get("wall_ms", float("nan"))
@@ -2131,12 +2225,16 @@ def long_context_phase(card: str, mc) -> dict:
 # 7. the moe, hybrid and ssm families at full width
 # --------------------------------------------------------------------------
 def expected_launches(cfg) -> tuple:
-    """Launches of the LM kernels in one forward and in one decode step."""
+    """Launches of the LM kernels in one forward and in one decode step (the
+    sLSTM's decode step is one time step in plain PyTorch)."""
+    from repro_torch.models.model import _every
     attn = {"moe": cfg.num_layers, "hybrid": cfg.num_layers // max(cfg.attn_every, 1),
             "ssm": 0}[cfg.family]
     gmm = 3 * (cfg.num_layers // cfg.moe_every) if cfg.family == "moe" else 0
     scan = {"hybrid": cfg.num_layers, "ssm": 2 * cfg.num_layers}.get(cfg.family, 0)
-    return ({"flash_attention": attn, "grouped_matmul": gmm, "ssm_scan": scan},
+    slstm = sum(_every(i, cfg.slstm_every) for i in range(cfg.num_layers)) \
+        if cfg.family == "ssm" else 0
+    return ({"flash_attention": attn, "grouped_matmul": gmm, "ssm_scan": scan, "slstm": slstm},
             {"decode_attention": attn, "grouped_matmul": gmm})
 
 
@@ -2303,8 +2401,9 @@ def family_phase(arch: str) -> dict:
     # the scan's four kernels (C B^T, chunk states, pass, readout) share the prefix
     # "ssm_scan_"; the decode step's profile also reads the decode attention
     # kernel
-    kernel = "gemm_kernel" if cfg.family == "moe" else "ssm_scan_"
-    decode_kernels = (kernel, "decode_kernel") if dec_per.get("decode_attention") else kernel
+    kernel = {"moe": "gemm_kernel", "hybrid": "ssm_scan_",
+              "ssm": ("ssm_scan_", "slstm_")}[cfg.family]
+    decode_kernels = (kernel, "decode_kernel") if dec_per.get("decode_attention") else "ssm_scan_"
     moe = cfg.family == "moe"
     v = cfg.vocab_size
     launches = {}
@@ -3341,6 +3440,7 @@ def lm_numbers_phase(errs: dict, launches: dict) -> list:
                  "library": "none: no single PyTorch call computes the scan",
                  "at_xlstm_shape": scan["xlstm"], "at_normaliser_shape": scan["normaliser"]})
     rows += backward_rows(g, errs, launches)
+    rows += slstm_rows(g, errs, launches)
     clocks("after")
     return rows
 
@@ -3438,6 +3538,62 @@ def backward_rows(g, errs: dict, launches: dict) -> list:
                     "library": "none: no single PyTorch call computes the scan",
                     "at_xlstm_shape": scan["xlstm"], "at_normaliser_shape": scan["normaliser"]})
     return rows
+
+
+SLSTM_NO_TPU = ("none: no TPU counterpart (the reference's lax.scan, "
+                "src/repro/models/xlstm.py:142)")
+
+
+def slstm_rows(g, errs: dict, launches: dict) -> list:
+    """The sLSTM forward at xlstm's forward shape (2 x 512: the row; its
+    training shape, 8 x 256, beside it, and there the call that also saves c
+    and n for the backward) and its backward at the training shape, each
+    against its bound (``meta.slstm_scan`` / ``slstm_scan_backward``: each
+    input read once and each output written once, at the HBM rate) and the
+    plain loop's time; no single PyTorch call computes the recurrence."""
+    from repro_torch.kernels import meta, ops, ref
+    from repro_torch.kernels import slstm as slstm_mod
+    fwd = {}
+    for label in ("forward", "train"):
+        b, s, h, hd = SLSTM_SHAPES[label]
+        z, i, f, o = slstm_inputs(g, b, s, h, hd)
+        flops, byts = meta.slstm_scan(z, False)
+        bms, by = bound(byts, flops, torch.float32)
+        ms = time_ms(lambda: ops.slstm_scan(z, i, f, o), iters=50)
+        plain_ms = time_ms(lambda: ref.slstm_scan(z, i, f, o), iters=5, warmup=1)
+        fwd[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "shape": f"B {b}, S {s}, H {h}, hd {hd}, f32"}
+        line = (f"slstm {label} B{b} S{s} H{h} hd{hd}: {ms:.4f} ms, plain loop {plain_ms:.3f} "
+                f"ms, bound {bms:.5f} ms ({by})")
+        if label == "train":
+            flops, byts = meta.slstm_scan(z, True)
+            sbms, sby = bound(byts, flops, torch.float32)
+            sms = time_ms(lambda: slstm_mod._forward(z, i, f, o, save=True), iters=50)
+            fwd[label].update(saving_ms=sms, saving_bound_ms=sbms, saving_bound_by=sby)
+            line += f"; saving c and n {sms:.4f} ms, bound {sbms:.5f} ms ({sby})"
+            dy = torch.randn(b, s, h, hd, generator=g, device="cuda")
+            c, n = slstm_mod._forward(z, i, f, o, save=True)[1]
+            flops, byts = meta.slstm_scan_backward(z)
+            bbms, bby = bound(byts, flops, torch.float32)
+            bwd_ms = time_ms(lambda: slstm_mod.scan_backward(z, i, f, o, dy, c, n), iters=50)
+            bwd_plain = time_ms(lambda: ref.slstm_scan_backward(z, i, f, o, dy), iters=3,
+                                warmup=1)
+            print(f"slstm_bwd {label} B{b} S{s} H{h} hd{hd}: {bwd_ms:.4f} ms, plain "
+                  f"{bwd_plain:.3f} ms, bound {bbms:.5f} ms ({bby})")
+            bwd = {"ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bbms, "bound_by": bby,
+                   "shape": fwd[label]["shape"]}
+            del dy, c, n
+        print(line)
+        del z, i, f, o
+    none = "none: no single PyTorch call computes the recurrence"
+    return [{"name": "slstm", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
+             "replaces": SLSTM_NO_TPU, "launches": launches["slstm"],
+             "max_abs_err": errs["slstm"], **fwd["forward"], "library_ms": None,
+             "library": none, "at_train_shape": fwd["train"]},
+            {"name": "slstm_bwd", "route": "cuda",
+             "source": "src/repro_torch/csrc/slstm.cu (kernels/slstm.py scan_backward)",
+             "replaces": SLSTM_NO_TPU, "launches": launches["slstm_bwd"],
+             "max_abs_err": errs["slstm_bwd"], **bwd, "library_ms": None, "library": none}]
 
 
 def library_numbers_phase(errs: dict, launches: dict) -> list:
@@ -3603,7 +3759,7 @@ def main() -> None:
                       "kernel_library": {k: library[k] for k in
                                          ("wall_ms", "vs_compile_path_max_abs_err")},
                       "mesh_1x1": meshed["mesh"], "long_context": longc["long"],
-                      "card": card}))
+                      "card": card, "total_s": time.perf_counter() - _T0}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

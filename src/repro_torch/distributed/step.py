@@ -22,7 +22,8 @@ under autograd), each block recomputed in the backward under remat "full":
   ``csrc/ssm_scan.cu`` and the decay-gradient kernel ``csrc/ssm_scan_bwd.cu``
   (``SsmScan``), and the shared attention block's flash kernels;
 * ssm (xlstm_1_3b): both mLSTM scans (y and the normaliser) on the same
-  scan kernels; the sLSTM is plain PyTorch, as the reference's ``lax.scan``.
+  scan kernels; the sLSTM forward and backward on ``csrc/slstm.cu``
+  (``SlstmScan``), where the reference runs a ``lax.scan``.
 
 The sharded step (GSPMD's work, done by hand): parameters, gradients and
 moments are this rank's shards of the reference's specs (``partition.py``;

@@ -112,6 +112,26 @@ def ssm_scan_backward(x: torch.Tensor, b: torch.Tensor, groups: int) -> tuple:
     return 3 * 4.0 * bsz * s * nh * n * p + 2.0 * bsz * s * nh, byts
 
 
+def slstm_scan(z: torch.Tensor, save: bool) -> tuple:
+    """z, i, f, o read once, y written (c and n too where a gradient is asked
+    for); three multiplies, an add and a division a lane and step (c_t and
+    y_t), a multiply and an add a head and step (n_t)."""
+    b, s, h, hd = z.shape
+    lanes, heads = b * s * h * hd, b * s * h
+    byts = 4 * (2 * lanes + 3 * heads) + (4 * (lanes + heads) if save else 0)
+    return 5.0 * lanes + 2.0 * heads, byts
+
+
+def slstm_scan_backward(z: torch.Tensor) -> tuple:
+    """z, c, dy read and dz written a lane and step, i, f, o, n read and di,
+    df, do written a head and step; eleven operations a lane and step (dC_t,
+    dz_t, three products and their sums over the lanes), about twelve a head
+    and step (the dN chain and the three scalar gradients)."""
+    b, s, h, hd = z.shape
+    lanes, heads = b * s * h * hd, b * s * h
+    return 11.0 * lanes + 12.0 * heads, 4 * (4 * lanes + 7 * heads)
+
+
 def matmul(x: torch.Tensor, y: torch.Tensor) -> tuple:
     m, k = x.shape
     n = y.shape[1]

@@ -1,7 +1,8 @@
 """Public wrappers over the port's kernels (the ``ops.py`` contract).
 
 Every op but ``jacobi2d`` (which takes no ``schedule=``, as in the JAX
-package; its sweeps a launch come from ``autotune.pom_jacobi_schedule``)
+package; its sweeps a launch come from ``autotune.pom_jacobi_schedule``) and
+``slstm_scan`` (the reference's ``lax.scan`` has no blocks to search)
 takes ``schedule='pom' | 'naive'`` (POM-DSE block sizes from ``autotune``
 vs fixed defaults).  There is no ``impl`` and no ``interpret``:
 the device of the tensors decides.  A CUDA tensor goes to the hand-written
@@ -39,6 +40,8 @@ from .grouped_matmul import GroupedMatmul
 from .grouped_matmul import grouped_matmul as _gmm_cuda
 from .grouped_matmul import pom_tile as _gmm_tile
 from .matmul_pom import matmul as _matmul_cuda
+from .slstm import SlstmScan
+from .slstm import slstm_scan as _slstm_cuda
 from .ssm_scan import SsmScan
 from .ssm_scan import pom_tile as _scan_tile
 from .ssm_scan import ssm_scan as _scan_cuda
@@ -162,3 +165,18 @@ def ssm_scan(x, a, b, c, *, schedule: str = "pom"):
     if _under_grad(x, a, b, c):
         return SsmScan.apply(x, a, b, c, tile)
     return _scan_cuda(x, a, b, c, **tile)
+
+
+def slstm_scan(z, i, f, o):
+    """The sLSTM recurrence: z (B, S, H, hd), the gates i, f, o (B, S, H), f32
+    -> y (B, S, H, hd) f32, from c = n = 0 (``ref.slstm_scan``).
+
+    Where autograd needs a gradient the call goes through ``SlstmScan`` (the
+    same forward kernel, which then also saves c and n, and the reverse-time
+    backward kernel on them).  Inside ``plain_versions()`` it is the plain
+    loop, which autograd differentiates."""
+    if _plain:
+        return ref.slstm_scan(z, i, f, o)
+    if _under_grad(z, i, f, o):
+        return SlstmScan.apply(z, i, f, o)
+    return _slstm_cuda(z, i, f, o)

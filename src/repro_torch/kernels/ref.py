@@ -516,3 +516,63 @@ def ssm_scan_backward_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         bias = None if dh_final is None else (dh_final.float() * h).sum((-1, -2))
         da = ssm_scan_da(c, dc, b, db, a, bias)
     return dx, da, db if need_b else None, dc if need_c else None
+
+
+def slstm_scan(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
+               o: torch.Tensor) -> torch.Tensor:
+    """The sLSTM recurrence of ``models/xlstm.py``, one time step at a time
+    from c = 0, n = 0, in z's dtype:
+
+        c_t = f_t c_{t-1} + i_t z_t,  n_t = f_t n_{t-1} + i_t,
+        y_t = o_t c_t / max(n_t, 1).
+
+    z: (B, S, H, hd); the gates i, f, o: (B, S, H), shared by a head's hd
+    lanes.  Returns y (B, S, H, hd)."""
+    b, s, h, hd = z.shape
+    c = torch.zeros(b, h, hd, dtype=z.dtype, device=z.device)
+    n = torch.zeros(b, h, dtype=z.dtype, device=z.device)
+    ys = []
+    for t in range(s):
+        c = f[:, t, :, None] * c + i[:, t, :, None] * z[:, t]
+        n = f[:, t] * n + i[:, t]
+        ys.append(o[:, t, :, None] * c / torch.clamp(n[..., None], min=1.0))
+    return torch.stack(ys, dim=1)
+
+
+def slstm_scan_backward(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
+                        o: torch.Tensor, dy: torch.Tensor):
+    """Gradients (dz, di, df, do) of ``slstm_scan(z, i, f, o)`` for the output
+    gradient ``dy`` (B, S, H, hd), by the reverse recursion the backward
+    kernel of ``csrc/slstm.cu`` runs, in z's dtype.  With m_t = max(n_t, 1),
+    dC_S = dN_S = 0 and sums over the hd lanes:
+
+        dC_t = dy_t o_t / m_t + f_{t+1} dC_{t+1},   dz_t = i_t dC_t,
+        do_t = sum dy_t c_t / m_t,
+        dN_t = [n_t >= 1] (-o_t sum dy_t c_t / m_t^2) + f_{t+1} dN_{t+1},
+        di_t = sum dC_t z_t + dN_t,   df_t = sum dC_t c_{t-1} + dN_t n_{t-1}.
+
+    The clamp's gradient passes where n >= 1, as ``torch.clamp``'s does.  The
+    forward states c_t and n_t are recomputed."""
+    b, s, h, hd = z.shape
+    c = torch.zeros(b, h, hd, dtype=z.dtype, device=z.device)
+    n = torch.zeros(b, h, dtype=z.dtype, device=z.device)
+    cs, ns = [c], [n]                                  # c_{t-1}, n_{t-1} at index t
+    for t in range(s):
+        c = f[:, t, :, None] * c + i[:, t, :, None] * z[:, t]
+        n = f[:, t] * n + i[:, t]
+        cs.append(c)
+        ns.append(n)
+    dz, di, df, do = (torch.empty_like(z), torch.empty_like(i), torch.empty_like(i),
+                      torch.empty_like(i))
+    dc, dn = torch.zeros_like(c), torch.zeros_like(n)
+    for t in range(s - 1, -1, -1):
+        m = torch.clamp(ns[t + 1], min=1.0)
+        f_next = f[:, t + 1] if t + 1 < s else torch.zeros_like(n)
+        dc = dy[:, t] * o[:, t, :, None] / m[..., None] + f_next[..., None] * dc
+        dz[:, t] = i[:, t, :, None] * dc
+        s3 = (dy[:, t] * cs[t + 1]).sum(-1)
+        do[:, t] = s3 / m
+        dn = torch.where(ns[t + 1] >= 1, -(o[:, t] * s3) / (m * m), 0.0) + f_next * dn
+        di[:, t] = (dc * z[:, t]).sum(-1) + dn
+        df[:, t] = (dc * cs[t]).sum(-1) + dn * ns[t]
+    return dz, di, df, do

@@ -50,9 +50,7 @@ operations); ``cost.kernel_bytes`` the kernels' bytes (PyTorch's own
 operators' bytes are not counted).  ``corrected`` is the reference's
 extrapolation from depth P and 2P (``_extrapolate_costs``) over
 ``num_layers``: the port's eager step counts every layer, so it checks the
-whole step's count rather than correcting it.  The sLSTM's Python loop
-runs once a position on ``meta`` too: an xLSTM train cell at S 4096 takes
-minutes.
+whole step's count rather than correcting it.
 """
 from __future__ import annotations
 
@@ -73,8 +71,8 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results
                            "dryrun_torch")
 H100_MEMORY = 80e9              # bytes: an H100 80GB HBM3, where no card is present
 
-# named (config overrides, sharding-rule overrides), the reference's nine
-# and bf16logits+dots; every one runs (attn_chunk has no effect: NO_EFFECT)
+# named (config overrides, sharding-rule overrides), the reference's nine;
+# every one runs (attn_chunk has no effect: NO_EFFECT)
 VARIANTS: Dict[str, Tuple[Dict, Dict]] = {
     "base": ({}, {}),
     # Megatron-style sequence parallelism on the residual stream
@@ -85,7 +83,6 @@ VARIANTS: Dict[str, Tuple[Dict, Dict]] = {
     "dots": ({"remat": "dots"}, {}),
     # no remat at all (memory-for-flops trade)
     "noremat": ({"remat": "none"}, {}),
-    "bf16logits+dots": ({"logits_dtype": "bfloat16", "remat": "dots"}, {}),
     "sp+bf16logits": ({"logits_dtype": "bfloat16"}, {"seq": ("model",)}),
     "sp+bf16logits+dots": ({"logits_dtype": "bfloat16", "remat": "dots"},
                            {"seq": ("model",)}),

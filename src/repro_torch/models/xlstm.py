@@ -7,13 +7,14 @@ b = i * k, x = v, c = q), plus a normaliser scan with x = 1 (P = 1), so the
 forward runs the chunked scan twice per block (the JAX package runs the
 normaliser on its sequential reference; here it takes the kernel on the
 card like any other scan).  The sLSTM is a data-dependent scalar recurrence
-with no chunked form: a plain PyTorch loop over time, as the reference's
-``lax.scan``.
+with no chunked form, which the reference runs as a ``lax.scan``: here
+``ops.slstm_scan``, one kernel launch over time (``csrc/slstm.cu``) and
+one for its backward.  Its decode step is one time step in plain PyTorch.
 
 Inside a mesh context the blocks are replicated over ``model`` (the
 reference's ``mlstm``/``slstm`` rule, ``partition._axes_for``): each
 weight is gathered over ``data`` where it is used and nothing else changes.
-Under sequence parallelism the mLSTM scans and the sLSTM loop run over the
+Under sequence parallelism the mLSTM and sLSTM scans run over the
 whole sequence, replicated over ``model``: each block enters and leaves
 as a replicated layer (``copy_to_model`` / ``reduce_from_model`` with no
 ``TP``): it gathers its input along the sequence and keeps this rank's
@@ -146,15 +147,7 @@ def slstm_apply(p: SLSTM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = C.copy_to_model(x, None)
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
-    z, i, f, o = _slstm_gates(p, x, cfg)
-    c = torch.zeros(b, h, hd, dtype=torch.float32, device=x.device)
-    n = torch.zeros(b, h, dtype=torch.float32, device=x.device)
-    ys = []
-    for t in range(s):
-        c = f[:, t, :, None] * c + i[:, t, :, None] * z[:, t]
-        n = f[:, t] * n + i[:, t]
-        ys.append(o[:, t, :, None] * c / torch.clamp(n[..., None], min=1.0))
-    y = torch.stack(ys, dim=1).reshape(b, s, h * hd).to(x.dtype)
+    y = ops.slstm_scan(*_slstm_gates(p, x, cfg)).reshape(b, s, h * hd).to(x.dtype)
     return C.reduce_from_model(y @ C.param(p.wo), None)
 
 

@@ -125,23 +125,30 @@ def test_depth_extrapolation_is_exact_for_smollm(smollm_1x1):
 
 
 def test_every_variant_runs(smollm_1x1):
-    """All of ``dryrun.VARIANTS`` run (the reference's nine and
-    bf16logits+dots).  Remat changes the FLOPs (no recompute under "none"),
-    the logits' dtype does not; the sp variants carry their rules and, at
+    """All of ``dryrun.VARIANTS`` run, the reference's nine.  Remat changes
+    the FLOPs (no recompute under "none"), the logits' dtype changes neither
+    the FLOPs nor the kernel bytes; the sp variants carry their rules and, at
     mesh 1x1 (one model rank), count the FLOPs and kernel bytes of the base
     rules' step; chunk2k's attn_chunk is taken out and recorded, its FLOPs,
     kernel bytes and collectives base's (bf16logits+chunk2k's those of
     bf16logits)."""
-    assert len(VARIANTS) == 10
+    assert len(VARIANTS) == 9
+    assert list(VARIANTS) == ["base", "sp", "bf16logits", "dots", "noremat", "sp+bf16logits",
+                              "sp+bf16logits+dots", "chunk2k", "bf16logits+chunk2k"]
     assert all(smollm_1x1[v]["status"] == "ok" for v in VARIANTS)
     flops = {v: smollm_1x1[v]["cost"]["flops"] for v in VARIANTS}
     assert flops["noremat"] < flops["base"] and flops["noremat"] <= flops["dots"]
     assert flops["bf16logits"] == flops["base"]
+    assert smollm_1x1["bf16logits"]["cost"]["kernel_bytes"] == \
+        smollm_1x1["base"]["cost"]["kernel_bytes"]
     for v in VARIANTS:
         sp = v.startswith("sp")
         assert smollm_1x1[v]["rules"] == ({"seq": ["model"]} if sp else {})
         if sp:
+            # the same overrides without the sp rules; the reference has no
+            # bf16logits+dots, and the logits' dtype moves neither count
             plain = v[3:] or "base"
+            plain = plain if plain in VARIANTS else plain.replace("bf16logits+", "")
             assert flops[v] == flops[plain]
             assert smollm_1x1[v]["cost"]["kernel_bytes"] == \
                 smollm_1x1[plain]["cost"]["kernel_bytes"]
