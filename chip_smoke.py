@@ -55,13 +55,14 @@ without the final ok line):
                 backward launch and one decay-gradient launch a call, a
                 second call bit-equal, and the decay gradient's sum kernel
                 alone; the sLSTM recurrence (``slstm``) at xlstm's training
-                (8 x 256) and forward (2 x 512) shapes and a ragged one, its
+                (8 x 256) and forward (2 x 512) shapes, a ragged one and one
+                whose S spans a ragged number of the carry pass's chunks, its
                 forward bit-equal to the plain loop (with and without the
                 states it saves for the backward) and its backward within
                 SLSTM_BWD_RTOL of the plain reverse recursion's largest
                 value (a tolerance zeros would miss), a second call
-                bit-equal, one launch a call, and a call asking for two of
-                the four gradients bit-equal in them;
+                bit-equal, one counted call each, and a call asking for two
+                of the four gradients bit-equal in them;
   4. contraction vs plain -- the contraction kernel against its plain
                 version in f32 and bf16 on the compile path's schedules
                 (tiled gemm at n 256 and at the path's n 4096, unscheduled
@@ -344,9 +345,12 @@ SCAN_BWD_SHAPES = {"zamba2": (8, 256, 32, 128, 64, torch.bfloat16, True, False),
                    "normaliser": (8, 256, 4, 1, 512, torch.float32, False, False),
                    "ragged": (2, 200, 4, 48, 40, torch.float32, False, True)}
 # the sLSTM recurrence (B, S, H, hd): xlstm_1_3b's train step (8 x 256) and
-# forward (2 x 512), and a ragged one (odd S, hd not a multiple of 32)
+# forward (2 x 512), a ragged one (odd S, hd not a multiple of 32), and one
+# whose S is more than two of the carry passes' 32-step chunks and not a
+# multiple of them, over four warps of lanes a head, the last with two
+# (hd not a multiple of 4: the kernels' 4-byte copies and scalar readout)
 SLSTM_SHAPES = {"train": (8, 256, 4, 512), "forward": (2, 512, 4, 512),
-                "ragged": (3, 37, 2, 24)}
+                "ragged": (3, 37, 2, 24), "chunks": (2, 101, 3, 98)}
 # the sLSTM backward against the plain reverse recursion, relative to each
 # plain gradient's largest |value|: the same f32 operations but the sums
 # over the hd lanes in another order (a few ulps of the largest term), which
@@ -586,7 +590,7 @@ def build_phase() -> None:
         spills = {n: sp for n, (_, sp) in found.items() if sp}
         print(f"ptxas {lib} {entry}: {len(found)} kernels, registers {regs}, spill bytes "
               + (", ".join(f"{n}: {sp}" for n, sp in spills.items()) if spills else "none"))
-        if len(found) <= 2 or lib == "ssm_scan_bwd":
+        if len(found) <= 2 or lib in ("ssm_scan_bwd", "slstm"):
             for n, (r, sp) in found.items():
                 print(f"  {n}: {r} registers, {sp} bytes spilled")
         if spills and lib in ("ssm_scan", "stencil", "flash_attention_bwd", "ssm_scan_bwd",
@@ -1014,11 +1018,14 @@ def slstm_inputs(g, b, s, h, hd):
 def slstm_vs_plain(g) -> tuple:
     """The sLSTM kernels against the plain versions at SLSTM_SHAPES: the
     forward (``ops.slstm_scan``, and the call that also saves c and n)
-    bit-equal to ``ref.slstm_scan``, the plain loop, one launch a call; the
-    backward (``slstm.scan_backward`` on the saved states, as ``SlstmScan``
-    runs it) within SLSTM_BWD_RTOL of ``ref.slstm_scan_backward``'s largest
-    value, which an all-zero gradient must miss, one launch a call, a second
-    call bit-equal, and a call asking for dz and do alone bit-equal in them.
+    bit-equal to ``ref.slstm_scan``, the plain loop, one counted call each;
+    the backward (``slstm.scan_backward`` on the saved states, as
+    ``SlstmScan`` runs it) within SLSTM_BWD_RTOL of
+    ``ref.slstm_scan_backward``'s largest value, which an all-zero gradient
+    must miss, one counted call each, a second call bit-equal, and a call
+    asking for dz and do alone bit-equal in them;
+    at the ragged shape, strided gates and z and dy off 16-byte alignment
+    give the contiguous calls' bits.
     Returns the worst max abs errors (forward, backward)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import slstm as slstm_mod
@@ -1062,6 +1069,19 @@ def slstm_vs_plain(g) -> tuple:
                                                           and not torch.equal(sm, gr)):
                 fail(f"slstm backward {label}: the call for dz and do alone differs in {name}")
             worst = max(worst, err)
+        if label == "ragged":      # strided gates, z and dy off 16-byte alignment
+            zs = torch.empty(b, s, h, hd + 1, device="cuda").narrow(3, 1, hd).copy_(z)
+            dys = torch.empty(b, s, h, hd + 1, device="cuda").narrow(3, 1, hd).copy_(dy)
+            gs = torch.stack((i, f, o), dim=-1)
+            ys, (cs, ns) = slstm_mod._forward(zs, *gs.unbind(-1), save=True)
+            strided = slstm_mod.scan_backward(zs, *gs.unbind(-1), dys, cs, ns)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(strided, first))
+            print(f"slstm {label} strided and misaligned: forward bit-equal "
+                  f"{torch.equal(ys, want)}, backward bit-equal to the contiguous call {same}")
+            if not (torch.equal(ys, want) and same):
+                fail(f"slstm {label}: strided, misaligned inputs give other bits")
+            del zs, dys, gs, ys, cs, ns, strided
         del z, i, f, o, dy, want, got, y, c, n, grads, first, again, some
     return worst_fwd, worst
 
@@ -3547,10 +3567,12 @@ SLSTM_NO_TPU = ("none: no TPU counterpart (the reference's lax.scan, "
 def slstm_rows(g, errs: dict, launches: dict) -> list:
     """The sLSTM forward at xlstm's forward shape (2 x 512: the row; its
     training shape, 8 x 256, beside it, and there the call that also saves c
-    and n for the backward) and its backward at the training shape, each
-    against its bound (``meta.slstm_scan`` / ``slstm_scan_backward``: each
-    input read once and each output written once, at the HBM rate) and the
-    plain loop's time; no single PyTorch call computes the recurrence."""
+    and n for the backward) and its backward at the training shape, each a
+    whole call (every kernel of it: the forward's carry pass and readout,
+    the backward's three passes) against its bound (``meta.slstm_scan`` /
+    ``slstm_scan_backward``: each input read once and each output written
+    once, at the HBM rate) and the plain loop's time; no single PyTorch call
+    computes the recurrence."""
     from repro_torch.kernels import meta, ops, ref
     from repro_torch.kernels import slstm as slstm_mod
     fwd = {}

@@ -3,25 +3,30 @@
 No TPU counterpart: the reference runs the recurrence as a ``jax.lax.scan``
 (``src/repro/models/xlstm.py:132-146``), which its jitted train, prefill
 and serve steps compile into one loop on the device.  Here it is the
-hand-written CUDA kernels of ``csrc/slstm.cu``, one launch a forward and
-one a backward:
+hand-written CUDA kernels of ``csrc/slstm.cu``, one counted call a forward
+and one a backward:
 
     c_t = f_t c_{t-1} + i_t z_t,  n_t = f_t n_{t-1} + i_t,
     y_t = o_t c_t / max(n_t, 1),  from c = 0, n = 0.
 
 * Bound on the H100: bytes (z read and y written; c and n written too where
   a gradient is asked for; the backward reads z, c and dy and writes dz).
-  The recurrence is sequential in S and parallel only over the B*H*hd lanes,
-  so at the paths' shapes the latency of each lane's loads and dependent
-  operations sets the time, not the bytes.
-* Design: the forward runs a thread a (batch, head, lane), sequential in t,
-  the gates of 32 steps held across a warp's lanes and z loaded a chunk of
-  32 steps ahead, in the plain loop's order of operations with no fused
-  multiply-add, so y is bit-equal to ``ref.slstm_scan``.  The backward runs
-  a block a (batch, head), a thread a lane, in reverse t over the forward's
-  saved c and n: the lane sums of each step by warp shuffles and a
-  fixed-order sum over the warps (no atomics, so the bits repeat), the
-  scalar dN chain in one warp.
+  Only the multiply and add of c and n (of dC and dN) depend on the step
+  before.
+* Design: each direction is an exact carry pass, sequential in t and
+  parallel over the B*H*hd lanes only (32 lanes a block, their inputs
+  streamed into a shared-memory ring by ``cp.async``), beside passes
+  parallel over (b, t, h) or (b, t, h, lane).  The forward: the carry pass
+  writes c and n (the saved buffers, or scratch from the caching
+  allocator), then the readout writes y; the operations are the plain
+  loop's, in its order, so y is bit-equal to ``ref.slstm_scan``.  The
+  backward: the chain pass runs dC in reverse t in one warp while helper
+  warps divide dy o / m ahead of it, write dz and sum each step's products
+  over the block's lanes; a rows pass adds the blocks' sums and writes do
+  and dN's direct term; a dN pass runs the scalar chain a (batch, head) and
+  writes di and df.  Sums in a fixed order with no atomics, so the bits
+  repeat.  Above the bound: c and n written and read back (the forward),
+  the sums' scratch (the backward).
 
 A CUDA tensor goes to the kernels (or the wrapper raises); a CPU tensor
 goes to the plain versions ``ref.slstm_scan`` and
@@ -39,28 +44,32 @@ from . import meta as _meta
 from .ref import slstm_scan as slstm_scan_plain
 from .ref import slstm_scan_backward as slstm_scan_backward_plain
 
-# process-wide counts: forward launches (``slstm_scan``, ``SlstmScan``) and
-# backward launches (``scan_backward``) on the card
+# process-wide counts of calls on the card: forward calls (``slstm_scan``,
+# ``SlstmScan``; two kernels each) and backward calls (``scan_backward``; up
+# to three kernels each)
 launches = 0
 launches_bwd = 0
 
-MAX_LANES = 512        # hd: the backward kernel's block has a thread a lane (csrc/slstm.cu)
+MAX_LANES = 512        # hd: the row passes hold a row in a warp, 16 lanes a thread (csrc/slstm.cu)
 
 _FN = {}
 
 
 def _kernel(entry: str):
-    """A C entry point of ``csrc/slstm.cu``: ``slstm_fwd_launch`` or
-    ``slstm_bwd_launch``."""
+    """A C entry point of ``csrc/slstm.cu``: ``slstm_fwd_launch``,
+    ``slstm_bwd_launch`` or ``slstm_bwd_scratch_floats``."""
     if entry not in _FN:
         import ctypes
         p, i, strides = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
         fn = getattr(_build.load("slstm"), entry)
+        fn.restype = i
         if entry == "slstm_fwd_launch":      # z, i, f, o; strides; y, c, n
             fn.argtypes = [p] * 4 + [strides] + [p] * 3 + [i] * 4 + [p]
-        else:                                # z, i, f, o, dy, c, n; strides; dz, di, df, do
-            fn.argtypes = [p] * 7 + [strides] + [p] * 4 + [i] * 4 + [p]
-        fn.restype = i
+        elif entry == "slstm_bwd_launch":    # z, i, f, o, dy, c, n; strides; dz, di, df, do,
+            fn.argtypes = [p] * 7 + [strides] + [p] * 5 + [i] * 4 + [p]     # scratch
+        else:                                # B, S, H, hd
+            fn.argtypes = [i] * 4
+            fn.restype = ctypes.c_int64
         _FN[entry] = fn
     return _FN[entry]
 
@@ -107,13 +116,12 @@ def _forward(z, i, f, o, save: bool):
     _check(z, i, f, o, "slstm_scan")
     bsz, s, nh, hd = z.shape
     y = torch.empty((bsz, s, nh, hd), dtype=torch.float32, device=z.device)
-    c = torch.empty_like(y) if save else None
-    n = torch.empty((bsz, s, nh), dtype=torch.float32, device=z.device) if save else None
+    c = torch.empty_like(y)                  # the saved states, or the carry pass's scratch
+    n = torch.empty((bsz, s, nh), dtype=torch.float32, device=z.device)
     stream = torch.cuda.current_stream(z.device).cuda_stream
     rc = _kernel("slstm_fwd_launch")(
         z.data_ptr(), i.data_ptr(), f.data_ptr(), o.data_ptr(), _strides(z, i, f, o),
-        y.data_ptr(), c.data_ptr() if save else None, n.data_ptr() if save else None,
-        bsz, s, nh, hd, stream)
+        y.data_ptr(), c.data_ptr(), n.data_ptr(), bsz, s, nh, hd, stream)
     if rc != 0:
         raise RuntimeError(f"slstm forward kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -128,8 +136,11 @@ def scan_backward(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor, o: torch.Te
     gradient ``dy`` (B, S, H, hd) f32, each None where ``needs`` (z, i, f, o)
     does not ask for it, from the forward's saved c (B, S, H, hd) and n (B, S,
     H), contiguous f32.  CUDA tensors only (``SlstmScan.backward`` takes the
-    plain version on the CPU): one launch of the backward kernel (one
-    ``launches_bwd``).  A dy whose last dim is not contiguous is copied."""
+    plain version on the CPU): one call of the backward kernels (one
+    ``launches_bwd``).  A dy whose last dim is not contiguous is copied.
+    Where di, df or do is asked for, the lane sums go through a scratch
+    tensor (``slstm_bwd_scratch_floats``: 3 (ceil(hd / 32) + 1) B*S*H
+    floats)."""
     global launches_bwd
     _check(z, i, f, o, "slstm scan_backward")
     if dy.shape != z.shape or dy.dtype != torch.float32 or dy.device != z.device:
@@ -143,6 +154,10 @@ def scan_backward(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor, o: torch.Te
         dy = dy.contiguous()
     dz = torch.empty_like(c) if needs[0] else None
     di, df, do = (torch.empty_like(n) if need else None for need in needs[1:])
+    scratch = None
+    if any(needs[1:]):
+        scratch = torch.empty(_kernel("slstm_bwd_scratch_floats")(bsz, s, nh, hd),
+                              dtype=torch.float32, device=z.device)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -150,7 +165,7 @@ def scan_backward(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor, o: torch.Te
     rc = _kernel("slstm_bwd_launch")(
         z.data_ptr(), i.data_ptr(), f.data_ptr(), o.data_ptr(), dy.data_ptr(), c.data_ptr(),
         n.data_ptr(), _strides(z, i, f, o, dy), ptr(dz), ptr(di), ptr(df), ptr(do),
-        bsz, s, nh, hd, stream)
+        ptr(scratch), bsz, s, nh, hd, stream)
     if rc != 0:
         raise RuntimeError(f"slstm backward kernel launch failed: CUDA error {rc}")
     launches_bwd += 1
@@ -158,8 +173,8 @@ def scan_backward(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor, o: torch.Te
 
 
 class SlstmScan(torch.autograd.Function):
-    """The recurrence with its gradient: the forward kernel, which also
-    writes c and n where a gradient is asked for, and the backward kernel on
+    """The recurrence with its gradient: the forward kernels, whose c and n
+    are kept where a gradient is asked for, and the backward kernels on
     them (on a CPU tensor ``ref.slstm_scan`` and ``ref.slstm_scan_backward``).
     ``SlstmScan.apply(z, i, f, o)`` returns y as ``slstm_scan`` does."""
 

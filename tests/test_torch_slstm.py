@@ -134,6 +134,92 @@ def test_slstm_backward_matches_vjp_and_autograd(label):
     assert all(g.dtype == torch.float64 for g in got64)
 
 
+PASS_REL = 1e-6     # the decomposed backward against the reverse recursion: the same
+                    # f32 operations but the lane sums in the kernels' order
+
+
+def _lane_sum(x):
+    """Sum over the last dim (hd) in the order of ``csrc/slstm.cu``'s
+    backward: the products of each warp of 32 lanes added in lane order from
+    0 (the chain pass), then the warps' sums in warp order from 0 (the rows
+    pass)."""
+    hd = x.shape[-1]
+    warps = -(-hd // 32)
+    lanes = torch.nn.functional.pad(x, (0, 32 * warps - hd)).reshape(*x.shape[:-1], warps, 32)
+    part = torch.zeros(lanes.shape[:-1], dtype=x.dtype)
+    for j in range(32):
+        part = part + lanes[..., j]
+    total = torch.zeros(x.shape[:-1], dtype=x.dtype)
+    for w in range(warps):
+        total = total + part[..., w]
+    return total
+
+
+def _passes_forward(z, i, f, o):
+    """The forward as the kernels split it: the carry pass (c and n a step
+    at a time, nothing else in the loop), then the readout over every (t,
+    lane) at once.  Returns y, c, n."""
+    b, s, h, hd = z.shape
+    c = torch.zeros(b, h, hd)
+    n = torch.zeros(b, h)
+    cs, ns = [], []
+    for t in range(s):
+        c = f[:, t, :, None] * c + i[:, t, :, None] * z[:, t]
+        n = f[:, t] * n + i[:, t]
+        cs.append(c)
+        ns.append(n)
+    c, n = torch.stack(cs, 1), torch.stack(ns, 1)
+    return o[..., None] * c / torch.clamp(n[..., None], min=1.0), c, n
+
+
+def _passes_backward(z, i, f, o, dy, c, n):
+    """The backward as the kernels split it, on the forward's c and n: the
+    chain pass (dC a lane in reverse t, dz, and the lane sums of dC z, dC
+    c_{t-1} and dy c), the rows pass (do and dN's direct term over every
+    row), the dN pass (the scalar chain in reverse t, then di and df).
+    Returns dz, di, df, do."""
+    m = torch.clamp(n, min=1.0)
+    s = z.shape[1]
+    dcs = [None] * s                                              # chain
+    dc = torch.zeros_like(z[:, 0])
+    for t in range(s - 1, -1, -1):
+        f1 = f[:, t + 1] if t + 1 < s else torch.zeros_like(n[:, 0])
+        dc = dy[:, t] * o[:, t, :, None] / m[:, t, :, None] + f1[..., None] * dc
+        dcs[t] = dc
+    dc = torch.stack(dcs, 1)
+    c_prev = torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], 1)
+    s0, s1, s2 = _lane_sum(dc * z), _lane_sum(dc * c_prev), _lane_sum(dy * c)
+    do = s2 / m                                                   # rows
+    direct = torch.where(n >= 1, -(o * s2) / (m * m), torch.zeros_like(n))
+    dns = [None] * s                                              # dN
+    dn = torch.zeros_like(n[:, 0])
+    for t in range(s - 1, -1, -1):
+        f1 = f[:, t + 1] if t + 1 < s else torch.zeros_like(n[:, 0])
+        dn = direct[:, t] + f1 * dn
+        dns[t] = dn
+    dn = torch.stack(dns, 1)
+    n_prev = torch.cat([torch.zeros_like(n[:, :1]), n[:, :-1]], 1)
+    return i[..., None] * dc, s0 + dn, s1 + dn * n_prev, do
+
+
+@pytest.mark.parametrize("label", list(CASES))
+def test_slstm_pass_decomposition_matches_the_plain_versions(label):
+    """The kernels' order of operations written out in plain f32 on the CPU:
+    the carry pass then the readout bit-equal to ``ref.slstm_scan``; the
+    backward's chain, rows and dN passes within PASS_REL of each gradient's
+    largest |value| of ``ref.slstm_scan_backward`` (the lane sums in another
+    order), dz bit-equal (the chain keeps the recursion's order)."""
+    z, i, f, o = (torch.from_numpy(t) for t in _inputs(CASES[label], seed=20 + len(label)))
+    dy = torch.from_numpy(np.random.default_rng(21).standard_normal(z.shape).astype(np.float32))
+    y, c, n = _passes_forward(z, i, f, o)
+    assert y.dtype == torch.float32 and torch.equal(y, ref.slstm_scan(z, i, f, o)), label
+    want = ref.slstm_scan_backward(z, i, f, o, dy)
+    for name, g, w in zip(("dz", "di", "df", "do"), _passes_backward(z, i, f, o, dy, c, n), want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, (label, name)
+        _close_of_max(g.numpy(), w.numpy(), PASS_REL, f"{label} {name}")
+    assert torch.equal(_passes_backward(z, i, f, o, dy, c, n)[0], want[0]), label
+
+
 def test_slstm_function_takes_only_the_asked_gradients():
     """``ops.slstm_scan`` under autograd goes through ``SlstmScan`` with no
     launch on the CPU: the same y as the plain loop, and only the gradients

@@ -3,13 +3,14 @@ xlstm_1_3b's train step and forward, wall and busy.
 
     python3 tools/slstm_bench.py [--src PATH] [--kernels] [--model] [--reps N]
 
-``--kernels`` (this checkout's kernels) builds ``csrc/slstm.cu``, prints
-ptxas's registers and spills for its two kernels, runs ``chip_smoke``'s
-check of them against the plain versions (``slstm_vs_plain``: the forward
-bit-equal, the backward within ``SLSTM_BWD_RTOL``, at xlstm's 8 x 256 and
-2 x 512 and a ragged shape) and its timed rows (``slstm_rows``: each kernel
-against its bound and the plain loop).  ``--model`` times xlstm_1_3b at full
-width and depth (bf16, seeded random weights): the train step (8 x 256 of
+``--kernels`` (the kernels of ``--src``) builds ``csrc/slstm.cu``, prints
+ptxas's registers and spills for each of its kernels (and fails on a
+spill), runs ``chip_smoke``'s check of them against the plain versions
+(``slstm_vs_plain``: the forward bit-equal, the backward within
+``SLSTM_BWD_RTOL``, at this checkout's ``SLSTM_SHAPES``) and its timed rows
+(``slstm_rows``: each call against its bound and the plain loop), then
+each kernel's share of a call (``torch.profiler``).  ``--model`` times
+xlstm_1_3b at full width and depth (bf16, seeded random weights): the train step (8 x 256 of
 ``SyntheticLM``, remat "full", through ``make_train_step``) and the forward
 (2 x 512), each as ``chip_smoke.busy_share`` measures it: the median wall
 of ``--reps`` unprofiled runs after a warm-up, then the device busy time of
@@ -39,14 +40,55 @@ def kernels() -> None:
     from chip_smoke import ptxas_entries, slstm_rows, slstm_vs_plain
     from repro_torch.kernels import _build
     _build.build(["slstm"])
-    for name, (regs, spill) in ptxas_entries(_build.log_path("slstm").read_text(),
-                                             "slstm_").items():
+    entries = ptxas_entries(_build.log_path("slstm").read_text(), "slstm_")
+    for name, (regs, spill) in entries.items():
         print(f"ptxas {name}: {regs} registers, {spill} bytes spilled")
+    spills = [name for name, (_, spill) in entries.items() if spill]
+    if not entries or spills:
+        raise SystemExit(f"slstm_bench: no kernel entry found, or spills in {spills}")
     g = torch.Generator(device="cuda").manual_seed(11)
     fwd_err, bwd_err = slstm_vs_plain(g)
     rows = slstm_rows(g, {"slstm": fwd_err, "slstm_bwd": bwd_err},
                       {"slstm": 0, "slstm_bwd": 0})
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"passes_us": passes()}))
+
+
+def passes(reps: int = 20) -> dict:
+    """Device time of each kernel of a call (``torch.profiler``, the mean of
+    ``reps`` calls, L2 flushed before each): the forward at xlstm's 2 x 512
+    and 8 x 256, the backward at 8 x 256, in us."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import SLEEP_CYCLES, SLSTM_SHAPES, slstm_inputs
+    from repro_torch.kernels import slstm as slstm_mod
+    g = torch.Generator(device="cuda").manual_seed(12)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, direction in (("forward", "fwd"), ("train", "fwd"), ("train", "bwd")):
+        b, s, h, hd = SLSTM_SHAPES[label]
+        z, i, f, o = slstm_inputs(g, b, s, h, hd)
+        dy = torch.randn(b, s, h, hd, generator=g, device="cuda")
+        c, n = slstm_mod._forward(z, i, f, o, save=True)[1]
+        call = ((lambda: slstm_mod._forward(z, i, f, o, save=False)) if direction == "fwd"
+                else (lambda: slstm_mod.scan_backward(z, i, f, o, dy, c, n)))
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                torch.cuda._sleep(SLEEP_CYCLES)
+                call()
+            torch.cuda.synchronize()
+        us = {}
+        for e in prof.events():
+            m = re.search(r"slstm_\w+?_kernel", e.name)
+            if m:
+                us[m.group(0)] = us.get(m.group(0), 0.0) + e.time_range.elapsed_us() / reps
+        key = f"{direction} B{b} S{s} H{h} hd{hd}"
+        out[key] = us
+        print(f"slstm passes, {key}: " + ", ".join(f"{k} {v:.2f} us" for k, v in us.items()))
+    return out
 
 
 def model(reps: int) -> dict:
