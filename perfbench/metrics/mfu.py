@@ -1,0 +1,13 @@
+"""``mfu.<kind>``: model FLOPs of the traced window's steps
+(``perfbench/counts/model.py``) over its wall time and the card's dense
+bf16 peak, in %.  The float32 unembedding is held to the same peak."""
+from __future__ import annotations
+
+from perfbench.lib import peaks
+
+
+def read(name, trace):
+    flops = trace.info.get("flops")
+    if not flops or trace.window_s <= 0:
+        return None
+    return 100.0 * flops / (trace.window_s * peaks.MODEL_PEAK)
