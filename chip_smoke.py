@@ -1174,7 +1174,12 @@ def busy_share(fn, per: int, label: str, kernels, reps: int = 1) -> dict:
     wall_ms = sorted(walls)[reps // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a range opened on the host (the program's spans while a profiler
+    # records) shows on the device too, over the work launched inside it:
+    # no kernel, so it is left out of the busy time and the kernel count
+    host = {e.name for e in prof.events() if e.device_type != DeviceType.CUDA}
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and e.name not in host]
     if not events:
         print(f"{label} device busy time: not measured (the profiler saw no kernels)")
         return {}

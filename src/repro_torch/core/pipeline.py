@@ -722,7 +722,7 @@ class CompileService:
         self.db = db if db is not None else designdb.open_db(path)
         self.defaults = dse_defaults
         self.trace_path = trace_path
-        if trace_path and not telemetry.on():
+        if trace_path and telemetry.session() is None:
             telemetry.start_trace(trace_path)
         # live request-latency distributions, split by outcome (the db-hit
         # path is O(lookup); mixing it with misses would make p50 useless)

@@ -1,7 +1,8 @@
 """Unified telemetry: structured span tracing + the metrics registry.
 
 POM's pitch is that multi-level IR makes optimization *debuggable*; this
-module is where the engine explains itself.  Two zero-dependency pieces:
+module is where the engine explains itself.  Two pieces, the first
+with no dependency beyond torch's profiler flag:
 
 **Span tracing** — ``telemetry.span("stage2.rung", statement="s", P=4)``
 is a context manager that records one timed event; ``telemetry.event``
@@ -30,6 +31,15 @@ it never issues analysis queries — so every bit-identity invariant
 tracing on or off; ``tests/test_perf_smoke.py`` pins the counter
 parity.
 
+**The profiler as a second sink** — while a ``torch.profiler`` session
+records, ``span(name)`` also opens a ``torch.profiler.record_function``
+range of that name, so the program's spans land in the profiler's own
+trace on its clock, beside the device work they launched; ``on()`` is
+true while either sink records.  The LM stack's train path names its
+spans ``repro.*`` (``repro.train.forward``, ``repro.block``,
+``repro.moe.dispatch``, ...; ``docs/architecture.md`` lists them).  With
+neither sink on, ``span()`` is still the shared no-op.
+
 **Metrics registry** — named counters / gauges / histograms unifying
 what used to be ad-hoc dicts: ``cost_model.CostStats``, the beam's
 ``wave_stats``, ``designdb.DbStats``, warm-pool health, and
@@ -47,8 +57,11 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _profiler
+
 __all__ = [
-    "span", "event", "on", "warning", "metrics", "dump_stream",
+    "span", "event", "on", "session", "warning", "metrics", "dump_stream",
     "start_trace", "stop_trace", "maybe_trace", "export_trace",
     "buffer_mark", "buffer_delta", "absorb",
     "counter", "gauge", "histogram", "REGISTRY", "Registry",
@@ -114,6 +127,37 @@ class _Span:
 
     def add(self, **args) -> "_Span":
         self.args.update(args)
+        return self
+
+
+class _ProfiledSpan:
+    """A span while a ``torch.profiler`` session records: a
+    ``record_function`` range of the span's name in the profiler's trace,
+    around the POM trace's own span where a session of that is active too."""
+    __slots__ = ("rf", "inner")
+
+    def __init__(self, name: str, inner: Optional[_Span]):
+        self.rf = _profiler.record_function(name)
+        self.inner = inner
+
+    def __enter__(self):
+        self.rf.__enter__()
+        if self.inner is not None:
+            self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.inner is not None:
+            self.inner.__exit__(*exc)
+        self.rf.__exit__(*exc)
+        return False
+
+    def __bool__(self):
+        return True
+
+    def add(self, **args) -> "_ProfiledSpan":
+        if self.inner is not None:
+            self.inner.add(**args)
         return self
 
 
@@ -203,15 +247,24 @@ _TRACER: Optional[Tracer] = None
 
 
 def on() -> bool:
-    """Is a trace session active?  The disabled-path guard for callers
-    that would otherwise pay to *assemble* span arguments."""
-    return _TRACER is not None
+    """Is a sink recording (a trace session, or a ``torch.profiler``
+    session)?  The disabled-path guard for callers that would otherwise pay
+    to *assemble* span arguments or count."""
+    return _TRACER is not None or _profiler._is_profiler_enabled
+
+
+def session() -> Optional["Tracer"]:
+    """The active trace session, or None (a profiler alone is no session)."""
+    return _TRACER
 
 
 def span(name: str, _cat: str = "pom", **args):
     """Open a span (context manager).  Disabled path: returns the shared
-    no-op span — callers may unconditionally ``with telemetry.span(...)``."""
+    no-op span — callers may unconditionally ``with telemetry.span(...)``.
+    While a profiler records, the span is a ``record_function`` range too."""
     t = _TRACER
+    if _profiler._is_profiler_enabled:
+        return _ProfiledSpan(name, None if t is None else _Span(t, name, _cat, args))
     if t is None:
         return _NULL_SPAN
     return _Span(t, name, _cat, args)
@@ -345,13 +398,28 @@ def dump_stream(text: str, dest: str = "-") -> None:
 # metrics registry
 # --------------------------------------------------------------------------
 class Counter:
-    __slots__ = ("value",)
+    """A count.  ``inc`` takes an int, or a 0-d device tensor that is summed
+    on the device and read, by one wait for the device, when ``value`` is
+    next read."""
+    __slots__ = ("_n", "pending")
 
     def __init__(self):
-        self.value = 0
+        self._n = 0
+        self.pending = None
 
-    def inc(self, n: int = 1) -> None:
-        self.value += n
+    def inc(self, n=1) -> None:
+        if isinstance(n, torch.Tensor):
+            n = n.detach()
+            self.pending = n if self.pending is None else self.pending + n
+        else:
+            self._n += n
+
+    @property
+    def value(self) -> int:
+        if self.pending is not None:
+            self._n += int(self.pending.item())
+            self.pending = None
+        return self._n
 
 
 class Gauge:

@@ -9,7 +9,10 @@ their second argument:
   returning ``(step, (param_sh, opt_sh, batch_sh))`` as the reference does.
 
 loss -> backward -> global-norm clip -> AdamW with the cosine learning rate;
-every metric a 0-d device tensor, so a step never waits for the device.  On
+every metric a 0-d device tensor, so a step never waits for the device.
+The one-card step's phases are the spans ``repro.train.forward``,
+``repro.train.backward`` and ``repro.train.optimizer`` (``core/telemetry``:
+no-ops unless a trace or a ``torch.profiler`` session records).  On
 the card every family's gradient runs on the port's kernels (``kernels.ops``
 under autograd), each block recomputed in the backward under remat "full":
 
@@ -59,6 +62,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
+from repro_torch.core import telemetry
 from repro_torch.models.model import Model, decode_step, forward, init_cache, loss_fn
 from repro_torch.optim import AdamWState, adamw_update, cosine_schedule
 from repro_torch.models.layers import dtype_of
@@ -89,14 +93,17 @@ def make_train_step(cfg: ModelConfig, target, mc: MeshContext = None, *,
     params = dict(model.named_parameters())
 
     def step(opt: AdamWState, batch: Dict[str, torch.Tensor]) -> Tuple[AdamWState, Metrics]:
-        total, metrics = loss_fn(model, batch)
-        total.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        lr = cosine_schedule(opt.step, peak_lr=peak_lr, warmup=warmup, total=total_steps)
-        _, opt, om = adamw_update(grads, opt, params, lr=lr)
-        for p in params.values():
-            p.grad = None
+        with telemetry.span("repro.train.forward"):
+            total, metrics = loss_fn(model, batch)
+        with telemetry.span("repro.train.backward"):
+            total.backward()
+        with telemetry.span("repro.train.optimizer"):
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in params.items()}
+            lr = cosine_schedule(opt.step, peak_lr=peak_lr, warmup=warmup, total=total_steps)
+            _, opt, om = adamw_update(grads, opt, params, lr=lr)
+            for p in params.values():
+                p.grad = None
         metrics = dict(metrics)
         metrics.update(om)
         metrics["lr"] = lr

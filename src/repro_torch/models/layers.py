@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 
@@ -156,12 +157,13 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     """Full (train/prefill) causal attention through the flash kernel.
     ``positions`` (B, S) are the whole sequence's (under SP ``x`` holds
     this rank's S / model rows, gathered on entry)."""
-    tp = _attention_tp(p, cfg)
-    q, k, v = _qkv(p, C.copy_to_model(x, tp), cfg, positions, tp)
-    o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
-    b, h, s, hd = o.shape
-    o = o.transpose(1, 2).reshape(b, s, h * hd)
-    return C.reduce_from_model(o @ C.param(p.wo, tp), tp)
+    with telemetry.span("repro.attention"):
+        tp = _attention_tp(p, cfg)
+        q, k, v = _qkv(p, C.copy_to_model(x, tp), cfg, positions, tp)
+        o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+        b, h, s, hd = o.shape
+        o = o.transpose(1, 2).reshape(b, s, h * hd)
+        return C.reduce_from_model(o @ C.param(p.wo, tp), tp)
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import shard_hint
 from . import layers as L
@@ -176,11 +177,12 @@ def _moe_block(bp: Block, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """A super-block of ``moe_every`` layers: (x, the sum of its MoE layers'
     aux losses)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in bp.layers():
-        x, a = _attn_ffn(blk, x, cfg, positions)
-        if a is not None:
-            aux = aux + a
+    with telemetry.span("repro.block"):     # inside the remat: runs again in the recompute
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in bp.layers():
+            x, a = _attn_ffn(blk, x, cfg, positions)
+            if a is not None:
+                aux = aux + a
     return x, aux
 
 
@@ -268,8 +270,9 @@ def forward(model: Model, tokens: Optional[torch.Tensor] = None,
             x = xlstm_block(bp, x, cfg, _every(i, cfg.slstm_every))
         else:
             x = dense_block(bp, x, cfg, positions)
-    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    logits = L.unembed_apply(model.embed, x, cfg.vocab_size, L.dtype_of(cfg.logits_dtype))
+    with telemetry.span("repro.loss"):
+        x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
+        logits = L.unembed_apply(model.embed, x, cfg.vocab_size, L.dtype_of(cfg.logits_dtype))
     return shard_hint(logits, ("batch", "seq", "vocab")), aux
 
 
@@ -279,18 +282,19 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]
     position) plus 0.01 x the MoE aux loss.  Returns (total, {"loss", "aux",
     "ppl_log"}), the metrics detached 0-d tensors."""
     logits, aux = forward(model, tokens=batch.get("tokens"), embeds=batch.get("embeds"))
-    labels = batch["labels"].long()
-    tp = L.vocab_tp(model.embed, out=True)
-    if tp is not None and tp.local and C.seq_group() is None:
-        nll = C.vocab_nll(logits, labels, tp)
-    else:
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        nll = lse - gold
-    mask = batch.get("mask")
-    mask = torch.ones_like(nll) if mask is None else mask.float()
-    loss = C.token_sum(torch.sum(nll * mask)) / torch.clamp(C.token_sum(torch.sum(mask)),
-                                                            min=1.0)
+    with telemetry.span("repro.loss"):
+        labels = batch["labels"].long()
+        tp = L.vocab_tp(model.embed, out=True)
+        if tp is not None and tp.local and C.seq_group() is None:
+            nll = C.vocab_nll(logits, labels, tp)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+            nll = lse - gold
+        mask = batch.get("mask")
+        mask = torch.ones_like(nll) if mask is None else mask.float()
+        loss = C.token_sum(torch.sum(nll * mask)) / torch.clamp(C.token_sum(torch.sum(mask)),
+                                                                min=1.0)
     total = loss + 0.01 * aux
     loss = loss.detach()
     return total, {"loss": loss, "aux": aux.detach(), "ppl_log": loss}

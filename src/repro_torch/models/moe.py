@@ -11,6 +11,11 @@ the card ``index_add_`` adds with atomics in no fixed order, and with a
 near-uniform router the last bit of one sum can flip a later layer's expert
 choice.  The expert computation is three ``ops.grouped_matmul``
 calls, which pick the CUDA kernel or its plain version by device.
+Its three phases are the spans ``repro.moe.dispatch`` (router, aux loss,
+sort, ranks, the ``index_add_``), ``repro.moe.experts`` (the grouped
+matmuls and the gate) and ``repro.moe.combine``; while a sink records, the
+forward run (not the remat's re-run) counts ``moe.rows_computed`` and
+``moe.rows_filled`` (``core/telemetry``'s ``REGISTRY``).
 
 Inside a mesh context the layer keeps the reference's global semantics, as
 GSPMD computes its sharded ``moe_apply``: the router's outputs are gathered
@@ -46,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels import ops
@@ -110,71 +116,86 @@ def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig
     return probs, gate_vals, gate_ids
 
 
+def _count_rows(rows: int, filled) -> None:
+    """The layer's counters: the rows each grouped matmul runs (``el * cap``)
+    and those of them holding a kept (token, choice) pair, a host int where
+    capacity keeps every pair (cap >= T), else the device sum of ``keep``
+    (no wait for the device).  Dropped pairs are T k less the filled rows."""
+    telemetry.REGISTRY.counter("moe.rows_computed").inc(rows)
+    telemetry.REGISTRY.counter("moe.rows_filled").inc(filled)
+
+
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), load-balance aux loss (f32 scalar)).
     In a mesh context x is this rank's batch shard (the module docstring
     says how the layer keeps the global semantics)."""
-    x = C.copy_to_model(x, None)                  # under SP: the whole sequence
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    t = b * s
-    xf = x.reshape(t, d)
-    probs, gate_vals, gate_ids = route(p, xf, cfg)
-    tp = C.tp((p.wi, 0), (p.wg, 0), (p.wo, 0), divides=(e,))
-    part, parts = C.batch_place()                 # this rank's token range
-    lo = part * t
-    probs_all, ids_all = C.gather_batch(probs), C.gather_batch(gate_ids)
-    tg = t * parts
+    with telemetry.span("repro.moe.dispatch"):
+        x = C.copy_to_model(x, None)                  # under SP: the whole sequence
+        b, s, d = x.shape
+        e, k = cfg.num_experts, cfg.experts_per_token
+        t = b * s
+        xf = x.reshape(t, d)
+        probs, gate_vals, gate_ids = route(p, xf, cfg)
+        tp = C.tp((p.wi, 0), (p.wg, 0), (p.wo, 0), divides=(e,))
+        part, parts = C.batch_place()                 # this rank's token range
+        lo = part * t
+        probs_all, ids_all = C.gather_batch(probs), C.gather_batch(gate_ids)
+        tg = t * parts
 
-    # load-balance auxiliary loss (Switch-style)
-    me = probs_all.mean(dim=0)
-    ce = F.one_hot(ids_all[:, 0], e).float().mean(dim=0)
-    aux = e * torch.sum(me * ce)
+        # load-balance auxiliary loss (Switch-style)
+        me = probs_all.mean(dim=0)
+        ce = F.one_hot(ids_all[:, 0], e).float().mean(dim=0)
+        aux = e * torch.sum(me * ce)
 
-    # sort-based dispatch over the global token order
-    cap = capacity(tg, cfg)
-    flat_e = ids_all.reshape(-1)                                    # (T*k,)
-    flat_g = C.gather_batch(gate_vals).reshape(-1)
-    flat_src = torch.arange(tg, device=x.device).repeat_interleave(k)
-    order = torch.argsort(flat_e, stable=True)
-    se, sg, ssrc = flat_e[order], flat_g[order], flat_src[order]
-    starts = torch.searchsorted(se, torch.arange(e, device=x.device), side="left")
-    rank = torch.arange(tg * k, device=x.device) - starts[se]
-    keep = rank < cap
-    # this rank's entries: its own tokens, and with experts over ``model``
-    # its own experts; every other entry goes to the overflow row
-    el = e // tp.size if tp is not None else e
-    e0 = tp.rank * el if tp is not None else 0
-    if parts > 1:
-        keep = keep & (ssrc >= lo) & (ssrc < lo + t)
-    if el < e:
-        keep = keep & (se >= e0) & (se < e0 + el)
-    slot = torch.where(keep, (se - e0) * cap + rank, torch.full_like(se, el * cap))
-    src = (ssrc - lo).clamp(0, t - 1) if parts > 1 else ssrc
-    xd = C.to_shards(xf, tp)
+        # sort-based dispatch over the global token order
+        cap = capacity(tg, cfg)
+        flat_e = ids_all.reshape(-1)                                    # (T*k,)
+        flat_g = C.gather_batch(gate_vals).reshape(-1)
+        flat_src = torch.arange(tg, device=x.device).repeat_interleave(k)
+        order = torch.argsort(flat_e, stable=True)
+        se, sg, ssrc = flat_e[order], flat_g[order], flat_src[order]
+        starts = torch.searchsorted(se, torch.arange(e, device=x.device), side="left")
+        rank = torch.arange(tg * k, device=x.device) - starts[se]
+        keep = rank < cap
+        # this rank's entries: its own tokens, and with experts over ``model``
+        # its own experts; every other entry goes to the overflow row
+        el = e // tp.size if tp is not None else e
+        e0 = tp.rank * el if tp is not None else 0
+        if parts > 1:
+            keep = keep & (ssrc >= lo) & (ssrc < lo + t)
+        if el < e:
+            keep = keep & (se >= e0) & (se < e0 + el)
+        slot = torch.where(keep, (se - e0) * cap + rank, torch.full_like(se, el * cap))
+        src = (ssrc - lo).clamp(0, t - 1) if parts > 1 else ssrc
+        xd = C.to_shards(xf, tp)
 
-    buf = torch.zeros(el * cap + 1, d, dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot, torch.where(keep[:, None], xd[src], torch.zeros((), dtype=x.dtype,
-                                                                           device=x.device)))
-    buf = C.batch_sum(buf[:-1].reshape(el, cap, d))
-    buf = shard_hint(buf, ("experts", "expert_cap", "embed"))
+        buf = torch.zeros(el * cap + 1, d, dtype=x.dtype, device=x.device)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        buf.index_add_(0, slot, torch.where(keep[:, None], xd[src], zero))
+        buf = C.batch_sum(buf[:-1].reshape(el, cap, d))
+        buf = shard_hint(buf, ("experts", "expert_cap", "embed"))
+    if telemetry.on() and torch._C._current_graph_task_id() == -1:
+        # the forward run only, not the remat's re-run inside the backward
+        _count_rows(el * cap, tg * k if cap >= tg and parts == 1 and el == e else keep.sum())
 
     # expert computation (grouped matmuls)
-    wg, wi, wo = (C.param(w, tp) for w in (p.wg, p.wi, p.wo))
-    h = F.silu(ops.grouped_matmul(buf, wg)) * ops.grouped_matmul(buf, wi)
-    y = ops.grouped_matmul(h.to(x.dtype), wo)
-    y = shard_hint(y, ("experts", "expert_cap", "embed"))
-    yflat = torch.cat([y.reshape(el * cap, d), y.new_zeros(1, d)], dim=0)
+    with telemetry.span("repro.moe.experts"):
+        wg, wi, wo = (C.param(w, tp) for w in (p.wg, p.wi, p.wo))
+        h = F.silu(ops.grouped_matmul(buf, wg)) * ops.grouped_matmul(buf, wi)
+        y = ops.grouped_matmul(h.to(x.dtype), wo)
+        y = shard_hint(y, ("experts", "expert_cap", "embed"))
 
     # combine, in f32: each token's k contributions back in choice order and
     # summed in that order (no atomics, so a run on the card is repeatable)
-    contrib = yflat[slot].float() * (C.to_shards(sg, tp) * keep.float())[:, None]
-    unsorted = torch.empty_like(contrib)
-    unsorted[order] = contrib
-    if parts > 1:
-        unsorted = unsorted[lo * k:(lo + t) * k]
-    out = C.reduce_from_model(unsorted.reshape(t, k, d).sum(dim=1).reshape(b, s, d), tp)
-    out = out.to(x.dtype)
+    with telemetry.span("repro.moe.combine"):
+        yflat = torch.cat([y.reshape(el * cap, d), y.new_zeros(1, d)], dim=0)
+        contrib = yflat[slot].float() * (C.to_shards(sg, tp) * keep.float())[:, None]
+        unsorted = torch.empty_like(contrib)
+        unsorted[order] = contrib
+        if parts > 1:
+            unsorted = unsorted[lo * k:(lo + t) * k]
+        out = C.reduce_from_model(unsorted.reshape(t, k, d).sum(dim=1).reshape(b, s, d), tp)
+        out = out.to(x.dtype)
 
     if p.shared is not None:
         sh = p.shared
