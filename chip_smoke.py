@@ -560,12 +560,14 @@ def build_phase() -> None:
             fail(f"{name}: the tensor-core route compiled without wgmma or TMA: {counts}")
     # the backward's tensor-core kernels: the flash backward's two and the
     # grouped matmul's two operand layouts (gemm_kernel<BM, BN, A MN-major,
-    # B K-major>, mangled ...Lb1ELb0E / ...Lb0ELb1E), each on wgmma fed by
-    # TMA, and its products pipelined (fewer wgmma waits than wgmmas: one
-    # after every HGMMA is ptxas serialising them)
+    # B K-major>, mangled ...Lb1ELb0E / ...Lb0ELb1E), and the forward layout
+    # (...Lb0ELb0E, behind its dead-tile branch) in both libraries, each on
+    # wgmma fed by TMA, and its products pipelined (fewer wgmma waits than
+    # wgmmas: one after every HGMMA is ptxas serialising them)
     for lib, fn in (("flash_attention_bwd", "flash_bwd_dq_tc_kernel"),
                     ("flash_attention_bwd", "flash_bwd_dkdv_tc_kernel"),
-                    ("grouped_matmul", "Lb1ELb0E"), ("grouped_matmul", "Lb0ELb1E")):
+                    ("grouped_matmul", "Lb1ELb0E"), ("grouped_matmul", "Lb0ELb1E"),
+                    ("grouped_matmul", "Lb0ELb0E"), ("matmul_pom", "hgemm")):
         counts = _build.sass_counts(lib, ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR"), function=fn)
         print(f"sass {lib} {fn}: {counts}")
         if not (counts["HGMMA"] and counts["UTMALDG"]):
@@ -805,12 +807,22 @@ def _rel_tol(dtype, f32: float) -> float:
     return 1e-2 if dtype == torch.bfloat16 else f32
 
 
+def _gmm_rows(e: int, cap: int) -> torch.Tensor:
+    """Row counts over e experts that hold an empty expert, a single row, a
+    partial tile, a tile's multiple, cap less one and cap, in turn."""
+    pattern = (0, 1, cap // 2 + 3, 64, cap - 1, cap)
+    return torch.tensor([min(pattern[i % len(pattern)], cap) for i in range(e)],
+                        dtype=torch.int32, device="cuda")
+
+
 def gmm_vs_plain(g) -> float:
     """grouped_matmul against ref.grouped_matmul: granite_moe_1b's decode
     (cap 8) and forward (cap 640) shapes and a ragged one (cap 320, f 1000,
     d 500: no multiple of any tile, and d no multiple of 8, so bf16 takes the
     CUDA cores), bf16 and f32, both schedules, and every tensor-core tile
-    where the route is the tensor cores."""
+    where the route is the tensor cores; each dense, and again with row
+    counts (``_gmm_rows``) over an x that holds NaN past them, where every
+    output row past a count has to be zero."""
     from repro_torch.kernels import autotune, ops, ref
     from repro_torch.kernels import grouped_matmul as gmm_mod
     worst = 0.0
@@ -818,24 +830,31 @@ def gmm_vs_plain(g) -> float:
         for dt in (torch.bfloat16, torch.float32):
             x = _randn(g, e, cap, d, dtype=dt)
             w = (torch.randn(e, d, f, generator=g, device="cuda") * d ** -0.5).to(dt)
-            want = ref.grouped_matmul(x, w).float()
-            scale = want.abs().max().item()
             route = autotune.gmm_route(e, cap, d, f, x.element_size())
-            runs = [(sch, lambda sch=sch: ops.grouped_matmul(x, w, schedule=sch))
-                    for sch in ("pom", "naive")]
-            if route == autotune.TENSOR_CORES:
-                runs += [(f"tile {t}", lambda t=t: gmm_mod.grouped_matmul(x, w, tile=t))
-                         for t in autotune.GMM_TC_TILES]
-            for how, run in runs:
-                got = run()
-                torch.cuda.synchronize()
-                err = (got.float() - want).abs().max().item()
-                tol = _rel_tol(dt, 1e-4) * scale
-                print(f"grouped_matmul E{e} cap{cap} d{d} f{f} {str(dt)[6:]} {route} {how}: "
-                      f"max abs err {err:.3g} (tolerance {tol:.3g})")
-                if not err <= tol:
-                    fail(f"grouped_matmul disagrees with its plain version: {err}")
-                worst = max(worst, err)
+            counts = _gmm_rows(e, cap)
+            dead = torch.arange(cap, device="cuda") >= counts[:, None]     # (E, cap)
+            for rows in (None, counts):
+                xr = x if rows is None else x.masked_fill(dead[..., None], float("nan"))
+                want = ref.grouped_matmul(xr, w, rows).float()
+                scale = want.abs().max().item()
+                runs = [(sch, lambda sch=sch: ops.grouped_matmul(xr, w, rows, schedule=sch))
+                        for sch in ("pom", "naive")]
+                if route == autotune.TENSOR_CORES:
+                    runs += [(f"tile {t}", lambda t=t: gmm_mod.grouped_matmul(xr, w, rows, tile=t))
+                             for t in autotune.GMM_TC_TILES]
+                for how, run in runs:
+                    got = run()
+                    torch.cuda.synchronize()
+                    err = (got.float() - want).abs().max().item()
+                    tol = _rel_tol(dt, 1e-4) * scale
+                    label = "dense" if rows is None else "rows"
+                    print(f"grouped_matmul E{e} cap{cap} d{d} f{f} {str(dt)[6:]} {route} {how} "
+                          f"{label}: max abs err {err:.3g} (tolerance {tol:.3g})")
+                    if not err <= tol:
+                        fail(f"grouped_matmul ({label}) disagrees with its plain version: {err}")
+                    if rows is not None and (got[dead] != 0).any().item():
+                        fail(f"grouped_matmul {how}: a row past its expert's count is not zero")
+                    worst = max(worst, err)
             del x, w, want
     return worst
 

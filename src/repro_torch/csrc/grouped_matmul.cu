@@ -56,6 +56,17 @@
 // x's dtype (float32 or bfloat16; w of the same dtype); layout 1 takes w
 // stored as its transpose (E, f, d), layout 2 x stored as its transpose
 // (E, d, cap).
+//
+// Row counts: both routes take `rows`, nullptr or a device int32 array (E,)
+// (the forward's filled rows of each expert, which the MoE dispatch knows
+// on the card).  The rows of out[e] at or past rows[e] are then zeros,
+// whatever x holds there: a block whose first row is past the count
+// stores its tile's zeros and returns before its k loop, a block across it
+// stores zeros past it.  The zeros are stored, not left: the gate reads
+// both products' rows and dW of the third reads its input's, and garbage
+// there would reach dW as 0 x NaN.  With dropless routing at granite's
+// training shape (cap 32,768, ~8,192 filled) three quarters of the tiles
+// skip their products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -82,7 +93,7 @@ constexpr int kBN = 64;  // every tile is 64 columns wide (autotune.GMM_BN)
 template <typename T, int BM, int BK, int TM, int TN, bool kTA, bool kTB>
 __global__ void __launch_bounds__((BM / TM) * (kBN / TN))
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-           int cap, int d, int f) {
+           const int* __restrict__ rows, int cap, int d, int f) {
   constexpr int CX = kBN / TN;           // threads along n
   constexpr int NT = (BM / TM) * CX;     // threads in the block
   __shared__ float xs[BK][BM + 1];       // x tile, transposed: xs[k][m]
@@ -93,6 +104,15 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
   const T* xe = x + (size_t)e * cap * d;
   const T* we = w + (size_t)e * d * f;
+  T* oe = out + (size_t)e * cap * f;
+  const int live = rows == nullptr ? cap : min(cap, rows[e]);   // rows holding products
+  if (m0 >= live) {                      // a dead tile: zeros alone
+    for (int i = tid; i < BM * kBN; i += NT) {
+      const int gm = m0 + i / kBN, gn = n0 + i % kBN;
+      if (gm < cap && gn < f) oe[(size_t)gm * f + gn] = from_f<T>(0.f);
+    }
+    return;
+  }
 
   float acc[TM][TN];
 #pragma unroll
@@ -139,7 +159,6 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out
     __syncthreads();  // the next step overwrites both tiles
   }
 
-  T* oe = out + (size_t)e * cap * f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty + i * (BM / TM);
@@ -147,18 +166,19 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + j * CX;
-      if (gn < f) oe[(size_t)gm * f + gn] = from_f<T>(acc[i][j]);
+      if (gn < f) oe[(size_t)gm * f + gn] = from_f<T>(gm < live ? acc[i][j] : 0.f);
     }
   }
 }
 
 template <typename T, int BM, int BK, int TM, int TN, bool kTA, bool kTB>
-cudaError_t launch(const void* x, const void* w, void* out, int e, int cap, int d, int f,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, void* out, const int* rows, int e, int cap,
+                   int d, int f, cudaStream_t stream) {
   constexpr int threads = (BM / TM) * (kBN / TN);
   const dim3 grid((f + kBN - 1) / kBN, (cap + BM - 1) / BM, e);
   gmm_kernel<T, BM, BK, TM, TN, kTA, kTB><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), cap, d, f);
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), rows, cap, d,
+      f);
   return cudaGetLastError();
 }
 
@@ -166,13 +186,13 @@ cudaError_t launch(const void* x, const void* w, void* out, int e, int cap, int 
 // block: 8 rows (decode) 128 threads of 1 x 4; 32 rows 256 threads of 2 x 4;
 // 64 rows 256 threads of 4 x 4; 128 rows 256 threads of 8 x 4.
 template <typename T, bool kTA, bool kTB>
-cudaError_t dispatch(const void* x, const void* w, void* out, int e, int cap, int d, int f,
-                     int bm, cudaStream_t stream) {
+cudaError_t dispatch(const void* x, const void* w, void* out, const int* rows, int e, int cap,
+                     int d, int f, int bm, cudaStream_t stream) {
   switch (bm) {
-    case 8: return launch<T, 8, 32, 1, 4, kTA, kTB>(x, w, out, e, cap, d, f, stream);
-    case 32: return launch<T, 32, 32, 2, 4, kTA, kTB>(x, w, out, e, cap, d, f, stream);
-    case 64: return launch<T, 64, 16, 4, 4, kTA, kTB>(x, w, out, e, cap, d, f, stream);
-    case 128: return launch<T, 128, 16, 8, 4, kTA, kTB>(x, w, out, e, cap, d, f, stream);
+    case 8: return launch<T, 8, 32, 1, 4, kTA, kTB>(x, w, out, rows, e, cap, d, f, stream);
+    case 32: return launch<T, 32, 32, 2, 4, kTA, kTB>(x, w, out, rows, e, cap, d, f, stream);
+    case 64: return launch<T, 64, 16, 4, 4, kTA, kTB>(x, w, out, rows, e, cap, d, f, stream);
+    case 128: return launch<T, 128, 16, 8, 4, kTA, kTB>(x, w, out, rows, e, cap, d, f, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -180,11 +200,11 @@ cudaError_t dispatch(const void* x, const void* w, void* out, int e, int cap, in
 // layout: 0 out = x @ w (the forward), 1 out = x @ w^T (w stored (E, f, d)),
 // 2 out = x^T @ w (x stored (E, d, cap)).
 template <typename T>
-cudaError_t dispatch_layout(const void* x, const void* w, void* out, int e, int cap, int d,
-                            int f, int bm, int layout, cudaStream_t stream) {
-  if (layout == 0) return dispatch<T, false, false>(x, w, out, e, cap, d, f, bm, stream);
-  if (layout == 1) return dispatch<T, false, true>(x, w, out, e, cap, d, f, bm, stream);
-  if (layout == 2) return dispatch<T, true, false>(x, w, out, e, cap, d, f, bm, stream);
+cudaError_t dispatch_layout(const void* x, const void* w, void* out, const int* rows, int e,
+                            int cap, int d, int f, int bm, int layout, cudaStream_t stream) {
+  if (layout == 0) return dispatch<T, false, false>(x, w, out, rows, e, cap, d, f, bm, stream);
+  if (layout == 1) return dispatch<T, false, true>(x, w, out, rows, e, cap, d, f, bm, stream);
+  if (layout == 2) return dispatch<T, true, false>(x, w, out, rows, e, cap, d, f, bm, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -193,11 +213,11 @@ cudaError_t dispatch_layout(const void* x, const void* w, void* out, int e, int 
 // forward reads x K-major and w MN-major; out = x @ w^T reads w K-major (B
 // K-major), out = x^T @ w reads x MN-major (A MN-major), each in place.
 template <bool kAMn, bool kBK>
-cudaError_t dispatch_tc(const void* x, const void* w, void* out, int e, int cap, int d, int f,
-                        int bm, int bn, int bk, cudaStream_t stream) {
+cudaError_t dispatch_tc(const void* x, const void* w, void* out, const int* rows, int e,
+                        int cap, int d, int f, int bm, int bn, int bk, cudaStream_t stream) {
 #define TILE(BM, BN, BK)                                             \
   if (bm == BM && bn == BN && bk == BK)                              \
-    return hgemm::launch<BM, BN, kAMn, kBK>(x, w, out, e, cap, f, d, stream);
+    return hgemm::launch<BM, BN, kAMn, kBK>(x, w, out, e, cap, f, d, stream, rows);
   TILE(64, 64, 64)
   TILE(64, 128, 64)
   TILE(128, 128, 64)
@@ -210,33 +230,39 @@ cudaError_t dispatch_tc(const void* x, const void* w, void* out, int e, int cap,
 
 // out (E, cap, f) = x @ w for x (E, cap, d) and w (E, d, f), or (layout 1)
 // x @ w^T for w stored (E, f, d), or (layout 2) x^T @ w for x stored
-// (E, d, cap); all contiguous.  dtype: 0 = float32, 1 = bfloat16.  Returns
-// cudaGetLastError() after the launch (0 on success); cudaErrorInvalidValue
-// for an unsupported shape or layout.
-extern "C" int grouped_matmul_launch(const void* x, const void* w, void* out, int e, int cap,
-                                     int d, int f, int bm, int dtype, int layout, void* stream) {
+// (E, d, cap); all contiguous.  rows: nullptr, or a device int32 array (E,)
+// of row counts (the rows of out[e] at or past rows[e] are zeros).  dtype:
+// 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the launch (0
+// on success); cudaErrorInvalidValue for an unsupported shape or layout.
+extern "C" int grouped_matmul_launch(const void* x, const void* w, void* out, const int* rows,
+                                     int e, int cap, int d, int f, int bm, int dtype, int layout,
+                                     void* stream) {
   if (e <= 0 || e > 65535 || cap <= 0 || d <= 0 || f <= 0 || bm <= 0 ||
       (cap + bm - 1) / bm > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_layout<float>(x, w, out, e, cap, d, f, bm, layout, st);
+  if (dtype == 0)
+    return (int)dispatch_layout<float>(x, w, out, rows, e, cap, d, f, bm, layout, st);
   if (dtype == 1)
-    return (int)dispatch_layout<__nv_bfloat16>(x, w, out, e, cap, d, f, bm, layout, st);
+    return (int)dispatch_layout<__nv_bfloat16>(x, w, out, rows, e, cap, d, f, bm, layout, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 on the tensor cores, the layouts of grouped_matmul_launch: the
-// contiguous dim of each operand (d and f for the forward; f for layout 1,
-// d and f for layout 2) a multiple of 8, f a multiple of 8, x and w 16-byte
-// aligned.  Returns cudaGetLastError() after the launch (0 on success);
-// cudaErrorInvalidValue for a shape, tile, layout or pointer the route does
-// not take.
-extern "C" int grouped_matmul_tc_launch(const void* x, const void* w, void* out, int e, int cap,
-                                        int d, int f, int bm, int bn, int bk, int layout,
-                                        void* stream) {
+// bf16 on the tensor cores, the layouts and row counts of
+// grouped_matmul_launch: the contiguous dim of each operand (d and f for the
+// forward; f for layout 1, d and f for layout 2) a multiple of 8, f a
+// multiple of 8, x, w and out 16-byte aligned.  Returns cudaGetLastError()
+// after the launch (0 on success); cudaErrorInvalidValue for a shape, tile,
+// layout or pointer the route does not take.
+extern "C" int grouped_matmul_tc_launch(const void* x, const void* w, void* out, const int* rows,
+                                        int e, int cap, int d, int f, int bm, int bn, int bk,
+                                        int layout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (layout == 0) return (int)dispatch_tc<false, false>(x, w, out, e, cap, d, f, bm, bn, bk, st);
-  if (layout == 1) return (int)dispatch_tc<false, true>(x, w, out, e, cap, d, f, bm, bn, bk, st);
-  if (layout == 2) return (int)dispatch_tc<true, false>(x, w, out, e, cap, d, f, bm, bn, bk, st);
+  if (layout == 0)
+    return (int)dispatch_tc<false, false>(x, w, out, rows, e, cap, d, f, bm, bn, bk, st);
+  if (layout == 1)
+    return (int)dispatch_tc<false, true>(x, w, out, rows, e, cap, d, f, bm, bn, bk, st);
+  if (layout == 2)
+    return (int)dispatch_tc<true, false>(x, w, out, rows, e, cap, d, f, bm, bn, bk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,7 +32,15 @@
 //     operand is transposed anywhere: the forward products read A K-major
 //     and B MN-major, the grouped matmul's backward dX = dY W^T reads W
 //     K-major and dW = X^T dY reads X MN-major;
-//   * the epilogue rounds each sum once to bf16 and stores with masks.
+//   * the epilogue rounds each sum once to bf16 and stores with masks;
+//   * where the caller gives row counts (`rows`, one int a batch entry: the
+//     grouped matmul's filled rows of each expert), the rows of out[z] at
+//     or past rows[z] are zeros, whatever A holds there.  A block whose
+//     first row is past the count stores its tile's zeros with 16-byte
+//     stores and returns before any barrier, TMA load or wgmma; a block
+//     across the count runs as the others and stores zeros past it.  With
+//     dropless routing three quarters of the grouped matmul's slots are
+//     empty, so three quarters of its tiles skip the mainloop.
 // Ragged edges cost nothing in the mainloop: TMA fills the part of a box
 // outside the tensor with zeros.  The descriptors are 3-D (inner dim, rows,
 // batch), so a tile at a row or k tail of one expert reads zeros, never the
@@ -115,17 +123,33 @@ struct Tile {
 template <int BM, int BN, bool kAMnMajor = false, bool kBKMajor = false>
 __global__ void __launch_bounds__(Tile<BM, BN>::kThreads, Tile<BM, BN>::kMinBlocks)
 gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_b,
-            __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+            __nv_bfloat16* __restrict__ out, const int* __restrict__ rows, int M, int N, int K) {
   using T = Tile<BM, BN>;
   constexpr int S = T::kStages;
   constexpr int kBoxBytes = kBK * 128;                     // one 64 x 64 box
   extern __shared__ uint8_t smem_raw[];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
+  __nv_bfloat16* o = out + static_cast<size_t>(z) * M * N;
+  // the rows of out[z] that hold products: M, or rows[z] where the caller
+  // counts them; warp-uniform as ptxas sees it (a lane-0 shuffle), so that
+  // no wgmma below sits under a branch it must treat as divergent
+  int live = M;
+  if (rows != nullptr) live = min(M, __ldg(rows + z));
+  live = __shfl_sync(0xffffffffu, live, 0);
+  if (m0 >= live) {                                        // a dead tile: zeros alone
+    constexpr int kVecs = BN / 8;                          // 16-byte stores a row
+    for (int i = tid; i < BM * kVecs; i += T::kThreads) {
+      const int r = m0 + i / kVecs, col = n0 + (i % kVecs) * 8;
+      if (r < M && col < N)                                // N % 8 == 0: all 8 columns
+        *reinterpret_cast<uint4*>(o + static_cast<size_t>(r) * N + col) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
   // stage s: the A tile at base + s * kStageBytes, then the B tile; every
   // box starts on a 1024-byte boundary, the period of the 128-byte swizzle.
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t bars = base + S * T::kStageBytes;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
   const int k_tiles = (K + kBK - 1) / kBK;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
@@ -191,10 +215,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
   wgmma_wait<0>();
 
   // epilogue: the m64nBN fragment holds, for each 8-column group j, rows
-  // r and r + 8 (r = warp * 16 + lane / 4) at columns 8 j + 2 (lane % 4) + {0, 1}
+  // r and r + 8 (r = warp * 16 + lane / 4) at columns 8 j + 2 (lane % 4) + {0, 1};
+  // rows past the live count store zeros
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int row = m0 + wg * 64 + warp * 16 + lane / 4;
-  __nv_bfloat16* o = out + static_cast<size_t>(z) * M * N;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = n0 + j * 8 + (lane % 4) * 2;
@@ -202,9 +226,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = row + 8 * h;
+      const bool on = r < live;
       if (r < M)
         *reinterpret_cast<__nv_bfloat162*>(o + static_cast<size_t>(r) * N + col) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+            __floats2bfloat162_rn(on ? acc[4 * j + 2 * h] : 0.f,
+                                  on ? acc[4 * j + 2 * h + 1] : 0.f);
     }
   }
 }
@@ -213,16 +239,20 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
 // is A (batch, m, k), or with kAMnMajor its transpose (batch, k, m); b is B
 // (batch, k, n), or with kBKMajor its transpose (batch, n, k); both
 // contiguous bf16.  Needs the contiguous (inner) dim of a and b and n to be
-// multiples of 8 and a and b 16-byte aligned (the callers' routes guarantee
-// it); k, and m or n as a row count, may be anything.
+// multiples of 8 and a, b and out 16-byte aligned (the callers' routes and
+// allocations guarantee it; the dead tiles store 16 bytes at a time); k,
+// and m or n as a row count, may be anything.  rows: nullptr (every
+// row of out computed), or a device int array (batch,): the rows of out[z]
+// at or past rows[z] are stored as zeros and their tiles skip the mainloop.
 template <int BM, int BN, bool kAMnMajor = false, bool kBKMajor = false>
 cudaError_t launch(const void* a, const void* b, void* out, int batch, int m, int n, int k,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const int* rows = nullptr) {
   using T = Tile<BM, BN>;
   const int a_inner = kAMnMajor ? m : k, b_inner = kBKMajor ? k : n;
   if (batch <= 0 || batch > 65535 || m <= 0 || n <= 0 || k <= 0 || a_inner % 8 != 0 ||
       b_inner % 8 != 0 || n % 8 != 0 || (m + BM - 1) / BM > 65535 ||
-      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0)
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return cudaErrorInvalidValue;
   auto kern = gemm_kernel<BM, BN, kAMnMajor, kBKMajor>;
   static const cudaError_t attr =   // once per instantiation
@@ -236,8 +266,8 @@ cudaError_t launch(const void* a, const void* b, void* out, int batch, int m, in
                    : make_map(&tb, b, n, k, batch, kBoxN, kBK);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-  kern<<<grid, T::kThreads, T::kSmem, stream>>>(ta, tb, static_cast<__nv_bfloat16*>(out), m, n,
-                                                 k);
+  kern<<<grid, T::kThreads, T::kSmem, stream>>>(ta, tb, static_cast<__nv_bfloat16*>(out), rows,
+                                                 m, n, k);
   return cudaGetLastError();
 }
 

@@ -28,9 +28,16 @@ CUDA kernels of ``csrc/grouped_matmul.cu``.
   route (a caller may run it on a shape the tensor cores take, as the tests
   do); ``ops.grouped_matmul`` always follows ``gmm_route``.
 
+Row counts: ``rows``, a device int32 array (E,) of each expert's filled
+rows (the MoE dispatch's, where capacity pads every expert to cap), makes
+the rows of out[e] at or past rows[e] zeros, whatever x holds there.  Both
+routes skip those tiles' products and store their zeros, so three
+quarters of the tiles of a dropless forward at granite's training shape
+run no mainloop.
+
 A CUDA tensor goes to a kernel (or the wrapper raises); a CPU tensor goes
 to the plain version ``ref.grouped_matmul``; a ``meta`` tensor to a shape-only
-branch that counts the kernel's work (``meta.py``).
+branch that counts the kernel's work (``meta.py``, every row: dense).
 
 The gradient (``GroupedMatmul``; no TPU counterpart: the reference lets XLA
 differentiate its pure-jnp grouped matmul) is two more grouped matmuls on
@@ -41,7 +48,9 @@ bits), the CUDA-core route indexes them.  No transposed operand is copied.
 Both products take the forward's route (bf16 with d and f multiples of 8,
 x and w aligned: cap needs no multiple of 8, since dW's contraction over
 cap is a row count of TMA boxes) with the tiles of
-``autotune.gmm_bwd_schedules``.
+``autotune.gmm_bwd_schedules``.  The backward takes no row counts: it is
+the dense product's, the masked one's wherever dy's rows past the counts
+are zero, as the MoE's are (no kept pair reads them).
 """
 from __future__ import annotations
 
@@ -78,29 +87,31 @@ def _kernel(tc: bool = False):
         p, i = ctypes.c_void_p, ctypes.c_int
         if tc:
             fn = lib.grouped_matmul_tc_launch
-            fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         else:
             fn = lib.grouped_matmul_launch
-            fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
         _FN[tc] = fn
     return _FN[tc]
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int | None = None,
-                   tile: tuple | None = None) -> torch.Tensor:
-    """x: (E, cap, d) @ w: (E, d, f) -> (E, cap, f) in x's dtype, f32 sums.
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None, *,
+                   bm: int | None = None, tile: tuple | None = None) -> torch.Tensor:
+    """x: (E, cap, d) @ w: (E, d, f) -> (E, cap, f) in x's dtype, f32 sums;
+    with ``rows`` (E,) int32 on x's device, the rows of out[e] at or past
+    rows[e] are zeros.
 
     ``tile`` (a tile of ``GMM_TC_TILES``) runs the tensor cores, ``bm`` (a
     height of ``GMM_BM``) the CUDA cores; with neither, the fixed tile of
     the route ``gmm_route`` picks."""
     global launches, launches_tc
     if x.device.type == "cpu":
-        return grouped_matmul_plain(x, w)
+        return grouped_matmul_plain(x, w, rows)
     if x.device.type == "meta":
         _meta.add("grouped_matmul", *_meta.grouped_matmul(x, w))
         return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
-    out, tc = _launch(x, w, bm, tile)
+    out, tc = _launch(x, w, rows, bm, tile)
     launches += 1
     launches_tc += tc
     return out
@@ -116,10 +127,11 @@ def pom_tile(x: torch.Tensor, w: torch.Tensor) -> dict:
     return {"tile": (s.bm, s.bn, s.bk)} if s.route == TENSOR_CORES else {"bm": s.bm}
 
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+def _check(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None) -> None:
     """Raises on operands the kernels do not take: a device other than
     cuda, shapes that do not chain, mixed or unsupported dtypes, an operand
-    on another device or not contiguous."""
+    on another device or not contiguous, row counts that are not (E,)
+    int32 on x's device."""
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
@@ -131,12 +143,16 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"grouped_matmul: w on {w.device}, x on {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("grouped_matmul: x and w must be contiguous")
+    if rows is not None and (rows.shape != (x.shape[0],) or rows.dtype != torch.int32
+                             or rows.device != x.device or not rows.is_contiguous()):
+        raise ValueError(f"grouped_matmul: rows {rows.dtype}{tuple(rows.shape)} on "
+                         f"{rows.device}; need contiguous int32 ({x.shape[0]},) on {x.device}")
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, bm=None, tile=None) -> tuple:
+def _launch(x: torch.Tensor, w: torch.Tensor, rows=None, bm=None, tile=None) -> tuple:
     """One launch on CUDA tensors (not counted): (out, whether it took the
     tensor cores)."""
-    _check(x, w)
+    _check(x, w, rows)
     e, cap, d = x.shape
     f = w.shape[2]
     aligned = not (x.data_ptr() % 16 or w.data_ptr() % 16)
@@ -163,21 +179,23 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bm=None, tile=None) -> tuple:
                              "of 8")
     elif bm not in GMM_BM:
         raise ValueError(f"grouped_matmul: bm {bm} not in {GMM_BM}")
-    return _run(x, w, e, cap, d, f, _FORWARD, tile if tc else None, bm), tc
+    return _run(x, w, e, cap, d, f, _FORWARD, tile, bm, rows), tc
 
 
 def _run(x: torch.Tensor, w: torch.Tensor, e: int, m: int, k: int, n: int, layout: int,
-         tile, bm) -> torch.Tensor:
+         tile, bm, rows=None) -> torch.Tensor:
     """One launch of (e, m, k) @ (e, k, n) -> (e, m, n) in the operand
     ``layout`` (x and w as they lie), on the tensor-core ``tile`` or, where
-    it is None, the CUDA-core height ``bm``."""
+    it is None, the CUDA-core height ``bm``; the rows of out[e] at or past
+    ``rows[e]`` zeros where row counts are given."""
     out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    counts = None if rows is None else rows.data_ptr()
     if tile is not None:
-        rc = _kernel(True)(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, k, n, *tile,
-                           layout, stream)
+        rc = _kernel(True)(x.data_ptr(), w.data_ptr(), out.data_ptr(), counts, e, m, k, n,
+                           *tile, layout, stream)
     else:
-        rc = _kernel()(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, k, n, bm,
+        rc = _kernel()(x.data_ptr(), w.data_ptr(), out.data_ptr(), counts, e, m, k, n, bm,
                        _DTYPES[x.dtype], layout, stream)
     if rc != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {rc}")
@@ -228,17 +246,18 @@ def grouped_matmul_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
 class GroupedMatmul(torch.autograd.Function):
     """The grouped matmul with its gradient: the forward kernel, and
     ``grouped_matmul_backward`` on the saved x and w.
-    ``GroupedMatmul.apply(x, w, tile)``: ``tile`` is ``grouped_matmul``'s
+    ``GroupedMatmul.apply(x, w, tile, rows)``: ``tile`` is ``grouped_matmul``'s
     keyword arguments for the forward (``pom_tile``'s, or {} for the fixed
-    tile of the route)."""
+    tile of the route), ``rows`` its row counts or None.  The backward is
+    dense (the module docstring says when that is the masked product's)."""
 
     @staticmethod
-    def forward(ctx, x, w, tile):
+    def forward(ctx, x, w, tile, rows=None):
         ctx.save_for_backward(x, w)
-        return grouped_matmul(x, w, **tile)
+        return grouped_matmul(x, w, rows, **tile)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dx, dw = grouped_matmul_backward(x, w, dy, needs=tuple(ctx.needs_input_grad[:2]))
-        return dx, dw, None
+        return dx, dw, None, None

@@ -136,19 +136,22 @@ def decode_attention(q, k, v, *, length=None, schedule: str = "pom", return_lse:
     return _decode_cuda(q, k, v, length=length, splits=splits, return_lse=return_lse)
 
 
-def grouped_matmul(x, w, *, schedule: str = "pom"):
-    """x: (E, cap, d) @ w: (E, d, f) -> (E, cap, f) in x's dtype.
+def grouped_matmul(x, w, rows=None, *, schedule: str = "pom"):
+    """x: (E, cap, d) @ w: (E, d, f) -> (E, cap, f) in x's dtype; with
+    ``rows`` (E,) int32, each expert's filled rows, the rows of out[e] at or
+    past rows[e] are zeros and the kernels skip their products.
 
     Where autograd needs a gradient the call goes through ``GroupedMatmul``
-    (the same forward kernel, and the backward's dX and dW on it too)."""
+    (the same forward kernel, and the backward's dX and dW on it too, dense)."""
     _check(schedule)
     if _plain:
-        return ref.grouped_matmul(x, w)
+        return ref.grouped_matmul(x, w, rows)
     x, w = x.contiguous(), w.contiguous()
+    rows = None if rows is None else rows.contiguous()
     tile = {} if schedule == "naive" else _gmm_tile(x, w)   # naive: the route's fixed tile
     if _under_grad(x, w):
-        return GroupedMatmul.apply(x, w, tile)
-    return _gmm_cuda(x, w, **tile)
+        return GroupedMatmul.apply(x, w, tile, rows)
+    return _gmm_cuda(x, w, rows, **tile)
 
 
 def ssm_scan(x, a, b, c, *, schedule: str = "pom"):

@@ -268,10 +268,16 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     return x + 1
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-expert matmul in f32, cast to x's dtype.
-    x: (E, cap, d), w: (E, d, f) -> (E, cap, f)."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    x: (E, cap, d), w: (E, d, f) -> (E, cap, f); with row counts ``rows``
+    (E,), the rows of out[e] at or past rows[e] are zeros."""
+    out = torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    if rows is None:
+        return out
+    live = torch.arange(x.shape[1], device=x.device) < rows[:, None]
+    return torch.where(live[..., None], out, out.new_zeros(()))
 
 
 def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -10,7 +10,11 @@ order rather than by a scatter-add (the reference's ``.at[ssrc].add``): on
 the card ``index_add_`` adds with atomics in no fixed order, and with a
 near-uniform router the last bit of one sum can flip a later layer's expert
 choice.  The expert computation is three ``ops.grouped_matmul``
-calls, which pick the CUDA kernel or its plain version by device.
+calls, which pick the CUDA kernel or its plain version by device.  They
+take each expert's filled rows, min(count, cap) from the sort's expert
+starts (a kept pair's rank is its slot, so the filled slots of an expert
+are its first ones): the kernels skip the empty rows' products and store
+zeros there, which is what the empty rows computed before.
 Its three phases are the spans ``repro.moe.dispatch`` (router, aux loss,
 sort, ranks, the ``index_add_``), ``repro.moe.experts`` (the grouped
 matmuls and the gate) and ``repro.moe.combine``; while a sink records, the
@@ -154,13 +158,18 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, 
         flat_src = torch.arange(tg, device=x.device).repeat_interleave(k)
         order = torch.argsort(flat_e, stable=True)
         se, sg, ssrc = flat_e[order], flat_g[order], flat_src[order]
-        starts = torch.searchsorted(se, torch.arange(e, device=x.device), side="left")
+        bounds = torch.searchsorted(se, torch.arange(e + 1, device=x.device), side="left",
+                                    out_int32=True)           # each expert's start, then T*k
+        starts = bounds[:-1]
         rank = torch.arange(tg * k, device=x.device) - starts[se]
         keep = rank < cap
         # this rank's entries: its own tokens, and with experts over ``model``
         # its own experts; every other entry goes to the overflow row
         el = e // tp.size if tp is not None else e
         e0 = tp.rank * el if tp is not None else 0
+        # the filled rows of this rank's experts in the buffer the batch sum
+        # makes (global ranks: every batch shard's pairs)
+        rows = (bounds[e0 + 1:e0 + el + 1] - bounds[e0:e0 + el]).clamp_(max=cap)
         if parts > 1:
             keep = keep & (ssrc >= lo) & (ssrc < lo + t)
         if el < e:
@@ -181,8 +190,9 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, 
     # expert computation (grouped matmuls)
     with telemetry.span("repro.moe.experts"):
         wg, wi, wo = (C.param(w, tp) for w in (p.wg, p.wi, p.wo))
-        h = F.silu(ops.grouped_matmul(buf, wg)) * ops.grouped_matmul(buf, wi)
-        y = ops.grouped_matmul(h.to(x.dtype), wo)
+        # h's empty rows are silu(0) * 0 = 0, so the counts hold for wo too
+        h = F.silu(ops.grouped_matmul(buf, wg, rows)) * ops.grouped_matmul(buf, wi, rows)
+        y = ops.grouped_matmul(h.to(x.dtype), wo, rows)
         y = shard_hint(y, ("experts", "expert_cap", "embed"))
 
     # combine, in f32: each token's k contributions back in choice order and

@@ -238,6 +238,47 @@ def test_grouped_matmul_matches_pallas(e, cap, d, f, dtype):
     np.testing.assert_allclose(_np(got), _np(jref.grouped_matmul(x, w)), **_tol(dtype))
 
 
+# row counts of 4 experts at cap 64: none filled, partial tiles of 32 rows,
+# whole tiles (an empty expert among them), every row
+GMM_ROWS = {"empty": [0, 0, 0, 0], "partial_tile": [5, 37, 1, 63],
+            "whole_tiles": [32, 0, 64, 32], "cap": [64, 64, 64, 64]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("counts", list(GMM_ROWS))
+def test_grouped_matmul_rows_zero_past_the_counts(counts, dtype):
+    """With row counts, the output rows at or past each expert's count are
+    zeros though x holds non-zeros there, and the rows below are the dense
+    product's bits: in the plain version, in ``ops`` and in ``ops`` under
+    autograd (``GroupedMatmul``), whose gradient is the dense op's where x's
+    rows past the counts are zero."""
+    e, cap, d, f = 4, 64, 32, 48
+    rng = np.random.default_rng(cap + d)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(e, cap, d)).astype(np.float32)).to(dt)
+    w = torch.from_numpy((rng.normal(size=(e, d, f)) * d ** -0.5).astype(np.float32)).to(dt)
+    dy = torch.from_numpy(rng.normal(size=(e, cap, f)).astype(np.float32)).to(dt)
+    rows = torch.tensor(GMM_ROWS[counts], dtype=torch.int32)
+    live = torch.arange(cap)[None, :, None] < rows[:, None, None]
+    assert torch.all(x != 0)
+    want = torch.where(live, tref.grouped_matmul(x, w), torch.zeros((), dtype=dt))
+    leaves = [t.clone().requires_grad_(True) for t in (x, w)]
+    for got in (tref.grouped_matmul(x, w, rows), ops.grouped_matmul(x, w, rows),
+                ops.grouped_matmul(*leaves, rows)):
+        assert got.dtype == dt and got.shape == (e, cap, f)
+        assert torch.equal(got, want)
+    xz = torch.where(live, x, torch.zeros((), dtype=dt))      # x's rows past the counts zero
+    grads = []
+    for r in (rows, None):
+        leaves = [t.clone().requires_grad_(True) for t in (xz, w)]
+        out = ops.grouped_matmul(*leaves, r)
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+        out.backward(dy)
+        grads.append([t.grad for t in leaves])
+    for a, b, name in zip(*grads, ("x", "w")):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("e,cap,d,f", [(3, 37, 100, 70), (2, 320, 128, 256)])
 def test_grouped_matmul_ragged_matches_jax_ref(e, cap, d, f):
     """Capacities and widths no block divides (the port's kernel masks)."""
@@ -1641,6 +1682,12 @@ def test_gpu_new_wrappers_raise_on_unsupported_input():
     with pytest.raises(ValueError):
         gmm_mod.grouped_matmul(torch.zeros(2, 8, 4, device=dev), torch.zeros(2, 4, 4, device=dev),
                                bm=16)
+    for rows in (torch.zeros(2, dtype=torch.int64, device=dev),
+                 torch.zeros(3, dtype=torch.int32, device=dev),
+                 torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError):          # row counts not (E,) int32 on x's device
+            gmm_mod.grouped_matmul(torch.zeros(2, 8, 4, device=dev),
+                                   torch.zeros(2, 4, 4, device=dev), rows)
     x, a = torch.zeros(1, 8, 2, 4, device=dev), torch.ones(1, 8, 2, device=dev)
     bm = torch.zeros(1, 8, 2, 16, device=dev)
     with pytest.raises(TypeError):
@@ -1832,6 +1879,48 @@ def test_gpu_grouped_matmul_tensor_core_tiles_match_plain(case):
         torch.cuda.synchronize()
         assert gmm_mod.launches_tc == ntc + 1
         assert (got.float() - want).abs().max().item() <= tol
+
+
+# (E, cap, d, f, dtype) with partly filled experts: granite's forward shape
+# and a cap tail on the tensor cores, bf16 with f no multiple of 8 and f32 on
+# the CUDA cores
+GMM_ROWS_CASES = [(5, 640, 1024, 512, "bfloat16"), (5, 200, 72, 136, "bfloat16"),
+                  (5, 130, 64, 129, "bfloat16"), (5, 37, 100, 70, "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_ROWS_CASES)
+def test_gpu_grouped_matmul_rows_match_dense(case):
+    """Row counts (an empty expert, one row, a partial tile, 64 rows, every
+    row) on every tile of both routes the shape takes: the output is
+    bit-equal to the same tile's dense output on an x whose rows past the
+    counts are zero, though x holds NaN there, and within the tolerance of
+    the masked plain version; ``ops`` passes the counts on."""
+    dev = _cuda()
+    e, cap, d, f, dtype = case
+    g = torch.Generator(device=dev).manual_seed(e + cap + d + f)
+    dt = getattr(torch, dtype)
+    x = torch.randn(e, cap, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+    rows = torch.tensor([0, 1, cap // 2 + 3, min(64, cap), cap][:e], dtype=torch.int32,
+                        device=dev)
+    live = torch.arange(cap, device=dev)[None, :, None] < rows[:, None, None]
+    xz = torch.where(live, x, torch.zeros((), dtype=dt, device=dev))
+    xn = torch.where(live, x, torch.full((), float("nan"), dtype=dt, device=dev))
+    want = tref.grouped_matmul(x, w, rows).float()
+    runs = [{"bm": bm} for bm in autotune.GMM_BM]
+    if autotune.gmm_route(e, cap, d, f, x.element_size()) == autotune.TENSOR_CORES:
+        runs += [{"tile": t} for t in autotune.GMM_TC_TILES]
+    for kw in runs:
+        got = gmm_mod.grouped_matmul(xn, w, rows, **kw)
+        dense = gmm_mod.grouped_matmul(xz, w, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dense), kw
+        assert not torch.any(got.masked_select(~live)), kw
+        torch.testing.assert_close(got.float(), want, **_gmm_tol(dtype, d))
+    n0 = gmm_mod.launches
+    assert torch.equal(ops.grouped_matmul(xn, w, rows), ops.grouped_matmul(xz, w))
+    assert gmm_mod.launches == n0 + 2
 
 
 @pytest.mark.gpu

@@ -117,6 +117,84 @@ def test_grouped_matmul_gradient_matches_autograd_and_jax(e, cap, d, f, dtype):
         _close_of_max(_np(g), np.asarray(jw, np.float32), rel, name)
 
 
+@pytest.mark.parametrize("capacity_factor", [1.25, 4.0], ids=["dropping", "dropless"])
+def test_moe_apply_with_row_counts_is_bit_equal_to_dense(monkeypatch, capacity_factor):
+    """``moe_apply`` passes each expert's filled rows to its three grouped
+    matmuls; its output, aux loss and every gradient are the bits it gives
+    when the grouped matmuls compute every row (the empty rows were zeros
+    before and are zeros now), with experts at capacity and below it
+    (1.25) and dropless (4.0)."""
+    from repro_torch.models import moe as moe_mod
+    cfg = dataclasses.replace(reduced(get_config("granite_moe_1b")), d_model=64, d_ff=32,
+                              capacity_factor=capacity_factor)
+    p = moe_mod.MoE(cfg, "cpu")
+    p.reset_parameters(torch.Generator().manual_seed(5))
+    params = [t.requires_grad_(True) for t in p.parameters()]
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 24, cfg.d_model, generator=g)
+    # a direction every token shares crowds two experts past capacity at 1.25
+    x = (x + torch.randn(cfg.d_model, generator=g)).requires_grad_(True)
+    dy = torch.randn(2, 24, cfg.d_model, generator=g)
+    seen = []
+    dense = ops.grouped_matmul
+
+    def run():
+        out, aux = moe_mod.moe_apply(p, x, cfg)
+        return [out, aux, *torch.autograd.grad((out * dy).sum() + aux, [x, *params])]
+
+    def recording(a, b, rows=None, **kw):
+        seen.append(rows)
+        return dense(a, b, rows, **kw)
+
+    def without_rows(a, b, rows=None, **kw):
+        return dense(a, b, **kw)
+    monkeypatch.setattr(ops, "grouped_matmul", recording)
+    with_rows = run()
+    monkeypatch.setattr(ops, "grouped_matmul", without_rows)
+    without = run()
+    cap = moe_mod.capacity(2 * 24, cfg)
+    assert len(seen) == 3 and all(r is seen[0] for r in seen)
+    assert seen[0].dtype == torch.int32 and int(seen[0].min()) < cap      # rows skipped
+    if capacity_factor == 1.25:
+        assert int(seen[0].max()) == cap                                  # experts at capacity
+    else:
+        assert int(seen[0].sum()) == 2 * 24 * cfg.experts_per_token       # every pair kept
+    for a, b in zip(with_rows, without):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("capacity_factor", [0.5, 1.25, 4.0])
+def test_moe_row_counts_follow_the_routes(monkeypatch, capacity_factor):
+    """The row counts ``moe_apply`` gives its grouped matmuls are each
+    expert's kept pairs, min(count, cap), from the route's expert ids, at
+    capacities that drop most pairs, some, and none."""
+    from repro_torch.models import moe as moe_mod
+    cfg = dataclasses.replace(reduced(get_config("granite_moe_1b")), d_model=64, d_ff=32,
+                              capacity_factor=capacity_factor)
+    p = moe_mod.MoE(cfg, "cpu")
+    p.reset_parameters(torch.Generator().manual_seed(7))
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(8))
+    ids, seen = [], []
+    route, dense = moe_mod.route, ops.grouped_matmul
+
+    def routing(*a):
+        out = route(*a)
+        ids.append(out[2])
+        return out
+
+    def recording(a, b, rows=None, **kw):
+        seen.append(rows)
+        return dense(a, b, rows, **kw)
+    monkeypatch.setattr(moe_mod, "route", routing)
+    monkeypatch.setattr(ops, "grouped_matmul", recording)
+    moe_mod.moe_apply(p, x, cfg)
+    cap = moe_mod.capacity(2 * 40, cfg)
+    want = torch.bincount(ids[0].reshape(-1), minlength=cfg.num_experts).clamp(max=cap)
+    assert len(ids) == 1 and len(seen) == 3
+    for rows in seen:
+        assert rows.dtype == torch.int32 and torch.equal(rows.long(), want)
+
+
 def test_grouped_matmul_backward_skips_what_is_not_asked():
     x, w, dy = torch.randn(2, 8, 4), torch.randn(2, 4, 6), torch.randn(2, 8, 6)
     dx, dw = gmm_mod.grouped_matmul_backward(x, w, dy, needs=(False, True))
