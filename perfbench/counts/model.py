@@ -1,4 +1,6 @@
-"""Model FLOPs of a step, for the ``mfu`` metrics.
+"""Model FLOPs of a step, for the ``mfu`` metrics: the count of the
+references in ``REFERENCES`` (the repository's own blocks of those
+families) where no ``counts/model_<reference>.py`` names its own.
 
 6 N T for a train step and 2 N T for a prefill, where N counts the
 parameters a token is multiplied by (every projection it passes through:
@@ -10,6 +12,8 @@ not counted (under 2% of zamba2's)."""
 from __future__ import annotations
 
 from perfbench.counts.flash_attention_fwd import visible
+
+REFERENCES = ("dense", "moe", "hybrid")
 
 
 def _attn_params(cfg: dict) -> int:

@@ -29,7 +29,6 @@ from typing import List
 
 import torch
 
-from perfbench.counts import model as model_counts
 from perfbench.lib import trace as T
 from perfbench.lib.harness import log
 from perfbench.lib import weights
@@ -186,7 +185,8 @@ def run(ctx) -> dict:
             _sync(dev)
             return n
         trace = T.run_traced(window, ctx.spans)
-        trace.info = {"flops": sum(model_counts.prefill(cfg, 1, s) for s in sched[:n])}
+        trace.info = {"flops": sum(ctx.count.prefill(cfg, 1, s) for s in sched[:n])
+                      if ctx.count else None}
         out["trace"] = trace
     out.update(attempted=n, failed=0)
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated() if torch.cuda.is_available() \

@@ -24,7 +24,6 @@ from typing import Dict, List
 
 import torch
 
-from perfbench.counts import model as model_counts
 from perfbench.lib import trace as T
 from perfbench.lib.harness import log
 from perfbench.lib import weights
@@ -220,7 +219,8 @@ def run(ctx) -> dict:
             _sync(ctx.device)
             return n
         trace = T.run_traced(window, ctx.spans)
-        trace.info = {"flops": n * model_counts.train_step(ctx.config, tr["batch"], tr["seq"])}
+        trace.info = {"flops": n * ctx.count.train_step(ctx.config, tr["batch"], tr["seq"])
+                      if ctx.count else None}
         out.update(trace=trace, attempted=n, failed=0)
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated() if torch.cuda.is_available() \
         else 0

@@ -2,6 +2,14 @@
 the traffic kind's module, read the metrics, judge the readings, and make
 the result line.
 
+The pieces are found by their names (``lib/manifest.py``).  The
+configuration's ``reference`` (its ``family`` where it names none) picks
+both the plain reference, ``ctx.family``, and the model-FLOP count,
+``ctx.count`` (None where nothing counts that reference: the kinds then
+leave ``trace.info["flops"]`` None, and the ``mfu`` metrics read nothing).
+The program's config takes the file's fields as they stand, a cut
+(``reduced``) included.
+
 ``run_cell`` never looks for a card itself: ``run.py`` does that before it
 calls it, and the CPU tests call it with ``device="cpu"`` on small cells.
 """
@@ -17,7 +25,7 @@ from typing import Optional
 import torch
 
 from perfbench.lib import check
-from perfbench.lib.manifest import ROOT, Manifest
+from perfbench.lib.manifest import ROOT, Manifest, reference_name
 from perfbench.lib.trace import KernelSpan
 
 
@@ -37,9 +45,10 @@ def context(workload: str, seed: int, seconds: float, trace: bool, device: str =
     traffic = man.traffic(cell["traffic"])
     readers = {m["name"]: man.reader(m["name"]) for m in man.metrics("per_layer", workload)}
     spans = [r.SPAN for r in readers.values() if isinstance(getattr(r, "SPAN", None), KernelSpan)]
+    ref = reference_name(config)
     return SimpleNamespace(
         manifest=man, cell=cell, config=config, traffic=traffic, mcfg=program_config(config),
-        family=man.reference(config["family"]), kind=man.kind(traffic["kind"]),
+        family=man.reference(ref), count=man.model_count(ref), kind=man.kind(traffic["kind"]),
         limits=man.limits(workload), readers=readers, spans=spans, seed=int(seed),
         seconds=float(seconds), trace=bool(trace), device=torch.device(device),
         t0=time.perf_counter() if t0 is None else t0)

@@ -1,13 +1,30 @@
 """Finds everything of a cell by the names in ``BENCHMARK.json``.
 
 A configuration is ``perfbench/configs/<config>.json`` (the file the
-manifest names), a traffic mix ``perfbench/traffic/<traffic>.json``, the
-limits that decide ``correct`` ``perfbench/limits/<cell>.json``, a metric's
-reader ``perfbench/metrics/<name before the first dot>.py``, a traffic
-kind's module ``perfbench/kinds/<kind>.py`` and a family's reference
-``perfbench/reference/<family>.py``.  Each is looked up under the given
+manifest names, under the given root, else in the checkout), a traffic mix
+``perfbench/traffic/<traffic>.json``, the limits that decide ``correct``
+``perfbench/limits/<cell>.json``, a metric's reader
+``perfbench/metrics/<name before the first dot>.py`` and a traffic kind's
+module ``perfbench/kinds/<kind>.py``.  Each is looked up under the given
 root first, then beside this file, so a cell, a mix, a configuration or a
 metric is added as new files and new manifest entries alone.
+
+A configuration names its plain reference with ``"reference": "<name>"``
+(its ``family`` where it names none): ``perfbench/reference/<name>.py``.
+The same name finds its model-FLOP count, ``perfbench/counts/model_<name>.py``,
+else ``perfbench/counts/model.py`` where that module counts the reference
+(its ``REFERENCES``); a configuration with neither has no count, and its
+``mfu`` metrics read nothing.  A count module has ``train_step(cfg, batch,
+seq)`` and ``prefill(cfg, batch, seq)``.
+
+A configuration may be cut from the published model.  Each entry of its
+``reduced``, in ``BENCHMARK.json`` and in the file alike, starts with the
+key it cuts: in ``BENCHMARK.json`` the key alone, in the file it may go on
+(``"num_layers: 24 of 81, the first pipeline stage's share"``).  Both name
+the same keys, and the file's ``published`` block gives each one's
+published value.  The port's preset of the model holds the published
+values: the fields in which the file differs from it are exactly those
+named under ``changed_from_the_port_preset`` and those the file cuts.
 """
 from __future__ import annotations
 
@@ -17,10 +34,20 @@ import json
 import sys
 from pathlib import Path
 from types import ModuleType
-from typing import List
+from typing import List, Optional
 
 PKG = Path(__file__).resolve().parent.parent          # perfbench/
 ROOT = PKG.parent                                      # the checkout
+
+
+def reference_name(config: dict) -> str:
+    """The name of a configuration's plain reference and model count."""
+    return config.get("reference", config["family"])
+
+
+def cut_key(entry: str) -> str:
+    """The key an entry of ``reduced`` cuts: what comes before its first colon."""
+    return entry.split(":", 1)[0].strip()
 
 
 class Manifest:
@@ -44,7 +71,8 @@ class Manifest:
     def config(self, name: str) -> dict:
         for c in self.data["configs"]:
             if c["name"] == name:
-                return json.loads((self.root / c["file"]).read_text())
+                path = self.root / c["file"]
+                return json.loads((path if path.exists() else ROOT / c["file"]).read_text())
         raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
     def traffic(self, name: str) -> dict:
@@ -76,5 +104,13 @@ class Manifest:
     def kind(self, name: str) -> ModuleType:
         return self._module("kinds", name)
 
-    def reference(self, family: str) -> ModuleType:
-        return self._module("reference", family)
+    def reference(self, name: str) -> ModuleType:
+        return self._module("reference", name)
+
+    def model_count(self, reference: str) -> Optional[ModuleType]:
+        """The model-FLOP count of a reference, or None where none counts it."""
+        try:
+            return self._module("counts", f"model_{reference}")
+        except FileNotFoundError:
+            fallback = self._module("counts", "model")
+            return fallback if reference in fallback.REFERENCES else None

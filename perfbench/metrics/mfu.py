@@ -1,6 +1,8 @@
-"""``mfu.<kind>``: model FLOPs of the traced window's steps
-(``perfbench/counts/model.py``) over its wall time and the card's dense
-bf16 peak, in %.  The float32 unembedding is held to the same peak."""
+"""``mfu.<kind>``: model FLOPs of the traced window's steps (the
+configuration's count, ``perfbench/counts/model_<reference>.py`` or
+``model.py``) over its wall time and the card's dense bf16 peak, in %.
+The float32 unembedding is held to the same peak.  Nothing where the
+configuration has no count."""
 from __future__ import annotations
 
 from perfbench.lib import peaks

@@ -172,15 +172,18 @@ def init_kind(name: str, shape: Tuple[int, ...], cfg: dict) -> Tuple[str, float]
     initialisation, L the model's layers); the input embedding N(0, 1)
     (``torch.nn.Embedding``'s), so that the residual stream is O(1) and each
     block adds a small update to it, as in a trained model; the output table
-    (and a tied table) N(0, 0.02^2); the conv taps N(0, 0.1^2), norm scales 1, biases 0; Mamba2's step bias
+    (and a tied table) N(0, 0.02^2); the conv taps N(0, 0.1^2), norm scales 1, biases 0
+    (a leaf whose name starts with ``b`` or ends in ``_bias``); Mamba2's D skip
+    (``d_skip``) 1, as published; Mamba2's step bias
     the inverse softplus of a step drawn log-uniform in [1e-3, 1e-1] and
-    its decay rate log U(1, 16) (Mamba2's published initialisation)."""
+    its decay rate log U(1, 16) (Mamba2's published initialisation).  A
+    1-D leaf that none of these names raises ``ValueError``."""
     leaf = name.rsplit(".", 1)[-1]
-    if leaf == "scale":
+    if leaf in ("scale", "d_skip"):
         return "ones", 0.0
     if leaf in ("a_log", "dt_bias"):
         return leaf, 0.0
-    if leaf.startswith("b"):
+    if leaf.startswith("b") or leaf.endswith("_bias"):
         return "zeros", 0.0
     if name == "embed.tok" and not cfg["tie_embeddings"]:
         return "normal", 1.0
@@ -188,6 +191,8 @@ def init_kind(name: str, shape: Tuple[int, ...], cfg: dict) -> Tuple[str, float]
         return "normal", 0.02
     if leaf == "conv":
         return "normal", 0.1
+    if len(shape) < 2:
+        raise ValueError(f"no rule draws the {len(shape)}-D parameter {name}")
     std = shape[-2] ** -0.5
     if leaf in ("w_out", "wo"):
         std /= math.sqrt(2 * cfg["num_layers"])

@@ -1,7 +1,8 @@
 """The operation and byte counts of the rooflines, against numbers worked
-out by hand for one shape each, and the model FLOPs of the ``mfu``
-metrics against ``torch.utils.flop_counter.FlopCounterMode`` over the
-program's forward on a small configuration."""
+out by hand for one shape each, the model FLOPs of the ``mfu`` metrics
+against ``torch.utils.flop_counter.FlopCounterMode`` over the program's
+forward on a small configuration, and the rules by which the benchmark
+draws each parameter."""
 from __future__ import annotations
 
 
@@ -11,6 +12,7 @@ import torch
 from perfbench.counts import flash_attention_fwd, grouped_matmul_bwd, model, ssm_scan_bwd
 from perfbench.lib import peaks
 from perfbench.lib.harness import program_config
+from perfbench.reference.common import init_kind
 from perfbench.tests import tiny
 
 BF16 = torch.bfloat16
@@ -27,6 +29,27 @@ def test_scan_backward_by_hand():
     # db, dc written a head 320
     assert byts == 144 + 64 + 160 + 320 == 688
     assert peak == peaks.FLOPS_PER_S["tf32"]
+
+
+# B 4, S 4,096, 112 heads, P 64, N 64 (Zamba2-7B's scan at 4 x 4,096).  Every
+# case: x, dy read and dx written, 3 x 117,440,512 bf16 = 704,643,072; a read
+# and da written, 2 x 4 x 1,835,008 = 14,680,064.  b and c read a group,
+# 2 x 4 x 4 x 4,096 x G x 64: 8,388,608 for one group broadcast over the
+# heads, 16,777,216 for Zamba2-7B's two, 939,524,096 for one a head.  db and
+# dc written in b's shape, 2 x 4 x 4 x 4,096 x 64 a head or group: 939,524,096
+# a head (the broadcast group's gradient comes back a head), 16,777,216 for
+# two groups.
+@pytest.mark.parametrize("groups,byts", [(1, 1_667_235_840), (2, 752_877_568),
+                                         (112, 2_598_371_328)])
+def test_scan_backward_groups_by_hand(groups, byts):
+    x = torch.empty(4, 4096, 112, 64, dtype=BF16, device="meta")
+    a = torch.empty(4, 4096, 112, device="meta")
+    b = torch.empty(4, 4096, groups, 64, device="meta")
+    if groups == 1:
+        b = b.expand(4, 4096, 112, 64)
+    flops, got, _ = ssm_scan_bwd.count(x, a, b, b, x, None, None, (True,) * 4)
+    assert got == byts
+    assert flops == 12 * 7_516_192_768 + 2 * 1_835_008 == 90_197_983_232
 
 
 def test_grouped_matmul_backward_by_hand():
@@ -90,3 +113,24 @@ def test_model_flops_against_the_flop_counter(base):
     causal = model.attention_fwd(cfg, b, s)
     assert model.prefill(cfg, b, s) == 2 * model.applied_params(cfg) * t + causal
     assert causal == pytest.approx(square * (s + 1) / (2 * s))
+
+
+@pytest.mark.parametrize("name,shape,want", [
+    ("blocks.0.ln.scale", (32,), ("ones", 0.0)),
+    ("blocks.0.mamba.d_skip", (112,), ("ones", 0.0)),              # Mamba2's D, as published
+    ("blocks.0.mamba.conv_bias", (8192,), ("zeros", 0.0)),
+    ("blocks.0.attn.bq", (64,), ("zeros", 0.0)),
+    ("blocks.0.mamba.dt_bias", (112,), ("dt_bias", 0.0)),          # its own rule, not zeros
+    ("blocks.0.mamba.a_log", (112,), ("a_log", 0.0)),
+    ("blocks.0.mamba.conv", (4, 64), ("normal", 0.1)),
+    ("blocks.0.mamba.w_in", (32, 128), ("normal", 32 ** -0.5)),
+    ("blocks.0.l0.attn.wo", (64, 32), ("normal", 64 ** -0.5 / 2.0)),    # 1 / sqrt(2 x 2)
+    ("embed.tok", (256, 32), ("normal", 1.0))])
+def test_init_kind_rules(name, shape, want):
+    kind, std = init_kind(name, shape, {"num_layers": 2, "tie_embeddings": False})
+    assert kind == want[0] and std == pytest.approx(want[1], rel=1e-15)
+
+
+def test_init_kind_refuses_an_unnamed_1d_leaf():
+    with pytest.raises(ValueError, match="blocks.3.mamba.d_gain"):
+        init_kind("blocks.3.mamba.d_gain", (112,), {"num_layers": 2, "tie_embeddings": True})

@@ -1,19 +1,24 @@
 """The harness on the CPU, on small cells made from temporary files: a
-cell, a configuration, a traffic mix and a per-layer metric are added as
-new files and manifest entries alone; sound runs come out correct, and
-runs with the timed path broken underneath come out not correct."""
+cell, a configuration (with its own reference and model count, and cut in
+depth), a traffic mix and a per-layer metric are added as new files and
+manifest entries alone; sound runs come out correct, and runs with the
+timed path broken underneath come out not correct."""
 from __future__ import annotations
 
 import hashlib
 import os
 import subprocess
 import sys
+from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
 
-from perfbench.lib.harness import run_cell
+from perfbench.lib import peaks
+from perfbench.lib.harness import context, run_cell
 from perfbench.lib.manifest import PKG, ROOT
+from perfbench.metrics import mfu
 from perfbench.tests import tiny
 
 SEED = 2**31 + 977
@@ -52,6 +57,34 @@ def test_traced_run_reads_the_new_metric(root):
     assert set(r["metrics"]) == {"mfu.train", "steps_traced"}     # nothing on the card to read
     assert r["metrics"]["steps_traced"]["value"] == 2.0
     assert r["device"]["window_s"] > 0 and "breakdown" in r
+
+
+def test_a_configuration_names_its_reference_and_count(root):
+    """tiny_cut names ``tiny_ref``: its reference and its model count exist
+    only under the temporary root, and the traced run's ``mfu.train`` is
+    that count's."""
+    ctx = context("tiny_cut.train", SEED, 0.2, True, "cpu", root)
+    for mod in (ctx.family, ctx.count):
+        assert Path(mod.__file__).resolve().is_relative_to(root.resolve()), mod.__file__
+    assert ctx.mcfg.num_layers == 2
+    ctx.family.CALLS.clear()
+    r = run_cell("tiny_cut.train", SEED, 0.2, True, "cpu", root)
+    assert r["correct"], r["checks"]
+    assert ctx.family.CALLS == [(2, 16)] * 3            # the three checked steps' batches
+    steps = 2 * ctx.count.train_step(ctx.config, 2, 16)
+    assert r["metrics"]["mfu.train"]["value"] == pytest.approx(
+        100.0 * steps / (r["device"]["window_s"] * peaks.MODEL_PEAK), rel=1e-12)
+    family = context("tiny_hybrid.train", SEED, 0.2, True, "cpu", root)
+    assert family.count.__name__ == "perfbench.counts.model"      # the family's, as before
+
+
+def test_a_configuration_without_a_count_runs_traced(root):
+    ctx = context("tiny_uncounted.train", SEED, 0.2, True, "cpu", root)
+    assert ctx.count is None
+    r = run_cell("tiny_uncounted.train", SEED, 0.2, True, "cpu", root)
+    assert r["correct"], r["checks"]
+    assert set(r["metrics"]) == {"steps_traced"}
+    assert mfu.read("mfu.train", SimpleNamespace(info={"flops": None}, window_s=1.0)) is None
 
 
 def _unchanged_state(monkeypatch):

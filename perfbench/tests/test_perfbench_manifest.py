@@ -1,7 +1,9 @@
 """The manifest, BENCHMARK.json, against the benchmark's contract, and the
-data files it names."""
+data files it names; the checks of a cell's pieces, its configuration and
+its model count also on a root of small cells made from temporary files."""
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import re
@@ -10,7 +12,9 @@ import pytest
 import torch
 
 from perfbench.kinds import prefill, train
-from perfbench.lib.manifest import PKG, ROOT, Manifest
+from perfbench.lib.harness import program_config
+from perfbench.lib.manifest import PKG, ROOT, Manifest, cut_key, reference_name
+from perfbench.tests import tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -44,11 +48,13 @@ def test_names_and_units(section):
                 assert 1 <= len(e[key]) <= 200 and "\n" not in e[key] and "\t" not in e[key]
 
 
-def test_cells_name_their_pieces():
-    man = Manifest()
-    configs = {c["name"] for c in BENCH["configs"]}
+def check_pieces(man: Manifest) -> None:
+    """Every cell finds its traffic, kind, limits, configuration and the
+    reference its configuration names; every configuration is some cell's."""
+    bench = man.data
+    configs = {c["name"] for c in bench["configs"]}
     pairs = set()
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["config"] in configs and w["chips"] in (1, 4)
         assert (w["config"], w["traffic"]) not in pairs
@@ -56,10 +62,52 @@ def test_cells_name_their_pieces():
         traffic = man.traffic(w["traffic"])
         man.kind(traffic["kind"])
         assert man.limits(w["name"])["limits"]
-        cfg = man.config(w["config"])
-        man.reference(cfg["family"])
-    assert configs == {w["config"] for w in BENCH["workloads"]}
-    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(CELLS) // 4)
+        man.reference(reference_name(man.config(w["config"])))
+    assert configs == {w["config"] for w in bench["workloads"]}
+    cells = bench["workloads"]
+    assert sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4)
+
+
+def check_mfu_counts(man: Manifest) -> None:
+    """A cell that lists a metric of the ``mfu`` reader has a configuration
+    whose reference some model count counts."""
+    cells = {w["name"]: w for w in man.data["workloads"]}
+    for m in man.data["per_layer"]:
+        if m["name"].split(".", 1)[0] != "mfu":
+            continue
+        for cell in m.get("workloads", cells):
+            ref = reference_name(man.config(cells[cell]["config"]))
+            assert man.model_count(ref) is not None, f"{cell} lists {m['name']}: no count of {ref}"
+
+
+def check_config(entry: dict, data: dict, port: dict) -> None:
+    """The file holds the configuration run: every field of the port's
+    preset ``port`` (the published model), differing from it in exactly the
+    fields named under ``changed_from_the_port_preset`` and the keys the
+    file cuts; the manifest's ``reduced`` names the keys the file's does,
+    and the file's ``published`` block gives each one's published value."""
+    assert entry["file"].startswith("perfbench/configs/")
+    assert data["source"].startswith("https://")
+    cut = [cut_key(e) for e in data.get("reduced", [])]
+    assert sorted(entry["reduced"]) == sorted(cut), (entry["reduced"], cut)
+    assert all(NAME.match(key) for key in entry["reduced"]), entry["reduced"]
+    published = data.get("published", {})
+    for key in cut:
+        assert key in published, f"{key} is cut and its published value is not given"
+        assert data.get(key) != published[key], f"{key} is listed as cut and is not"
+    allowed = set(data.get("changed_from_the_port_preset", {})) | set(cut)
+    for key, value in port.items():
+        if key != "notes":
+            assert key in data, key
+            assert (data[key] != value) == (key in allowed), key
+
+
+def test_cells_name_their_pieces():
+    check_pieces(Manifest())
+
+
+def test_mfu_cells_have_a_model_count():
+    check_mfu_counts(Manifest())
 
 
 def test_metrics_moves_and_cells_agree():
@@ -92,15 +140,75 @@ def test_metrics_moves_and_cells_agree():
 def test_config_files_are_the_configurations_run(config):
     from repro_torch.configs import get_config
     entry = next(c for c in BENCH["configs"] if c["name"] == config)
-    assert entry["file"].startswith("perfbench/configs/") and entry["reduced"] == []
-    data = Manifest().config(config)
-    port = dataclasses.asdict(get_config(config))
-    changed = data.get("changed_from_the_port_preset", {})
-    for key, value in port.items():
-        if key != "notes":
-            assert key in data, key
-            assert (data[key] != value) == (key in changed), key
-    assert data["source"].startswith("https://")
+    check_config(entry, Manifest().config(config), dataclasses.asdict(get_config(config)))
+
+
+@pytest.fixture(scope="module")
+def tiny_root(tmp_path_factory):
+    return tiny.make_root(tmp_path_factory.mktemp("bench_manifest"))
+
+
+def _published_preset(data: dict) -> dict:
+    """A port preset holding the published model: the file with each key it
+    cuts put back to its published value."""
+    return dataclasses.asdict(program_config({**data, **data["published"]}))
+
+
+def test_a_tiny_root_passes_the_manifest_checks(tiny_root):
+    """Its cut configuration names a reference and a count that exist only
+    under the temporary root."""
+    man = Manifest(tiny_root)
+    check_pieces(man)
+    check_mfu_counts(man)
+    entry = next(c for c in man.data["configs"] if c["name"] == "tiny_cut")
+    data = man.config("tiny_cut")
+    assert entry["reduced"] == ["num_layers"] and data["reference"] == "tiny_ref"
+    check_config(entry, data, _published_preset(data))
+
+
+def test_an_mfu_cell_without_a_count_is_refused(tiny_root):
+    man = Manifest(tiny_root)
+    entry = next(m for m in man.data["per_layer"] if m["name"] == "mfu.train")
+    entry["workloads"] = entry["workloads"] + ["tiny_uncounted.train"]
+    with pytest.raises(AssertionError, match="tiny_uncounted.train lists mfu.train"):
+        check_mfu_counts(man)
+
+
+def _unlisted(entry, data):
+    data["d_ff"] *= 2
+
+
+def _unpublished(entry, data):
+    del data["published"]["num_layers"]
+
+
+def _not_in_the_manifest(entry, data):
+    entry["reduced"] = []
+
+
+def _not_cut(entry, data):
+    data["num_layers"] = data["published"]["num_layers"]
+
+
+@pytest.mark.parametrize("fault,match", [
+    pytest.param(None, None, id="cut"), pytest.param(_unlisted, "d_ff", id="unlisted"),
+    pytest.param(_unpublished, "published value", id="unpublished"),
+    pytest.param(_not_in_the_manifest, "num_layers", id="not_in_the_manifest"),
+    pytest.param(_not_cut, "listed as cut and is not", id="not_cut")])
+def test_reduced_names_every_cut(tiny_root, fault, match):
+    """A key cut and listed passes; a difference from the preset that no
+    entry names fails, as does a cut without its published value or left
+    out of the manifest's ``reduced``, or a key listed that is not cut."""
+    man = Manifest(tiny_root)
+    entry = copy.deepcopy(next(c for c in man.data["configs"] if c["name"] == "tiny_cut"))
+    data = man.config("tiny_cut")
+    port = _published_preset(data)
+    if fault is None:
+        check_config(entry, data, port)
+        return
+    fault(entry, data)
+    with pytest.raises(AssertionError, match=match):
+        check_config(entry, data, port)
 
 
 def test_traffic_is_a_function_of_the_seed():
