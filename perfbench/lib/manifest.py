@@ -23,8 +23,15 @@ key it cuts: in ``BENCHMARK.json`` the key alone, in the file it may go on
 (``"num_layers: 24 of 81, the first pipeline stage's share"``).  Both name
 the same keys, and the file's ``published`` block gives each one's
 published value.  The port's preset of the model holds the published
-values: the fields in which the file differs from it are exactly those
-named under ``changed_from_the_port_preset`` and those the file cuts.
+values: the fields in which the config the harness hands the program
+(``lib/harness.program_config``) differs from it are exactly those named
+under ``changed_from_the_port_preset`` and those the file cuts.  A file
+may leave out a field, which then takes the program's default; a key that
+is neither a field nor one of the file's own (``source``, ``reduced``,
+``deployment``, ``reference``, ``assumed``, ``published``,
+``changed_from_the_port_preset``) is refused.  So a field of the port's
+``ModelConfig`` whose default keeps every preset as it is may be added
+without editing any configuration file.
 """
 from __future__ import annotations
 
@@ -91,12 +98,13 @@ class Manifest:
         modname = f"perfbench.{sub}.{name}"
         if path == PKG / sub / f"{name}.py":
             return importlib.import_module(modname)
-        if modname not in sys.modules:
+        mod = sys.modules.get(modname)
+        if mod is None or Path(mod.__file__) != path:     # not yet, or another root's
             spec = importlib.util.spec_from_file_location(modname, path)
             mod = importlib.util.module_from_spec(spec)
             sys.modules[modname] = mod
             spec.loader.exec_module(mod)
-        return sys.modules[modname]
+        return mod
 
     def reader(self, metric: str) -> ModuleType:
         return self._module("metrics", metric.split(".", 1)[0])

@@ -1,12 +1,18 @@
 """The manifest, BENCHMARK.json, against the benchmark's contract, and the
 data files it names; the checks of a cell's pieces, its configuration and
-its model count also on a root of small cells made from temporary files."""
+its model count also on a root of small cells made from temporary files.
+
+A configuration is checked by the config the harness hands the program
+(``program_config``), so a field of the port's ``ModelConfig`` whose
+default keeps every preset as it is may be added without editing any
+configuration file."""
 from __future__ import annotations
 
 import copy
 import dataclasses
 import json
 import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -80,14 +86,32 @@ def check_mfu_counts(man: Manifest) -> None:
             assert man.model_count(ref) is not None, f"{cell} lists {m['name']}: no count of {ref}"
 
 
+# a configuration file's own keys, beside the fields of the program's config
+FILE_KEYS = {"source", "reduced", "deployment", "reference", "assumed", "published",
+             "changed_from_the_port_preset"}
+
+
+def _as_json(obj):
+    """As JSON gives it back: a tuple becomes a list."""
+    return json.loads(json.dumps(obj))
+
+
 def check_config(entry: dict, data: dict, port: dict) -> None:
-    """The file holds the configuration run: every field of the port's
-    preset ``port`` (the published model), differing from it in exactly the
-    fields named under ``changed_from_the_port_preset`` and the keys the
-    file cuts; the manifest's ``reduced`` names the keys the file's does,
-    and the file's ``published`` block gives each one's published value."""
+    """The file holds the configuration run.  Each key is a field of the
+    program's ``ModelConfig`` or one of the file's own (``FILE_KEYS``).  The
+    config the harness hands the program (the file's fields, the program's
+    default for any it leaves out) differs from the port's preset ``port``
+    (the published model) in exactly the fields named under
+    ``changed_from_the_port_preset`` and the keys the file cuts; the
+    manifest's ``reduced`` names the keys the file's does, and the file's
+    ``published`` block gives each one's published value."""
+    from repro_torch.configs.base import ModelConfig
     assert entry["file"].startswith("perfbench/configs/")
     assert data["source"].startswith("https://")
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    for key in data:
+        assert key in fields or key in FILE_KEYS, \
+            f"{key} is neither a field of the program's config nor a key of the file"
     cut = [cut_key(e) for e in data.get("reduced", [])]
     assert sorted(entry["reduced"]) == sorted(cut), (entry["reduced"], cut)
     assert all(NAME.match(key) for key in entry["reduced"]), entry["reduced"]
@@ -96,10 +120,10 @@ def check_config(entry: dict, data: dict, port: dict) -> None:
         assert key in published, f"{key} is cut and its published value is not given"
         assert data.get(key) != published[key], f"{key} is listed as cut and is not"
     allowed = set(data.get("changed_from_the_port_preset", {})) | set(cut)
-    for key, value in port.items():
+    run = _as_json(dataclasses.asdict(program_config(data)))
+    for key, value in _as_json(port).items():
         if key != "notes":
-            assert key in data, key
-            assert (data[key] != value) == (key in allowed), key
+            assert (run[key] != value) == (key in allowed), key
 
 
 def test_cells_name_their_pieces():
@@ -166,6 +190,15 @@ def test_a_tiny_root_passes_the_manifest_checks(tiny_root):
     check_config(entry, data, _published_preset(data))
 
 
+def test_each_root_finds_its_own_modules(tiny_root, tmp_path):
+    """Two roots in one process that hold a reference of the same name each
+    get their own, in turn."""
+    other = tiny.make_root(tmp_path)
+    for root in (tiny_root, other, tiny_root):
+        mod = Manifest(root).reference("tiny_ref")
+        assert Path(mod.__file__).is_relative_to(root), (mod.__file__, root)
+
+
 def test_an_mfu_cell_without_a_count_is_refused(tiny_root):
     man = Manifest(tiny_root)
     entry = next(m for m in man.data["per_layer"] if m["name"] == "mfu.train")
@@ -208,6 +241,60 @@ def test_reduced_names_every_cut(tiny_root, fault, match):
         return
     fault(entry, data)
     with pytest.raises(AssertionError, match=match):
+        check_config(entry, data, port)
+
+
+def _grown(monkeypatch):
+    """The port's ``ModelConfig`` grown by two defaulted fields, one of them a
+    tuple; the harness and the check take it as the program's config."""
+    import repro_torch.configs.base as base
+
+    @dataclasses.dataclass(frozen=True)
+    class Grown(base.ModelConfig):
+        ssm_groups: int = 1
+        hybrid_layers: tuple = ()
+
+    monkeypatch.setattr(base, "ModelConfig", Grown)
+    return Grown
+
+
+def _granite(grown, **preset):
+    from repro_torch.configs import get_config
+    entry = next(c for c in BENCH["configs"] if c["name"] == "granite_moe_1b")
+    port = dataclasses.asdict(grown(**{**dataclasses.asdict(get_config("granite_moe_1b")),
+                                       **preset}))
+    return entry, Manifest().config("granite_moe_1b"), port
+
+
+@pytest.mark.parametrize("case", ["granite", "tiny", "unset_field", "stray_key",
+                                  "tuple_field"])
+def test_a_grown_config_needs_no_file_edited(monkeypatch, tiny_root, case):
+    """With a field added to the port's config, granite's file and the tiny
+    root's pass as they stand; a preset whose new field is not its default
+    fails where the file leaves the field out; a file key that is no field
+    fails, named; a tuple field equals the file's list."""
+    grown = _grown(monkeypatch)
+    if case == "granite":
+        check_config(*_granite(grown))
+    elif case == "tiny":
+        man = Manifest(tiny_root)
+        check_pieces(man)
+        check_mfu_counts(man)
+        entry = next(c for c in man.data["configs"] if c["name"] == "tiny_cut")
+        data = man.config("tiny_cut")
+        check_config(entry, data, _published_preset(data))
+    elif case == "unset_field":
+        with pytest.raises(AssertionError, match="ssm_groups"):
+            check_config(*_granite(grown, ssm_groups=2))
+    elif case == "stray_key":
+        entry, data, port = _granite(grown)
+        data["ssm_group"] = 2
+        with pytest.raises(AssertionError, match="ssm_group is neither"):
+            check_config(entry, data, port)
+    else:
+        entry, data, port = _granite(grown, hybrid_layers=(6, 11))
+        data["hybrid_layers"] = [6, 11]
+        assert port["hybrid_layers"] == (6, 11) != data["hybrid_layers"]
         check_config(entry, data, port)
 
 
